@@ -1,0 +1,549 @@
+"""Dynamic micro-batcher: coalesce queued predict requests into one apply.
+
+Online inference arrives one small request at a time, but the accelerator's
+throughput comes from batched applies — the same tension the reference
+stack resolved for *training* with global batches.  This module is the
+serving-side resolution (r10 tentpole): requests queue as they arrive, a
+single batch thread coalesces them — up to ``max_batch`` rows, or whatever
+accumulated within ``max_wait_ms`` of the first request — and runs ONE
+jitted apply, then scatters the per-request output slices back to each
+waiting connection handler.
+
+Admission control: the number of in-system requests (queued + being
+batched + computing) is bounded by ``queue_depth``.  Past it, ``submit``
+raises :class:`Overloaded` IMMEDIATELY — the server answers an explicit
+OVERLOAD status so resilient clients back off / rotate to another replica,
+instead of piling requests onto a replica that can only grow its latency
+tail (the load-shedding half of the serving SLO).
+
+The batcher is model-agnostic: ``run_batch(items) -> results`` is the only
+coupling, so the unit tests drive it with plain functions and the model
+server plugs in the padded jitted apply.
+
+Sequence-slot batching (r19): :class:`SlotBatcher` is the second mode —
+for STATEFUL, VARIABLE-LENGTH work the row-wise padding model cannot
+express (autoregressive decode: a session lives for many steps, holds a
+KV cache, and ends at its own time).  Sessions occupy SLOTS of a
+fixed-width batch; one step thread advances every active slot together
+(``run_step(slots)`` — one jitted apply over the whole slot array), each
+session streams its emissions through a :class:`StreamTicket`, and a
+finished session frees its slot for the next queued one mid-flight.  The
+schema-keyed row batcher and the slot batcher coexist in one replica:
+stateless predicts coalesce rows, decode sessions occupy slots.
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+import time
+from collections import deque
+
+from ..utils import telemetry
+
+log = logging.getLogger("dtx.serve")
+
+
+class Overloaded(RuntimeError):
+    """Admission control refused the request: the replica's queue is full.
+    Clients should back off or try another replica."""
+
+
+class Ticket:
+    """One submitted request's future: ``result()`` blocks until the batch
+    containing it was applied, then returns this request's slice (or
+    re-raises the batch's error on the submitting side)."""
+
+    __slots__ = (
+        "rows", "key", "_event", "_value", "_error", "_callback",
+        "_cb_lock", "_resolved",
+    )
+
+    def __init__(self, rows: int, key=None):
+        self.rows = rows
+        self.key = key
+        self._event = threading.Event()
+        self._value = None
+        self._error: BaseException | None = None
+        self._callback = None
+        self._cb_lock = threading.Lock()
+        self._resolved = False
+
+    def _resolve(self, value=None, error: BaseException | None = None) -> None:
+        """First resolution wins; later calls are no-ops — that
+        idempotence is what makes an external timeout sweep (the model
+        server's wedged-apply backstop) safe against the genuine
+        resolution racing in late."""
+        with self._cb_lock:
+            if self._resolved:
+                return
+            self._resolved = True
+            self._value, self._error = value, error
+            cb, self._callback = self._callback, None
+        self._event.set()
+        if cb is not None:
+            self._run_callback(cb)
+
+    def _run_callback(self, cb) -> None:
+        """A consumer callback must never kill the RESOLVING thread — an
+        exception out of it would take down the batch thread (every
+        later predict hangs) or, on the synchronous register path, make
+        the core's worker send a SECOND error frame after the callback
+        already replied.  Contain it here, loudly."""
+        try:
+            cb(self._value, self._error)
+        except Exception:
+            log.exception("ticket on_resolve callback failed")
+
+    def on_resolve(self, fn) -> None:
+        """Register ``fn(value, error)`` to run when the batch containing
+        this ticket resolves (on the resolving thread) — the async-reply
+        hook the server core's bounded worker pool uses instead of
+        parking a thread in :meth:`result`.  A ticket that already
+        resolved calls ``fn`` immediately.  The register/resolve handoff
+        is lock-guarded so ``fn`` runs EXACTLY once no matter how the
+        two threads interleave (a double invocation would queue two
+        response frames for one request and desynchronize the
+        connection)."""
+        with self._cb_lock:
+            if not self._resolved:
+                self._callback = fn
+                return
+        self._run_callback(fn)
+
+    def result(self, timeout_s: float | None = None):
+        if not self._event.wait(timeout_s):
+            raise TimeoutError("batched apply did not complete in time")
+        if self._error is not None:
+            raise self._error
+        return self._value
+
+
+class DynamicBatcher:
+    """The coalescing loop.  ``run_batch(items: list) -> list`` runs on the
+    single batch thread and must return one result per item (in order);
+    an exception fails every request of that batch (each submitter sees
+    it), never the batcher itself.
+
+    ``max_batch``    row budget per apply; a request's ``rows`` that would
+                     overflow the current batch is carried into the next
+                     one (never split).  A single request larger than
+                     ``max_batch`` runs as its own batch.
+    ``max_wait_ms``  how long a non-full batch waits for more requests
+                     after its FIRST one arrived — the latency the first
+                     request pays to buy coalescing.
+    ``queue_depth``  max in-system requests before ``submit`` answers
+                     :class:`Overloaded`.
+    """
+
+    def __init__(
+        self, run_batch, *, max_batch: int = 32, max_wait_ms: float = 5.0,
+        queue_depth: int = 128, name: str = "serve",
+    ):
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        self._run = run_batch
+        self.max_batch = int(max_batch)
+        self.max_wait_s = max_wait_ms / 1e3
+        self.queue_depth = int(queue_depth)
+        self._q: queue.SimpleQueue = queue.SimpleQueue()
+        self._carry: Ticket | None = None  # would-overflow head of next batch
+        self._items: dict[Ticket, object] = {}
+        self._lock = threading.Lock()
+        self._inflight = 0
+        self._stopped = False
+        # Counters (read via stats(); writes under _lock or batch-thread-only).
+        self.requests = 0
+        self.overloads = 0
+        self.batches = 0
+        self.rows_batched = 0
+        self.flush_full = 0
+        self.flush_timeout = 0
+        self.last_batch_rows = 0
+        # Observability histograms (r13 dtxobs): in-system depth sampled at
+        # every admit, and rows per flushed batch — the coalescing-quality
+        # signals ``stats()`` flattens next to the counters (and the serve
+        # STATS scrape ships to dtxtop).  Instance-owned, not registry
+        # entries: two batchers in one process must not share a ring.
+        self.queue_depth_hist = telemetry.Histogram(f"{name}/queue_depth")
+        self.batch_rows_hist = telemetry.Histogram(f"{name}/batch_rows")
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name=f"dtx-{name}-batcher"
+        )
+        self._thread.start()
+
+    # -- producer side -------------------------------------------------------
+
+    def submit(self, item, rows: int = 1, key=None) -> Ticket:
+        """Enqueue one request (``rows`` = its leading-dim size, the unit
+        ``max_batch`` budgets).  Only requests with EQUAL ``key`` coalesce
+        into one apply (the model server keys by field schema, so one
+        malformed request can never poison a well-formed neighbour's
+        batch; a mismatched arrival ends the current batch and heads the
+        next one).  Raises :class:`Overloaded` when the in-system request
+        count is at ``queue_depth`` — the caller answers the explicit
+        OVERLOAD status instead of queuing unboundedly."""
+        t = Ticket(rows, key)
+        with self._lock:
+            if self._stopped:
+                raise RuntimeError("batcher is stopped")
+            if self._inflight >= self.queue_depth:
+                self.overloads += 1
+                raise Overloaded(
+                    f"{self._inflight} requests in flight (depth "
+                    f"{self.queue_depth})"
+                )
+            self._inflight += 1
+            self.requests += 1
+            self.queue_depth_hist.observe(self._inflight)
+            # Enqueue under the SAME lock that stop() takes to set
+            # _stopped: a ticket that passed the check above is therefore
+            # queued before the stop sentinel, so the drain loop always
+            # sees it and no submitter is left blocking on an unresolved
+            # ticket.
+            self._items[t] = item
+            self._q.put(t)
+        return t
+
+    def stats(self) -> dict:
+        with self._lock:
+            out = {
+                "requests": self.requests,
+                "overloads": self.overloads,
+                "batches": self.batches,
+                "rows_batched": self.rows_batched,
+                "flush_full": self.flush_full,
+                "flush_timeout": self.flush_timeout,
+                "last_batch_rows": self.last_batch_rows,
+                "inflight": self._inflight,
+                "max_batch": self.max_batch,
+                "queue_depth": self.queue_depth,
+            }
+        for k, v in self.queue_depth_hist.snapshot().items():
+            out[f"queue_depth_{k}"] = v
+        for k, v in self.batch_rows_hist.snapshot().items():
+            out[f"batch_rows_{k}"] = v
+        return out
+
+    def stop(self) -> None:
+        """Stop the batch thread; pending submitters see RuntimeError."""
+        with self._lock:
+            self._stopped = True
+        self._q.put(None)  # wake the collector
+        self._thread.join(timeout=10.0)
+
+    # -- the batch thread ----------------------------------------------------
+
+    def _next_ticket(self, timeout_s: float | None):
+        try:
+            return self._q.get(timeout=timeout_s)
+        except queue.Empty:
+            return None
+
+    def _collect(self) -> tuple[list[Ticket], bool] | None:
+        """Block for the first request, then coalesce until the row budget
+        fills or ``max_wait_ms`` passes.  Returns ``(batch, filled)`` or
+        None when stopping."""
+        if self._carry is not None:
+            first, self._carry = self._carry, None
+        else:
+            while True:
+                if self._stopped:
+                    return None
+                # The stop() wake sentinel arrives as a literal None — the
+                # same shape as a get() timeout, and handled the same way:
+                # loop around and observe _stopped.
+                first = self._next_ticket(0.2)
+                if first is not None:
+                    break
+        batch, rows = [first], first.rows
+        deadline = time.monotonic() + self.max_wait_s
+        while rows < self.max_batch:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            t = self._next_ticket(remaining)
+            if t is None:
+                break  # window expired (or the stop sentinel: flush now)
+            if t.key != first.key:
+                self._carry = t  # different schema: never co-batched
+                break
+            if rows + t.rows > self.max_batch:
+                self._carry = t  # head of the NEXT batch — never split
+                rows = self.max_batch
+                break
+            batch.append(t)
+            rows += t.rows
+        return batch, rows >= self.max_batch
+
+    def _loop(self) -> None:
+        while True:
+            got = self._collect()
+            if got is None:
+                break
+            batch, filled = got
+            items = [self._items.pop(t) for t in batch]
+            try:
+                results = self._run(items)
+                if len(results) != len(batch):
+                    raise RuntimeError(
+                        f"run_batch returned {len(results)} results for "
+                        f"{len(batch)} requests"
+                    )
+            except BaseException as e:  # noqa: BLE001 — re-raised per ticket
+                for t in batch:
+                    t._resolve(error=e)
+            else:
+                for t, r in zip(batch, results):
+                    t._resolve(value=r)
+            nrows = sum(t.rows for t in batch)
+            self.batch_rows_hist.observe(nrows)
+            with self._lock:
+                self._inflight -= len(batch)
+                self.batches += 1
+                self.rows_batched += nrows
+                self.last_batch_rows = nrows
+                if filled:
+                    self.flush_full += 1
+                else:
+                    self.flush_timeout += 1
+        # Drain: anything still queued (or carried) fails loudly on its
+        # submitter's side rather than hanging it.
+        err = RuntimeError("batcher stopped")
+        pending = [self._carry] if self._carry is not None else []
+        self._carry = None
+        while True:
+            try:
+                t = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if isinstance(t, Ticket):  # skip the stop() wake sentinel
+                pending.append(t)
+        with self._lock:
+            self._inflight -= len(pending)
+        for t in pending:
+            self._items.pop(t, None)
+            t._resolve(error=err)
+
+
+# ----------------------------------------------------------------------------
+# Sequence-slot batching (r19): stateful variable-length sessions
+# ----------------------------------------------------------------------------
+
+
+class StreamTicket:
+    """One decode session's stream: the step thread APPENDS emissions,
+    consumers read them by CURSOR (``snapshot(cursor)`` returns everything
+    from ``cursor`` on), so a replayed poll after a reconnect re-reads
+    instead of double-draining.  Terminal states: ``done`` (the session
+    produced its full budget) or an error (the step function raised — the
+    whole active batch fails, like the row batcher's contract)."""
+
+    __slots__ = ("state", "_emits", "_done", "_error", "_cancelled",
+                 "_lock", "_event")
+
+    def __init__(self, state):
+        self.state = state
+        self._emits: list = []
+        self._done = False
+        self._error: BaseException | None = None
+        self._cancelled = False
+        self._lock = threading.Lock()
+        self._event = threading.Event()
+
+    # -- step-thread side --
+    def _emit(self, items) -> None:
+        with self._lock:
+            self._emits.extend(items)
+        self._event.set()
+
+    def _finish(self, error: BaseException | None = None) -> None:
+        with self._lock:
+            if self._done:
+                return
+            self._done = True
+            self._error = error
+        self._event.set()
+
+    # -- consumer side --
+    def cancel(self) -> None:
+        """Ask the step thread to drop this session at its next step (or
+        before it ever takes a slot).  Idempotent."""
+        self._cancelled = True
+        self._finish(error=None)
+
+    @property
+    def done(self) -> bool:
+        return self._done
+
+    @property
+    def error(self) -> BaseException | None:
+        return self._error
+
+    def snapshot(self, cursor: int = 0) -> tuple[list, bool]:
+        """``(emissions[cursor:], done)`` — non-blocking, replay-safe (the
+        full emission list is retained for the session's lifetime; decode
+        budgets bound it).  Raises the session's error if it failed."""
+        with self._lock:
+            if self._error is not None:
+                raise self._error
+            return list(self._emits[max(0, int(cursor)):]), self._done
+
+    def wait(self, timeout_s: float | None = None) -> bool:
+        """Block until at least one emission (or a terminal state) since
+        the last ``wait``; True unless the timeout passed."""
+        ok = self._event.wait(timeout_s)
+        self._event.clear()
+        return ok
+
+
+class SlotBatcher:
+    """The sequence-slot step loop.  ``run_step(slots)`` runs on the one
+    step thread with ``slots`` a fixed-length list — ``StreamTicket`` for
+    an occupied slot, None for a free one — and returns a same-length
+    list whose occupied entries are ``(emits, done)``; a free slot's
+    entry is ignored.  The step function owns all cross-step state (KV
+    caches, positions) keyed by SLOT INDEX; the batcher owns occupancy,
+    admission and streaming.
+
+    ``slots``         fixed batch width of one step (the jit shape).
+    ``max_sessions``  admission bound on in-system sessions (active +
+                      queued); past it ``open`` raises :class:`Overloaded`
+                      (the same explicit-shed contract as ``submit``).
+    ``idle_wait_s``   how long the step thread parks when no slot is
+                      active.
+
+    An exception out of ``run_step`` fails every ACTIVE session (each
+    waiter sees it) and frees their slots — queued sessions then take
+    slots and run; the batcher itself never dies.
+    """
+
+    def __init__(
+        self, run_step, *, slots: int = 4, max_sessions: int = 64,
+        idle_wait_s: float = 0.2, name: str = "decode",
+    ):
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        self._run = run_step
+        self.slots = int(slots)
+        self.max_sessions = max(self.slots, int(max_sessions))
+        self._idle_wait_s = float(idle_wait_s)
+        self._slots: list[StreamTicket | None] = [None] * self.slots
+        self._queue: deque = deque()
+        self._fresh: set = set()  # tickets not yet seen by the step thread
+        self._lock = threading.Lock()
+        self._work = threading.Event()
+        self._stopped = False
+        # Counters (stats(); mutate under _lock or on the step thread).
+        self.sessions = 0
+        self.overloads = 0
+        self.steps = 0
+        self.emitted = 0
+        self.step_errors = 0
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name=f"dtx-{name}-slots"
+        )
+        self._thread.start()
+
+    # -- producer side -------------------------------------------------------
+
+    def open(self, state) -> StreamTicket:
+        """Admit one session (its ``state`` is whatever the step function
+        needs to seed a slot).  Raises :class:`Overloaded` past
+        ``max_sessions`` in-system."""
+        t = StreamTicket(state)
+        with self._lock:
+            if self._stopped:
+                raise RuntimeError("slot batcher is stopped")
+            active = sum(1 for s in self._slots if s is not None)
+            if active + len(self._queue) >= self.max_sessions:
+                self.overloads += 1
+                raise Overloaded(
+                    f"{active} active + {len(self._queue)} queued decode "
+                    f"sessions (bound {self.max_sessions})"
+                )
+            self.sessions += 1
+            self._queue.append(t)
+        self._work.set()
+        return t
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "slots": self.slots,
+                "slots_active": sum(1 for s in self._slots if s is not None),
+                "sessions_queued": len(self._queue),
+                "sessions": self.sessions,
+                "overloads": self.overloads,
+                "steps": self.steps,
+                "emitted": self.emitted,
+                "step_errors": self.step_errors,
+            }
+
+    def stop(self) -> None:
+        with self._lock:
+            self._stopped = True
+        self._work.set()
+        self._thread.join(timeout=10.0)
+
+    # -- the step thread -----------------------------------------------------
+
+    def _fill_slots(self) -> tuple[list, bool]:
+        """Seat queued sessions in free slots, drop cancelled ones;
+        returns ``(slots snapshot, any_active)``."""
+        with self._lock:
+            for i in range(self.slots):
+                t = self._slots[i]
+                if t is not None and (t._cancelled or t.done):
+                    self._slots[i] = None
+            while self._queue and any(s is None for s in self._slots):
+                t = self._queue.popleft()
+                if t._cancelled:
+                    continue
+                i = next(
+                    k for k, s in enumerate(self._slots) if s is None
+                )
+                self._slots[i] = t
+                self._fresh.add(t)
+            snapshot = list(self._slots)
+        return snapshot, any(s is not None for s in snapshot)
+
+    def _loop(self) -> None:
+        while True:
+            if self._stopped:
+                break
+            slots, active = self._fill_slots()
+            if not active:
+                self._work.wait(self._idle_wait_s)
+                self._work.clear()
+                continue
+            try:
+                results = self._run(slots)
+            except BaseException as e:  # noqa: BLE001 — re-raised per session
+                self.step_errors += 1
+                for t in slots:
+                    if t is not None:
+                        t._finish(error=e)
+                continue
+            self.steps += 1
+            for i, t in enumerate(slots):
+                if t is None:
+                    continue
+                self._fresh.discard(t)
+                emits, done = results[i]
+                if emits:
+                    self.emitted += len(emits)
+                    t._emit(emits)
+                if done:
+                    t._finish()
+        # Drain: every active and queued session fails loudly instead of
+        # hanging its poller.
+        err = RuntimeError("slot batcher stopped")
+        with self._lock:
+            pending = [s for s in self._slots if s is not None]
+            pending += [t for t in self._queue]
+            self._queue.clear()
+            self._slots = [None] * self.slots
+        for t in pending:
+            t._finish(error=err)

@@ -1,0 +1,309 @@
+"""dtxobs core (r13): process-wide metrics registry + event flight recorder.
+
+Every role in the cluster (PS task, data server, serve replica, chief,
+worker) accumulates its health into two process-wide singletons:
+
+- :data:`REGISTRY` — a thread-safe metrics registry of named counters,
+  gauges and BOUNDED histograms (ring of recent observations reduced to
+  p50/p90/p99 at snapshot time).  Instruments are cheap enough for the
+  wire hot path (one small lock + an int add per event; percentile math
+  is paid only by the scraper), and `snapshot()` flattens everything into
+  one JSON-ready ``{name: number}`` table — the payload each service's
+  ``STATS`` wire op answers, so one scraper (``tools/dtxtop.py``) can poll
+  a live cluster with zero side channels.
+- :data:`RECORDER` — a structured-event flight recorder: a bounded ring
+  of typed events (connects, reconnects, failovers, reseeds, injected
+  faults, divergence latches...).  ``utils/faults.log_event`` feeds every
+  structured ``dtx.faults`` line into it, so the ring IS the recent fault/
+  recovery history of the process; it is dumped to JSONL on demand and on
+  fatal conditions (``REPL_DIVERGED`` latches, reconnect-budget
+  exhaustion, injected deaths) so a post-mortem can attribute the failure
+  to its cause without having had logging configured in advance.
+
+Naming convention: ``<family>/<metric>`` (``ps_client/reconnects``,
+``ps_shard/pull_cache_hits``), so dashboards glob one prefix per
+subsystem.
+
+The dump directory resolves from the ``DTX_OBS_EVENTS_DIR`` env var
+(launchers export it from ``--obs_events_dir``); unset means on-fatal
+dumps are skipped (explicit ``dump(path=...)`` always writes).
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import threading
+import time
+
+#: Env var naming the flight-recorder dump directory (exported to every
+#: cluster child by the launchers from ``--obs_events_dir``).
+EVENTS_DIR_ENV = "DTX_OBS_EVENTS_DIR"
+
+
+class Counter:
+    """Monotone counter.  ``inc`` is thread-safe (Python int ``+=`` spans
+    several bytecodes, so the GIL alone does not make it atomic)."""
+
+    __slots__ = ("name", "_v", "_lock")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._v = 0
+        self._lock = threading.Lock()
+
+    def inc(self, n: int = 1) -> None:
+        with self._lock:
+            self._v += n
+
+    @property
+    def value(self) -> int:
+        return self._v
+
+    def _reset(self) -> None:
+        with self._lock:
+            self._v = 0
+
+
+class Gauge:
+    """Last-written value (queue depths, model steps, flags-as-metrics)."""
+
+    __slots__ = ("name", "_v", "_lock")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._v = 0.0
+        self._lock = threading.Lock()
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._v = float(v)
+
+    @property
+    def value(self) -> float:
+        return self._v
+
+    def _reset(self) -> None:
+        with self._lock:
+            self._v = 0.0
+
+
+class Histogram:
+    """Bounded ring of recent observations -> count/p50/p90/p99/max.
+
+    ``observe`` is O(1) under a lock; the percentile reduction (a sort of
+    at most ``capacity`` floats) runs only in :meth:`snapshot` — scrape
+    cost lives with the scraper, not the hot path."""
+
+    __slots__ = ("name", "_cap", "_buf", "_n", "_lock")
+
+    def __init__(self, name: str, capacity: int = 512):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.name = name
+        self._cap = int(capacity)
+        self._buf: list[float] = [0.0] * self._cap
+        self._n = 0  # total ever observed; ring index is _n % _cap
+        self._lock = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        with self._lock:
+            self._buf[self._n % self._cap] = float(v)
+            self._n += 1
+
+    @property
+    def count(self) -> int:
+        return self._n
+
+    def snapshot(self) -> dict[str, float]:
+        """``{count, p50, p90, p99, max}`` over the retained window (zeros
+        when nothing has been observed — scrapers still see the keys)."""
+        with self._lock:
+            m = min(self._n, self._cap)
+            window = sorted(self._buf[:m])
+            n = self._n
+        if not window:
+            return {"count": 0, "p50": 0.0, "p90": 0.0, "p99": 0.0, "max": 0.0}
+
+        def pct(p: float) -> float:
+            # Nearest-rank on the sorted window: cheap, monotone, and
+            # exact at the edges (p99 of a small window is its max).
+            i = min(len(window) - 1, max(0, round(p / 100 * (len(window) - 1))))
+            return window[i]
+
+        return {
+            "count": n,
+            "p50": pct(50),
+            "p90": pct(90),
+            "p99": pct(99),
+            "max": window[-1],
+        }
+
+    def _reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+
+class MetricsRegistry:
+    """Get-or-create instrument table.  Instrument handles are stable for
+    the process lifetime (hot paths cache them at module scope), so
+    :meth:`reset` ZEROES values instead of dropping instruments — a cached
+    handle keeps counting into the table the next snapshot reads."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counters: dict[str, Counter] = {}
+        self._gauges: dict[str, Gauge] = {}
+        self._hists: dict[str, Histogram] = {}
+
+    def counter(self, name: str) -> Counter:
+        with self._lock:
+            c = self._counters.get(name)
+            if c is None:
+                c = self._counters[name] = Counter(name)
+            return c
+
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            g = self._gauges.get(name)
+            if g is None:
+                g = self._gauges[name] = Gauge(name)
+            return g
+
+    def histogram(self, name: str, capacity: int = 512) -> Histogram:
+        with self._lock:
+            h = self._hists.get(name)
+            if h is None:
+                h = self._hists[name] = Histogram(name, capacity)
+            return h
+
+    # Convenience one-shot spellings (cold paths that don't cache handles).
+    def inc(self, name: str, n: int = 1) -> None:
+        self.counter(name).inc(n)
+
+    def set_gauge(self, name: str, v: float) -> None:
+        self.gauge(name).set(v)
+
+    def observe(self, name: str, v: float) -> None:
+        self.histogram(name).observe(v)
+
+    def snapshot(self) -> dict[str, float]:
+        """One flat JSON-ready table: counters and gauges verbatim,
+        histograms flattened as ``<name>_count/_p50/_p90/_p99/_max``."""
+        with self._lock:
+            counters = list(self._counters.values())
+            gauges = list(self._gauges.values())
+            hists = list(self._hists.values())
+        out: dict[str, float] = {}
+        for c in counters:
+            out[c.name] = c.value
+        for g in gauges:
+            out[g.name] = g.value
+        for h in hists:
+            for k, v in h.snapshot().items():
+                out[f"{h.name}_{k}"] = v
+        return out
+
+    def reset(self) -> None:
+        """Zero every instrument (test isolation; handles stay valid)."""
+        with self._lock:
+            instruments = (
+                list(self._counters.values())
+                + list(self._gauges.values())
+                + list(self._hists.values())
+            )
+        for i in instruments:
+            i._reset()
+
+
+#: The process-wide registry every role instruments onto.
+REGISTRY = MetricsRegistry()
+
+
+class FlightRecorder:
+    """Bounded ring of structured events, dumped to JSONL on demand.
+
+    ``record`` is the single write path (``faults.log_event`` calls it for
+    every ``dtx.faults`` line, so injected faults and recovery actions are
+    captured even when nothing is watching).  ``dump`` writes one JSONL
+    file — a ``dump`` header line carrying the reason, then every retained
+    event oldest-first — to an explicit path or into the
+    ``DTX_OBS_EVENTS_DIR`` directory; with neither configured it is a
+    no-op returning None, so fatal-path hooks are always safe to call."""
+
+    def __init__(self, capacity: int = 4096):
+        self._events: collections.deque = collections.deque(maxlen=capacity)
+        self._lock = threading.Lock()
+        self._dumps = 0
+
+    def record(self, event: str, **fields) -> None:
+        entry = {"ts": time.time(), "event": str(event), **fields}
+        with self._lock:
+            self._events.append(entry)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._events)
+
+    def events(self) -> list[dict]:
+        with self._lock:
+            return list(self._events)
+
+    @property
+    def dumps(self) -> int:
+        return self._dumps
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events.clear()
+
+    def dump(self, path: str | None = None, *, reason: str = "") -> str | None:
+        if path is None:
+            d = os.environ.get(EVENTS_DIR_ENV, "")
+            if not d:
+                return None
+            role = os.environ.get("DTX_FAULT_ROLE", "") or "proc"
+            path = os.path.join(d, f"flight-{role}-{os.getpid()}.jsonl")
+        events = self.events()
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(json.dumps(
+                {
+                    "ts": time.time(), "event": "dump", "reason": reason,
+                    "pid": os.getpid(), "retained": len(events),
+                },
+                default=str,
+            ) + "\n")
+            for e in events:
+                f.write(json.dumps(e, default=str) + "\n")
+        with self._lock:
+            self._dumps += 1
+        return path
+
+
+#: The process-wide flight recorder.
+RECORDER = FlightRecorder()
+
+
+def record_event(event: str, **fields) -> None:
+    """Module-level spelling of ``RECORDER.record`` (instrumentation
+    sites read better without the singleton plumbing)."""
+    RECORDER.record(event, **fields)
+
+
+def dump_flight_recorder(reason: str, path: str | None = None) -> str | None:
+    """Best-effort fatal-path dump: record the reason as its own event,
+    then dump the ring.  Never raises — the caller is already on an error
+    path and must not trade its diagnostic for an IO failure."""
+    try:
+        RECORDER.record("fatal", reason=reason)
+        return RECORDER.dump(path, reason=reason)
+    except Exception:
+        return None
+
+
+def snapshot() -> dict[str, float]:
+    """The process registry's flat table (module-level convenience for the
+    services' STATS handlers)."""
+    return REGISTRY.snapshot()
