@@ -1,7 +1,8 @@
 """Functional layers over plain dicts of tensors.
 
-The port of the two pieces of ``distributed_tensorflow_examples_tpu/
-models/layers.py`` the transformer's forward needs.  Kernels keep the JAX
+The port of the pieces of ``distributed_tensorflow_examples_tpu/
+models/layers.py`` the transformer needs: its forward's dense and
+embedding layers and its training loss.  Kernels keep the JAX
 [in, out] layout (``x @ W``), so a parameter tree crosses between the two
 packages without a transpose.
 """
@@ -36,3 +37,12 @@ def embedding_lookup(params, ids, *, dtype=None):
     rows = t[ids.clamp(0, n - 1)]
     rows = torch.where(valid[..., None], rows, torch.nan)
     return rows if dtype is None else rows.to(dtype)
+
+
+def softmax_cross_entropy(logits, labels):
+    """Mean cross-entropy: f32 logsumexp minus the gold logit, averaged
+    over every row (the JAX ``layers.softmax_cross_entropy``)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, forward only: the port of
+"""Decoder-only transformer LM, forward and training loss: the port of
 ``distributed_tensorflow_examples_tpu/models/transformer.py``.
 
 Pre-norm blocks, learned positional embedding, tanh-GELU MLP.  Params stay
@@ -11,19 +11,25 @@ registry vector moves between the packages as it is.
 Attention runs through the flash kernel when ``Config.attention`` asks for
 it (``"flash"``, or ``"auto"``/``"ulysses"`` where :func:`ops.flash_attention.
 flash_viable` holds) and through plain :func:`ops.attention.mha` otherwise.
+:func:`loss_fn` is the training loss (mean next-token cross-entropy),
+optionally over ``loss_chunks`` sequence chunks whose logits are
+recomputed in the backward, and with ``remat`` every block is
+recomputed in the backward (``torch.utils.checkpoint`` in the role of
+``jax.checkpoint``; a recomputed block launches its flash forward again).
 A mesh, pipeline stages and mixture-of-experts blocks come with the port's
-model-parallel slice; KV-cache decode with its decode slice; the loss and
-training with its training slice.
+model-parallel slice; KV-cache decode with its decode slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import attention as attn_ops
 from ..ops import flash_attention as flash_ops
@@ -34,9 +40,9 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """The JAX ``Config``: the same fields and defaults (the mesh, pipeline,
-    MoE, remat and loss fields are carried so a config reads the same in
-    both packages; see the module docstring for what this slice runs)."""
+    """The JAX ``Config``: the same fields and defaults (the pipeline and
+    MoE fields are carried so a config reads the same in both packages;
+    see the module docstring for what the port runs)."""
 
     vocab_size: int = 32000
     dim: int = 512
@@ -192,7 +198,11 @@ def _trunk(cfg: Config, params, x):
     h = layers.embedding_lookup(params["emb"], x, dtype=cfg.dtype)
     h = h + params["pos"]["table"][:T].to(cfg.dtype)[None]
     for i in range(cfg.n_layers):
-        h = _block(cfg, params[f"block_{i}"], h)
+        block_fn = functools.partial(_block, cfg, params[f"block_{i}"])
+        if cfg.remat and torch.is_grad_enabled():
+            h = checkpoint(block_fn, h, use_reentrant=False)
+        else:
+            h = block_fn(h)
     return _layernorm(params["ln_f"], h)
 
 
@@ -205,3 +215,55 @@ def apply(cfg: Config, params, x, *, mesh=None):
         )
     h = _trunk(cfg, params, x)
     return layers.dense(params["head"], h, dtype=cfg.dtype)
+
+
+def _chunked_ce(cfg: Config, head_p, h, y):
+    """Mean CE from hidden states without materialising [B, T, V] logits:
+    ``cfg.loss_chunks`` sequence chunks, each chunk's (head matmul in the
+    compute dtype -> f32 logsumexp - gold) under ``checkpoint`` so the
+    backward recomputes the chunk's logits instead of storing them.  The
+    same math as the dense :func:`layers.softmax_cross_entropy`, the
+    global mean regrouped."""
+    B, T, D = h.shape
+    c = cfg.loss_chunks
+    hc = h.reshape(B, c, T // c, D)
+    yc = y.reshape(B, c, T // c)
+
+    def one(hcb, ycb):
+        logits = layers.dense(head_p, hcb, dtype=cfg.dtype).to(torch.float32)
+        lz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ycb.long()[..., None])[..., 0]
+        return (lz - gold).sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(c):
+        tot = tot + checkpoint(one, hc[:, i], yc[:, i], use_reentrant=False)
+    return tot / (B * T)
+
+
+def loss_fn(cfg: Config, *, mesh=None):
+    """The train step's loss: ``f(params, model_state, batch, rng) ->
+    (loss, (model_state, metrics))`` with metrics ``loss`` and
+    ``perplexity`` (detached), as the JAX ``loss_fn`` builds it."""
+    _check_supported(cfg)
+    if mesh is not None:
+        raise NotImplementedError(
+            "a mesh waits for the port's model-parallel slice"
+        )
+
+    def f(params, model_state, batch, rng):
+        del rng  # the dense transformer draws no noise
+        x, y = batch["x"], batch["y"]
+        T = x.shape[1]
+        if cfg.loss_chunks > 1 and T % cfg.loss_chunks == 0:
+            h = _trunk(cfg, params, x)
+            ce = _chunked_ce(cfg, params["head"], h, y)
+        else:
+            logits = apply(cfg, params, x)
+            ce = layers.softmax_cross_entropy(
+                logits.reshape(-1, cfg.vocab_size), y.reshape(-1)
+            )
+        d = ce.detach()
+        return ce, (model_state, {"loss": d, "perplexity": torch.exp(d)})
+
+    return f

@@ -1,10 +1,11 @@
-"""Flash attention, forward: a hand-written CUDA kernel for Hopper and its
-plain PyTorch version.
+"""Flash attention, forward and split backward: hand-written CUDA kernels
+for Hopper and their plain PyTorch versions.
 
-The port of ``distributed_tensorflow_examples_tpu/ops/flash_attention.py``'s
-forward.  The kernel (``csrc/flash_fwd.cu``) replaces the Pallas TPU kernel
-``_fwd_kernel``; its source note says what bounds it on the card and how
-its design answers that.  The contract is the JAX one:
+The port of ``distributed_tensorflow_examples_tpu/ops/flash_attention.py``.
+The kernels replace the Pallas TPU kernels ``_fwd_kernel``
+(``csrc/flash_fwd.cu``), ``_dq_kernel`` and ``_dkv_kernel``
+(``csrc/flash_bwd.cu``); each source note says what bounds it on the card
+and how its design answers that.  The contract is the JAX one:
 
 - q, k, v fold to [B*H, T, D]; q is scaled once by ``log2(e)/sqrt(D)`` in
   its own dtype, and the online softmax runs in base 2 (``exp2``);
@@ -15,17 +16,26 @@ its design answers that.  The contract is the JAX one:
   partials that ring attention and the backward will merge), and ``lse``
   [B*H, T, 1] f32 in natural log: ``m*ln2 + log(l)``.
 
-:func:`fwd_call` runs the kernel on CUDA tensors and the plain version
-(:func:`fwd_plain`, the same algorithm tile by tile) on CPU tensors only.
-A CUDA tensor the kernel does not take raises; nothing falls back.  The
-backward kernels come with the training slice, so until then a CUDA input
-that requires grad raises too.
+- the backward (FA2) recomputes p = exp2(s - lse*log2(e)) from the saved
+  lse, with delta = rowsum(do*o) in f32 (:func:`compute_delta`), and
+  keeps the JAX operand casts: p enters p^T.do in do's dtype, ds enters
+  ds.k in k's dtype and ds^T.q in q's; dq is scaled by 1/sqrt(D) and dk
+  by 1/log2(e) at the end.
+
+:func:`fwd_call`, :func:`dq_call` and :func:`dkv_call` run the kernel on
+CUDA tensors and the plain version (:func:`fwd_plain`, :func:`dq_plain`,
+:func:`dkv_plain`: the same algorithm tile by tile) on CPU tensors only.
+A CUDA tensor the kernel does not take raises; nothing falls back.
+:func:`flash_attention` is differentiable through :class:`FlashAttention`,
+whose backward is the split one (dq, then dk/dv), as the JAX ``_bwd``
+runs it by default.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import torch
 
@@ -62,28 +72,43 @@ def _check(q, k, v, out_dtype):
         )
 
 
+def _device_of(name: str, q) -> str:
+    """``q``'s device type where a kernel wrapper accepts it: cpu (the
+    plain version) or cuda (the kernel)."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {q.device}")
+    return q.device.type
+
+
 def fwd_call(q, k, v, *, causal: bool, out_dtype=None):
     """``(o, lse)`` for q, k, v [BH, T, D]: the kernel on a CUDA tensor, the
     plain version on a CPU tensor, an error on anything else."""
     _check(q, k, v, out_dtype)
-    if q.device.type == "cpu":
+    if _device_of("flash_fwd", q) == "cpu":
         return fwd_plain(q, k, v, causal=causal, out_dtype=out_dtype)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd runs on cuda or cpu tensors, not {q.device}")
     return _fwd_cuda(q, k, v, causal=causal, out_dtype=out_dtype)
+
+
+def _cuda_checks(name: str, d: int, *tensors) -> None:
+    """What every kernel wrapper refuses: a head dim the kernel was not
+    instantiated for, or a non-contiguous operand."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel takes head dims {HEAD_DIMS}, got {d}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{name} kernel needs contiguous operands")
+
+
+def _raise_on(name: str, err: int, q, out_dtype) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed with cudaError_t {err} "
+            f"(shape {tuple(q.shape)}, {q.dtype} -> {out_dtype})"
+        )
 
 
 def _fwd_cuda(q, k, v, *, causal, out_dtype):
     bh, t, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd kernel takes head dims {HEAD_DIMS}, got {d}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_fwd kernel needs contiguous q, k, v")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash attention has no backward kernel yet (the training "
-            "slice adds it); call under torch.no_grad/inference_mode"
-        )
+    _cuda_checks("flash_fwd", d, q, k, v)
     out_dtype = out_dtype or q.dtype
     lib = _build.load("flash_fwd")
     fn = lib.dtx_flash_fwd
@@ -98,11 +123,7 @@ def _fwd_cuda(q, k, v, *, causal, out_dtype):
             _DTYPE_CODES[out_dtype], int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"flash_fwd kernel launch failed with cudaError_t {err} "
-            f"(shape {tuple(q.shape)}, {q.dtype} -> {out_dtype})"
-        )
+    _raise_on("flash_fwd", err, q, out_dtype)
     LAUNCHES["flash_fwd"] += 1
     return o, lse
 
@@ -147,6 +168,200 @@ def fwd_plain(q, k, v, *, causal: bool, out_dtype=None):
     return o, lse
 
 
+# ----------------------------------------------------------------------------
+# Backward (FA2): dq and dk/dv, the split backward
+# ----------------------------------------------------------------------------
+
+
+def compute_delta(do, o):
+    """FA2's delta = rowsum(do * o) in f32, [BH, T, 1]: a plain reduction
+    (the JAX package computes it outside any Pallas kernel too)."""
+    return (do.to(torch.float32) * o.to(torch.float32)).sum(dim=-1, keepdim=True)
+
+
+def _check_bwd(q, k, v, do, lse, delta, out_dtype):
+    _check(q, k, v, out_dtype)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(
+            f"do must match q's shape, dtype and device; got {tuple(do.shape)} "
+            f"{do.dtype} on {do.device} for q {tuple(q.shape)} {q.dtype}"
+        )
+    want = (q.shape[0], q.shape[1], 1)
+    for name, x in (("lse", lse), ("delta", delta)):
+        if tuple(x.shape) != want or x.dtype != torch.float32 or x.device != q.device:
+            raise ValueError(
+                f"{name} must be float32 {want} on {q.device}; got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}"
+            )
+
+
+def dq_call(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
+    """dq [BH, T, D] (in q's dtype, or ``out_dtype``) for q, k, v, do
+    [BH, T, D] and the forward's lse and :func:`compute_delta`'s delta
+    [BH, T, 1] f32: the kernel on a CUDA tensor, the plain version on a
+    CPU tensor, an error on anything else."""
+    _check_bwd(q, k, v, do, lse, delta, out_dtype)
+    if _device_of("flash_dq", q) == "cpu":
+        return dq_plain(q, k, v, do, lse, delta, causal=causal, out_dtype=out_dtype)
+    bh, t, d = q.shape
+    _cuda_checks("flash_dq", d, q, k, v, do, lse, delta)
+    out_dtype = out_dtype or q.dtype
+    fn = _build.load("flash_bwd").dtx_flash_dq
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dq = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, t, d,
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[out_dtype], int(bool(causal)),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _raise_on("flash_dq", err, q, out_dtype)
+    LAUNCHES["flash_dq"] += 1
+    return dq
+
+
+def dkv_call(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
+    """``(dk, dv)`` [BH, T, D] (in k's and v's dtype, or ``out_dtype``) for
+    the same inputs as :func:`dq_call`: the kernel on a CUDA tensor, the
+    plain version on a CPU tensor, an error on anything else."""
+    _check_bwd(q, k, v, do, lse, delta, out_dtype)
+    if _device_of("flash_dkv", q) == "cpu":
+        return dkv_plain(q, k, v, do, lse, delta, causal=causal, out_dtype=out_dtype)
+    bh, t, d = q.shape
+    _cuda_checks("flash_dkv", d, q, k, v, do, lse, delta)
+    out_dtype = out_dtype or k.dtype
+    fn = _build.load("flash_bwd").dtx_flash_dkv
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dk = torch.empty(k.shape, dtype=out_dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=out_dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, t, d, _DTYPE_CODES[q.dtype], _DTYPE_CODES[out_dtype],
+            int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _raise_on("flash_dkv", err, q, out_dtype)
+    LAUNCHES["flash_dkv"] += 1
+    return dk, dv
+
+
+def _bwd_operands(q, k, v, do, lse):
+    """The f32 views both plain versions work on: q scaled by
+    ``log2(e)/sqrt(D)`` in its own dtype (the fold), k, v, do widened, and
+    the base-2 lse."""
+    f32 = torch.float32
+    qs = q * torch.tensor((1.0 / math.sqrt(q.shape[-1])) * LOG2E, dtype=q.dtype)
+    return qs.to(f32), k.to(f32), v.to(f32), do.to(f32), lse * LOG2E
+
+
+def _probs(qs, kf, lse2, q0, q1, k0, k1, causal):
+    """p = exp2(s - lse2) for one (q tile, k tile) pair, [BH, bq, bk] f32,
+    with the diagonal tile's masked scores contributing exactly 0."""
+    s = qs[:, q0:q1] @ kf[:, k0:k1].transpose(1, 2)
+    masked = causal and k1 - 1 > q0
+    if masked:
+        qpos = torch.arange(q0, q1, device=qs.device)[:, None]
+        kpos = torch.arange(k0, k1, device=qs.device)[None, :]
+        s = s.masked_fill(kpos > qpos, NEG_INF)
+    p = torch.exp2(s - lse2[:, q0:q1])
+    if masked:
+        p = p * (s > NEG_INF / 2)
+    return p
+
+
+def dq_plain(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
+    """The dq kernel's algorithm in plain PyTorch, tile by tile: for each
+    ``BLOCK``-row q tile, a loop over k tiles that stops at the diagonal
+    when causal."""
+    _check_bwd(q, k, v, do, lse, delta, out_dtype)
+    bh, t, d = q.shape
+    f32 = torch.float32
+    qs, kf, vf, dof, lse2 = _bwd_operands(q, k, v, do, lse)
+    dq = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
+    for q0 in range(0, t, BLOCK):
+        q1 = min(q0 + BLOCK, t)
+        acc = torch.zeros((bh, q1 - q0, d), dtype=f32, device=q.device)
+        k_stop = q1 if causal else t  # causal: no tile above the diagonal
+        for k0 in range(0, k_stop, BLOCK):
+            k1 = min(k0 + BLOCK, t)
+            p = _probs(qs, kf, lse2, q0, q1, k0, k1, causal)
+            dp = dof[:, q0:q1] @ vf[:, k0:k1].transpose(1, 2)
+            ds = p * (dp - delta[:, q0:q1])
+            acc = acc + ds.to(k.dtype).to(f32) @ kf[:, k0:k1]
+        dq[:, q0:q1] = (acc * (1.0 / math.sqrt(d))).to(dq.dtype)
+    return dq
+
+
+def dkv_plain(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
+    """The dk/dv kernel's algorithm in plain PyTorch, tile by tile: for
+    each ``BLOCK``-row k tile, a loop over q tiles that starts at the
+    diagonal when causal."""
+    _check_bwd(q, k, v, do, lse, delta, out_dtype)
+    bh, t, d = q.shape
+    f32 = torch.float32
+    qs, kf, vf, dof, lse2 = _bwd_operands(q, k, v, do, lse)
+    dk = torch.empty(k.shape, dtype=out_dtype or k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=out_dtype or v.dtype, device=q.device)
+    for k0 in range(0, t, BLOCK):
+        k1 = min(k0 + BLOCK, t)
+        dk_acc = torch.zeros((bh, k1 - k0, d), dtype=f32, device=q.device)
+        dv_acc = torch.zeros((bh, k1 - k0, d), dtype=f32, device=q.device)
+        q_start = k0 if causal else 0  # causal: no tile above the diagonal
+        for q0 in range(q_start, t, BLOCK):
+            q1 = min(q0 + BLOCK, t)
+            p = _probs(qs, kf, lse2, q0, q1, k0, k1, causal)
+            dv_acc = dv_acc + p.to(do.dtype).to(f32).transpose(1, 2) @ dof[:, q0:q1]
+            dp = dof[:, q0:q1] @ vf[:, k0:k1].transpose(1, 2)
+            ds = p * (dp - delta[:, q0:q1])
+            dk_acc = dk_acc + ds.to(q.dtype).to(f32).transpose(1, 2) @ qs[:, q0:q1]
+        dk[:, k0:k1] = (dk_acc * (1.0 / LOG2E)).to(dk.dtype)
+        dv[:, k0:k1] = dv_acc.to(dv.dtype)
+    return dk, dv
+
+
+def _check_fused_bwd_env() -> None:
+    """``DTX_FUSED_BWD``, read as the JAX ``_fused_bwd_policy`` reads it:
+    '' or '0' keep the split backward; '1' asks for the fused kernel, which
+    the port does not have yet; any other value is a typo that must not
+    record a split-kernel run under a fused label."""
+    env = os.environ.get("DTX_FUSED_BWD", "")
+    if env not in ("", "0", "1"):
+        raise ValueError(f"DTX_FUSED_BWD={env!r}: must be '0' or '1'")
+    if env == "1":
+        raise NotImplementedError(
+            "DTX_FUSED_BWD=1: the fused backward kernel (B4, _fused_bwd_kernel) "
+            "is not ported yet; unset it or set 0 for the split dq/dkv kernels"
+        )
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention over folded q, k, v [BH, T, D] with the FA2 backward:
+    the port of the JAX ``_flash_bhd`` custom VJP.  The forward saves
+    (q, k, v, o, lse); the backward computes delta, then dq
+    (:func:`dq_call`) and dk/dv (:func:`dkv_call`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = fwd_call(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        _check_fused_bwd_env()
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = compute_delta(do, o)
+        dq = dq_call(q, k, v, do, lse, delta, causal=ctx.causal)
+        dk, dv = dkv_call(q, k, v, do, lse, delta, causal=ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_viable(t: int, device, head_dim: int) -> bool:
     """The ``attention="auto"`` gate: the kernel when the tensors live on a
     CUDA device and the kernel takes the shape (any T >= 1, a head dim in
@@ -156,8 +371,9 @@ def flash_viable(t: int, device, head_dim: int) -> bool:
 
 
 def flash_attention(q, k, v, *, causal: bool = False):
-    """Drop-in for ``ops.attention.mha``: q/k/v [B, H, T, D] -> [B, H, T, D]."""
+    """Drop-in for ``ops.attention.mha``: q/k/v [B, H, T, D] -> [B, H, T, D],
+    differentiable (:class:`FlashAttention`)."""
     B, H, T, D = q.shape
     fold = lambda x: x.reshape(B * H, T, D).contiguous()
-    o, _ = fwd_call(fold(q), fold(k), fold(v), causal=causal)
+    o = FlashAttention.apply(fold(q), fold(k), fold(v), bool(causal))
     return o.reshape(B, H, T, D)

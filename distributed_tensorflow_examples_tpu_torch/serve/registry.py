@@ -21,7 +21,7 @@ flat-param serving substrate):
 
 The port's copy of ``distributed_tensorflow_examples_tpu/serve/registry.py``
 with the same on-disk format: a version either package publishes loads in
-the other.  ``publish_from_checkpoint`` waits for the port's training slice.
+the other.
 
 Version ids are immutable: re-publishing an existing version is refused
 loudly (a deploy pipeline must mint a NEW version to change bytes — that
@@ -233,6 +233,28 @@ class ModelRegistry:
             name, version, step, flat.size, self.root,
         )
         return int(version)
+
+    def publish_from_checkpoint(
+        self, manager, template, name: str, *, version: int | None = None,
+        source: str = "checkpoint",
+    ) -> int:
+        """Publish the NEWEST checkpoint a ``train.checkpoint.
+        CheckpointManager`` holds: restore into ``template`` (a
+        TrainState, whose tensors take the checkpoint's values), flatten
+        the params half in registry order, publish.  Raises when the
+        manager holds no checkpoint."""
+        from ..train.checkpoint import flat_params_of
+
+        restored = manager.restore_latest(template)
+        if restored is None:
+            raise RegistryError(
+                f"checkpoint manager holds no step to publish as {name!r}"
+            )
+        step = manager.latest_step()
+        return self.publish(
+            name, flat_params_of(restored), step=int(step or 0), version=version,
+            source=source,
+        )
 
     # -- pins (lease-style refcount) ----------------------------------------
 
