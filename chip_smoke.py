@@ -8,7 +8,8 @@ it fails:
 
 1. Build: compile every CUDA kernel source in the checkout
    (``distributed_tensorflow_examples_tpu_torch/ops/csrc``: ``flash_fwd``,
-   ``flash_bwd``), one ``nvcc`` per source, all started together.
+   ``flash_bwd``, ``bn_stats``), one ``nvcc`` per source, all started
+   together.
 2. Kernels against their plain PyTorch versions on the card, at the shapes
    the main paths give them and at the edges the kernels must also take
    (ragged T, head dims 32/64, float32 in and out, non-causal), with the
@@ -16,7 +17,13 @@ it fails:
    bits on a second run.  Then each kernel, its plain version and the
    PyTorch call computing the same function (``scaled_dot_product_attention``
    and its backward, timed as a yardstick only; the port never calls
-   either) are timed with CUDA events at the main path's shape.
+   either) are timed with CUDA events at the main path's shape.  The
+   BatchNorm statistics kernels (``bn_stats``, ``bn_bwd_stats`` with and
+   without the ReLU mask) likewise, at ResNet-50's shapes and a ragged
+   f32 one, bitwise equal run to run, and timed against
+   ``torch.batch_norm_stats`` / ``torch.batch_norm_backward_reduce`` (the
+   yardsticks; the port calls neither) at the stem's shape and summed over
+   the 53 BatchNorm shapes of one training step.
 3. Serve end to end at full width: the flagship transformer (vocab 32000,
    dim 1024, 12 layers, 8 heads, T 2048, bf16), random weights from
    ``numpy.random.default_rng(0)`` at the JAX init's scales, published to
@@ -38,6 +45,20 @@ it fails:
    gradients from the initial weights on the first batch must match an
    ``attention="xla"`` step.  Last, one step under ``torch.profiler``
    gives the step's device time by kernel family and the idle share.
+5. Train ResNet-50 end to end at full width: 224 x 224, 1000 classes,
+   batch 256, bf16 compute, SGD momentum 0.9 at lr 0.1 (the example's
+   stepwise decay), l2 1e-4, on ``imagenet_synthetic`` (2048 train images,
+   the example's default: no cut), through ``examples.resnet50``'s
+   ``run_training`` with the fused statistics path switched on
+   (``loss_fn_factory=lambda mesh: resnet.loss_fn(cfg, mesh=mesh)``) for
+   ``RESNET_STEPS`` steps.  Loss finite, step 1 within 0.5 of ln(1000)
+   plus the l2 term of the initial weights, falling; 53 launches of each
+   BN kernel in every step and none in the eval; running stats moved.
+   One step from the same weights and batch through the fused path and
+   the plain-torch BatchNorm (float32, batch 64) must agree in loss and
+   per-leaf gradients, and the fused path may be no further than the
+   plain one from a float64 step.  Last, one bf16 step under
+   ``torch.profiler``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The run needs one card; it exits
@@ -92,6 +113,52 @@ TRAIN_BATCH = 8
 #: a scale, a cast) moves gradients by O(1).
 TOL_TRAIN_LOSS = 1e-2
 TOL_TRAIN_GRAD = 3e-2
+#: BN statistics kernels vs their plain versions: both sum f32 values in
+#: another order; each sum's error is below (terms added one after another)
+#: x 2^-24 x the sum of the terms' magnitudes, and no term here passes
+#: through more than ~1,200 serial additions (3,041 rows of a stem block over
+#: 32 row lanes, then 32 lanes, then 1,056 partials in 8 lanes), so 1e-4 of
+#: sum|x|, sum x^2, sum|do| and sum|do*xhat| per channel.  A fault (a
+#: dropped row, a wrong channel, a missed mask) is O(1) of that.
+TOL_BN = 1e-4
+#: The full-width ResNet-50 training phase.
+RESNET_STEPS = 6
+RESNET_BATCH = 256
+RESNET_IMAGE = 224
+#: Fused-statistics step vs plain-torch BatchNorm step from the same
+#: weights and batch, in float32 (TF32 off) at batch 64: the same math,
+#: sums in another order and the backward's dx from the closed form instead
+#: of autodiff through the statistics.  The loss agrees to f32 rounding.
+#: The gradients of the full network at this size do not: a BatchNorm's
+#: upstream gradient is nearly zero-mean per channel (the next BatchNorm
+#: took its mean out and the conv carried that through), so the BN
+#: scale/bias gradients and what flows below them are small sums of
+#: ~10^5-10^6 terms that cancel, and f32 resolves them to a few percent.
+#: On an H100 (700 W) both paths sat 2.4% and 2.7% (median per leaf; max
+#: 3.1% and 3.7%) from a run with float64 convolutions, and 2.6% (max 3.5%)
+#: from each other, while the head's gradient agreed to 3e-5; each path
+#: repeated itself bit for bit under cudnn.deterministic.  At the test
+#: suite's tiny size the two agree to 1e-5.  So the gate is relative: the
+#: fused path may be no further from a float64 step (f32 BN statistics,
+#: everything else in f64) than the plain path is.  A kernel fault (a
+#: dropped mask, a wrong sum) moves the BN gradients by O(1).  (In bf16 the plain path's
+#: BatchNorm gradients carry rounding of 10-40% of their size — the JAX
+#: package's own bf16 gradients differ that much from its f32 ones — so
+#: bf16 is reported, not gated.)
+RESNET_CMP_BATCH = 64
+TOL_RESNET_LOSS = 1e-3
+TOL_RESNET_GRAD = 0.1
+TOL_RESNET_HEAD = 1e-3
+#: The fused path's distance from a float64 step (median and max over the
+#: leaves) may be at most this multiple of the plain path's.
+TOL_RESNET_VS_F64 = 1.5
+#: Step 1's loss against ln(1000) + the l2 term of the initial weights.
+#: That sum assumes uniform logits; the random glorot head over 2048
+#: post-ReLU features gives logits of std ~1.2, which adds ~sigma^2 / 2 ~ 0.7
+#: to the cross-entropy (the JAX init's scales, so the JAX model starts
+#: there too; measured on an H100: 0.79).  A broken forward is off by far
+#: more, or not finite.
+TOL_RESNET_START = 1.0
 #: Device rows of a profile that are the profiler's own markers, not work.
 CUPTI_MARKERS = ("Command Buffer Full", "Activity Buffer Request")
 #: Kernel families of a training step's profile, by substrings of the
@@ -121,6 +188,26 @@ _TYPES = {"13__nv_bfloat16S1_": "bf16->bf16", "13__nv_bfloat16f": "bf16->f32",
           "f13__nv_bfloat16": "f32->bf16", "ff": "f32->f32"}
 
 
+def _kernel_instance(mangled: str) -> str:
+    """A readable name for a mangled kernel instance of the port's sources."""
+    import re
+
+    bn = re.search(r"(bn_(?:bwd_)?stats_(?:partial|finalize))", mangled)
+    if bn:
+        vec = re.search(r"Li(\d+)E", mangled)
+        relu = re.search(r"Lb(\d)E", mangled)
+        if bn.group(1).endswith("finalize"):
+            return bn.group(1)
+        dtype = "bf16" if "bfloat16" in mangled else "f32"
+        return (f"{bn.group(1)}<{dtype}, VEC={vec.group(1) if vec else '?'}"
+                + (f", RELU={relu.group(1)}>" if relu else ">"))
+    kernel = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)I", mangled)
+    d = re.search(r"Li(\d+)E", mangled)
+    types = next((v for k, v in _TYPES.items()
+                  if re.search(r"_kernelI" + re.escape(k), mangled)), "?")
+    return f"{kernel.group(1) if kernel else mangled}<{types}, D={d.group(1) if d else '?'}>"
+
+
 def ptxas_report(log_text: str) -> list[str]:
     """One line per kernel instance from nvcc's ``-Xptxas -v`` log: its
     registers and spills."""
@@ -130,12 +217,7 @@ def ptxas_report(log_text: str) -> list[str]:
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            mangled = m.group(1)
-            kernel = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)I", mangled)
-            d = re.search(r"Li(\d+)E", mangled)
-            types = next((v for k, v in _TYPES.items()
-                          if re.search(r"_kernelI" + re.escape(k), mangled)), "?")
-            name = f"{kernel.group(1) if kernel else mangled}<{types}, D={d.group(1) if d else '?'}>"
+            name = _kernel_instance(m.group(1))
             continue
         if "spill" in line:
             spill = line.split(":", 1)[-1].strip()
@@ -306,6 +388,169 @@ def time_flash_bwd(flash, bh, t, d, dtype, causal) -> dict:
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_bwd_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
     return out
+
+
+def resnet50_bn_shapes(batch: int, image: int) -> list[tuple[tuple, bool]]:
+    """(NHWC shape, relu) of every BatchNorm of one ResNet-50 v1.5 step, in
+    the order the forward runs them: the stem, then per bottleneck bn1 and
+    bn2 (ReLU), bn3 and, in each stage's first block, bn_proj (no ReLU)."""
+    side = image // 2  # after the stride-2 stem
+    out = [((batch, side, side, 64), True)]
+    side //= 2  # the max-pool
+    cin = 64
+    for stage, n_blocks in enumerate((3, 4, 6, 3)):
+        mid = 64 * 2 ** stage
+        for block in range(n_blocks):
+            stride = 2 if stage > 0 and block == 0 else 1
+            out.append(((batch, side, side, mid), True))
+            side //= stride
+            out.append(((batch, side, side, mid), True))
+            out.append(((batch, side, side, 4 * mid), False))
+            if cin != 4 * mid or stride == 2:
+                out.append(((batch, side, side, 4 * mid), False))
+            cin = 4 * mid
+    return out
+
+
+def bn_bound_ms(shape, dtype, *, backward: bool, relu: bool = False) -> tuple[float, str]:
+    """The least time for a BN statistics call: the activation (and, in
+    the backward, the upstream gradient) read once plus the (1, C) f32
+    vectors in and out, against its f32 operations at the f32 rate (3 an
+    element forward: add, multiply, add; backward 5: subtract, multiply,
+    add, multiply-add, plus 4 for the ReLU mask: multiply, add, compare,
+    multiply)."""
+    n = math.prod(shape)
+    c = shape[-1]
+    esize = torch.tensor([], dtype=dtype).element_size()
+    if backward:
+        nbytes, ops = 2 * n * esize + 6 * c * 4, (9 if relu else 5) * n
+    else:
+        nbytes, ops = n * esize + 2 * c * 4, 3 * n
+    ops_ms, bytes_ms = ops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _bn_inputs(bn, x, do):
+    """mean, inv, scale, bias for the backward statistics of x (eps 1e-5),
+    from the plain forward statistics."""
+    c = x.shape[-1]
+    s, ss = bn.bn_stats_plain(x)
+    n = x.numel() // c
+    mean = s[0] / n
+    inv = torch.rsqrt(torch.clamp(ss[0] / n - mean * mean, min=0.0) + 1e-5)
+    scale = torch.linspace(0.5, 1.5, c, device=x.device)
+    bias = torch.linspace(-1.0, 1.0, c, device=x.device)
+    return mean, inv, scale, bias
+
+
+def check_bn(bn, shape, dtype, seed: int) -> dict:
+    """bn_stats and bn_bwd_stats (relu on and off) vs their plain versions
+    on one input, held to ``TOL_BN`` per channel, and bitwise equal on a
+    second run; returns each kernel's max absolute error."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(shape, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+    do = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    c = shape[-1]
+    xf = x.float().reshape(-1, c)
+    got = bn.bn_stats(x)
+    torch.cuda.synchronize()
+    want = bn.bn_stats_plain(x)
+    scales = (xf.abs().sum(0), (xf * xf).sum(0))
+    rel = max((((a - b).abs() / m.clamp_min(1e-30)).max().item()
+               for a, b, m in zip(got, want, scales)))
+    err = {"bn_stats": max((a - b).abs().max().item() for a, b in zip(got, want))}
+    same = all(torch.equal(a, b) for a, b in zip(got, bn.bn_stats(x)))
+    mean, inv, scale, bias = _bn_inputs(bn, x, do)
+    dof = do.float().reshape(-1, c)
+    bscales = (dof.abs().sum(0), (dof * ((xf - mean) * inv)).abs().sum(0))
+    brel, err["bn_bwd_stats"] = {}, 0.0
+    for relu in (True, False):
+        got_b = bn.bn_bwd_stats(do, x, mean, inv, scale, bias, relu=relu)
+        torch.cuda.synchronize()
+        want_b = bn.bn_bwd_stats_plain(do, x, mean, inv, scale, bias, relu=relu)
+        brel[relu] = max((((a - b).abs() / m.clamp_min(1e-30)).max().item()
+                          for a, b, m in zip(got_b, want_b, bscales)))
+        err["bn_bwd_stats"] = max(err["bn_bwd_stats"],
+                                  *((a - b).abs().max().item() for a, b in zip(got_b, want_b)))
+        again = bn.bn_bwd_stats(do, x, mean, inv, scale, bias, relu=relu)
+        same = same and all(torch.equal(a, b) for a, b in zip(got_b, again))
+    log(
+        f"  bn_stats/bn_bwd_stats {list(shape)} {str(dtype)[6:]}: max |Δ| / per-channel "
+        f"scale: stats {rel:.3e}, bwd relu {brel[True]:.3e}, bwd no relu {brel[False]:.3e} "
+        f"(tol {TOL_BN:g}); max |Δ| stats {err['bn_stats']:.3e}, bwd "
+        f"{err['bn_bwd_stats']:.3e}; second run bitwise equal: {same}"
+    )
+    if not all(math.isfinite(r) and r <= TOL_BN for r in (rel, *brel.values())):
+        raise SystemExit(f"BN statistics kernels disagree with their plain versions at {shape}")
+    if not same:
+        raise SystemExit(f"BN statistics kernels are not deterministic run to run at {shape}")
+    return err
+
+
+def time_bn(bn, card: str) -> dict:
+    """Each BN kernel, its plain version and its PyTorch yardstick, timed
+    with CUDA events at the stem's shape and summed over the 53 BatchNorm
+    shapes of one ResNet-50 step at batch ``RESNET_BATCH``, with the bound
+    beside each.  The inputs are views of one buffer; a shape that fits the
+    50 MB L2 is read warm on repeats."""
+    shapes = resnet50_bn_shapes(RESNET_BATCH, RESNET_IMAGE)
+    dtype = torch.bfloat16
+    biggest = max(math.prod(sh) for sh, _r in shapes)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    xbuf = (torch.randn(biggest, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+    dbuf = torch.randn(biggest, device="cuda", generator=g).to(dtype)
+    out = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0) for k in
+           ("bn_stats", "bn_bwd_stats")}
+    stem = {}
+    for i, (shape, relu) in enumerate(shapes):
+        n = math.prod(shape)
+        x, do = xbuf[:n].view(shape), dbuf[:n].view(shape)
+        mean, inv, scale, bias = _bn_inputs(bn, x, do)
+        xc, dc = x.permute(0, 3, 1, 2), do.permute(0, 3, 1, 2)  # channels_last NCHW
+        lmean, linv = torch.batch_norm_stats(xc, 1e-5)
+        row = {
+            "bn_stats": (
+                time_ms(lambda: bn.bn_stats(x), iters=10),
+                time_ms(lambda: bn.bn_stats_plain(x), iters=3, warmup=1),
+                time_ms(lambda: torch.batch_norm_stats(xc, 1e-5), iters=10),
+                bn_bound_ms(shape, dtype, backward=False),
+            ),
+            "bn_bwd_stats": (
+                time_ms(lambda: bn.bn_bwd_stats(do, x, mean, inv, scale, bias, relu=relu), iters=10),
+                time_ms(lambda: bn.bn_bwd_stats_plain(do, x, mean, inv, scale, bias, relu=relu),
+                        iters=3, warmup=1),
+                # No ReLU mask in the yardstick: it reduces dy as given.
+                time_ms(lambda: torch.batch_norm_backward_reduce(
+                    dc, xc, lmean, linv, scale, True, True, True), iters=10),
+                bn_bound_ms(shape, dtype, backward=True, relu=relu),
+            ),
+        }
+        for k, (ms, plain_ms, lib_ms, (bound_ms, bound_by)) in row.items():
+            acc = out[k]
+            acc["ms"] += ms
+            acc["plain_ms"] += plain_ms
+            acc["library_ms"] += lib_ms
+            acc["bound_ms"] += bound_ms
+            if i == 0:
+                stem[k] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=bound_ms, bound_by=bound_by)
+    del xbuf, dbuf
+    result = {}
+    for k in out:
+        s0, acc = stem[k], out[k]
+        log(
+            f"  timing {k} at the stem {list(shapes[0][0])} bf16"
+            + (" relu" if k == "bn_bwd_stats" else "")
+            + f": kernel {s0['ms']:.4f} ms, plain {s0['plain_ms']:.4f} ms, torch "
+            f"{s0['library_ms']:.4f} ms, bound {s0['bound_ms']:.4f} ms ({s0['bound_by']}); "
+            f"over the step's {len(shapes)} shapes: kernel {acc['ms']:.3f} ms, plain "
+            f"{acc['plain_ms']:.3f} ms, torch {acc['library_ms']:.3f} ms, bound "
+            f"{acc['bound_ms']:.3f} ms"
+        )
+        result[k] = dict(s0, step_ms=acc["ms"], step_plain_ms=acc["plain_ms"],
+                         step_library_ms=acc["library_ms"], step_bound_ms=acc["bound_ms"])
+    log(f"  [{card}]")
+    return result
 
 
 def serve_end_to_end(card: str) -> dict:
@@ -647,12 +892,238 @@ def train_end_to_end(card: str, kernel_ms: dict) -> dict:
     return launches
 
 
+#: Kernel families of a ResNet-50 step's profile, by substrings of the
+#: kernel name, checked in this order.
+RESNET_FAMILIES = (
+    ("bn_stats", ("bn_stats_partial",)),
+    ("bn_bwd_stats", ("bn_bwd_stats_partial",)),
+    ("bn finalize (both)", ("bn_stats_finalize",)),
+    ("optimizer", ("sgd", "multi_tensor_apply")),
+    ("layout transform", ("nchwtonhwc", "nhwctonchw", "transpose")),
+    ("conv/cuDNN", ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad", "fprop",
+                    "sm90", "gemm", "cutlass", "nvjet")),
+    ("pool", ("pool",)),
+    ("reduce", ("reduce", "softmax", "logsumexp")),
+    ("copy/cast", ("copy", "memcpy", "memset", "fill", "pad")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def _leaf_rel_errors(a: list, b: list) -> list[float]:
+    return [((x.float() - y.float()).norm() / y.float().norm().clamp_min(1e-30)).item()
+            for x, y in zip(a, b)]
+
+
+def _one_step_grads(cfg, init, batch, mesh) -> tuple[float, list]:
+    """Loss and per-leaf gradients of one forward/backward from ``init``."""
+    from distributed_tensorflow_examples_tpu_torch.models import resnet
+    from distributed_tensorflow_examples_tpu_torch.train import state
+
+    params = state.as_param_leaves(init[0], "cuda")
+    mstate = state.as_state_leaves(init[1], "cuda")
+    loss, _ = resnet.loss_fn(cfg, mesh=mesh)(params, mstate, batch, None)
+    loss.backward()
+    grads = [p.grad for p in state.leaves(params)]
+    out = (loss.item(), grads)
+    del params, mstate, loss
+    return out
+
+
+def resnet_end_to_end(card: str) -> dict:
+    """Train, check, compare and profile ResNet-50 (the module docstring's
+    phase 5); returns the BN kernels' launch counts of the main path's run."""
+    import contextlib
+    import dataclasses as dc
+    import io
+
+    from distributed_tensorflow_examples_tpu_torch import bridge, ops
+    from distributed_tensorflow_examples_tpu_torch.data import streams
+    from distributed_tensorflow_examples_tpu_torch.examples import resnet50 as cli
+    from distributed_tensorflow_examples_tpu_torch.models import resnet
+    from distributed_tensorflow_examples_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from distributed_tensorflow_examples_tpu_torch.train import hooks, optim, state, step
+
+    class StepClock(hooks.Hook):
+        """Wall time, loss and BN kernel launches of every step; reading
+        the loss waits for the step's device work."""
+
+        def __init__(self):
+            self.steps: list = []
+
+        def begin(self, loop):
+            torch.cuda.synchronize()
+            self._t = time.perf_counter()
+            self._launches = dict(ops.LAUNCHES)
+
+        def after_step(self, loop, metrics):
+            loss = float(metrics["loss"])
+            now = time.perf_counter()
+            counts = {k: ops.LAUNCHES[k] - self._launches.get(k, 0)
+                      for k in ("bn_stats", "bn_bwd_stats")}
+            self.steps.append((loop.step, (now - self._t) * 1e3, loss, counts))
+            self._t, self._launches = now, dict(ops.LAUNCHES)
+
+    args = cli.build_parser().parse_args([
+        f"--batch_size={RESNET_BATCH}", f"--image_size={RESNET_IMAGE}", "--num_classes=1000",
+        f"--train_steps={RESNET_STEPS}", "--learning_rate=0.1", "--momentum=0.9",
+        "--log_every_steps=1", f"--seed={SEED}", "--device=cuda",
+    ])
+    cfg = cli.config_from_args(args)
+    init = resnet.init_numpy(cfg, SEED)
+    kernels = [k for k in resnet._kernels(init[0])]
+    l2_term = 1e-4 * float(sum(np.sum(np.square(k, dtype=np.float64)) for k in kernels))
+    n_bn = len(resnet50_bn_shapes(RESNET_BATCH, RESNET_IMAGE))
+    clock = StepClock()
+    ops.reset_launches()  # every count to 0 just before the main path
+    t0 = time.perf_counter()
+    final = io.StringIO()
+    with contextlib.redirect_stdout(final):
+        exp = cli.run_training(
+            args, loss_fn_factory=lambda mesh: resnet.loss_fn(cfg, mesh=mesh),
+            extra_hooks=[clock],
+        )
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)  # read just after the main path
+    final_line = [l for l in final.getvalue().splitlines() if l.startswith("FINAL ")]
+    log(f"  {final_line[0] if final_line else 'no FINAL line'}")
+    losses = [loss for _s, _ms, loss, _c in clock.steps]
+    log("  steps: " + ", ".join(
+        f"{s}: loss {loss:.4f} in {ms:.1f} ms, launches {c['bn_stats']}/{c['bn_bwd_stats']}"
+        for s, ms, loss, c in clock.steps
+    ))
+    want = n_bn * RESNET_STEPS
+    log(
+        f"  {RESNET_STEPS} steps of [{RESNET_BATCH}, {RESNET_IMAGE}, {RESNET_IMAGE}, 3] + eval "
+        f"in {wall:.1f} s (data, init, steps, eval); launches bn_stats "
+        f"{launches.get('bn_stats', 0)}, bn_bwd_stats {launches.get('bn_bwd_stats', 0)} "
+        f"(want {n_bn} x {RESNET_STEPS} = {want} each, none in the eval)"
+    )
+    if not final_line or "test_accuracy=" not in final_line[0]:
+        raise SystemExit("the ResNet run printed no FINAL line with test_accuracy")
+    if len(losses) != RESNET_STEPS or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"ResNet training losses not finite: {losses}")
+    start = math.log(1000) + l2_term
+    if abs(losses[0] - start) > TOL_RESNET_START or not losses[-1] < losses[0]:
+        raise SystemExit(
+            f"ResNet loss did not start within {TOL_RESNET_START} of ln(1000) + l2 = "
+            f"{start:.3f} and fall: {losses}"
+        )
+    if any(c != {"bn_stats": n_bn, "bn_bwd_stats": n_bn} for *_r, c in clock.steps) or any(
+        launches.get(k, 0) != want for k in ("bn_stats", "bn_bwd_stats")
+    ):
+        raise SystemExit(f"the ResNet path did not run each BN kernel {n_bn} times a step")
+    init_stats = [torch.from_numpy(np.asarray(v)).cuda() for v in state.leaves(init[1])]
+    moved = [(a - b).abs().max().item()
+             for a, b in zip(state.leaves(exp.state.model_state), init_stats)]
+    if not min(moved) > 0:
+        raise SystemExit("some BatchNorm running stats did not move in training")
+    ops.reset_launches()
+    exp.evaluate(exp.source.ds.test, eval_fn=cli.eval_fn_for(cfg))
+    if sum(ops.LAUNCHES.values()):
+        raise SystemExit(f"the eval (train=False) launched BN kernels: {dict(ops.LAUNCHES)}")
+    step_ms = float(np.median([ms for _s, ms, _l, _c in clock.steps[1:]]))
+    log(
+        f"  step 1 loss {losses[0]:.4f} (ln 1000 + l2 {start:.4f}, l2 term {l2_term:.4f}, "
+        f"tol {TOL_RESNET_START:g}); loss {losses[0] - losses[-1]:+.4f} lower after "
+        f"{RESNET_STEPS} steps; "
+        f"{len(moved)} running-stat leaves moved (least max |Δ| {min(moved):.3e}); eval "
+        f"launched no BN kernel; test metrics {exp.test_metrics}"
+    )
+    log(
+        f"  e2e: step {step_ms:.1f} ms (median of steps 2-{RESNET_STEPS}, host clock to the "
+        f"loss read), {RESNET_BATCH / (step_ms / 1e3):.0f} images/s [{card}]"
+    )
+    first_batch = next(streams.train_iter(exp.source, batch_size=RESNET_BATCH, seed=SEED))
+    del exp
+
+    # One step from the same weights and batch: fused statistics vs plain
+    # torch BatchNorm, float32 at batch RESNET_CMP_BATCH, each also against
+    # a float64 step (gated), then bf16 at the training batch (reported).
+    mesh = build_mesh(MeshSpec.parse("data=1"), "cuda")
+    paths = [p for p, _l in bridge._leaves(init[0])]
+    for dtype, b, gate in (("float32", RESNET_CMP_BATCH, True), ("bfloat16", RESNET_BATCH, False)):
+        c = dc.replace(cfg, compute_dtype=dtype)
+        batch = {k: torch.from_numpy(v[:b]).cuda() for k, v in first_batch.items()}
+        l_fused, g_fused = _one_step_grads(c, init, batch, mesh)
+        l_plain, g_plain = _one_step_grads(c, init, batch, None)
+        rels = _leaf_rel_errors(g_fused, g_plain)
+        worst = int(np.argmax(rels))
+        head = rels[paths.index("head/kernel")]
+        log(
+            f"  step 1, fused vs plain-torch BatchNorm ({dtype}, batch {b}): loss "
+            f"{l_fused:.6f} vs {l_plain:.6f} (|Δ| {abs(l_fused - l_plain):.2e}"
+            + (f", tol {TOL_RESNET_LOSS:g}" if gate else "")
+            + f"); per-leaf gradient error max {rels[worst]:.3e} at {paths[worst]}, median "
+            f"{float(np.median(rels)):.3e}, head {head:.3e}"
+            + (f" (tol {TOL_RESNET_GRAD:g}, head {TOL_RESNET_HEAD:g})" if gate
+               else " (reported, not gated)")
+        )
+        if gate:
+            _l64, g64 = _one_step_grads(dc.replace(cfg, compute_dtype="float64"), init, batch, None)
+            far = {name: _leaf_rel_errors(g, g64) for name, g in (("fused", g_fused),
+                                                                  ("plain", g_plain))}
+            log("  the same step against float64 convolutions and elementwise work: "
+                + "; ".join(f"{name} median {float(np.median(e)):.3e}, max {max(e):.3e}"
+                            for name, e in far.items())
+                + f" (the fused path no further than {TOL_RESNET_VS_F64:g}x the plain one)")
+            del g64
+        if gate and not (
+            abs(l_fused - l_plain) <= TOL_RESNET_LOSS and rels[worst] <= TOL_RESNET_GRAD
+            and head <= TOL_RESNET_HEAD
+            and all(f(far["fused"]) <= TOL_RESNET_VS_F64 * f(far["plain"]) for f in (np.median, max))
+        ):
+            raise SystemExit("the fused-statistics ResNet step disagrees with the plain one")
+        del g_fused, g_plain, batch
+
+    # Where a step's time goes: one full bf16 step at batch RESNET_BATCH
+    # (after a warm-up step) under torch.profiler.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    opt = optim.SGD(cli.lr_schedule(args), momentum=0.9)
+    st = state.create_state(lambda seed: init, opt, SEED, "cuda")
+    train_step = step.build_train_step(resnet.loss_fn(cfg, mesh=mesh), opt)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in first_batch.items()}
+    st, m = train_step(st, batch)
+    float(m["loss"])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st, m = train_step(st, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    families: dict = {}
+    kernels = []
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if us <= 0 or e.device_type != DeviceType.CUDA or e.key in CUPTI_MARKERS:
+            continue
+        kernels.append((us, e.count, e.key))
+        name = e.key.lower()
+        fam = next((f for f, keys in RESNET_FAMILIES if any(k in name for k in keys)), "other")
+        families[fam] = families.get(fam, 0.0) + us / 1e3
+    busy_ms = sum(families.values())
+    if busy_ms <= 0:
+        raise SystemExit("torch.profiler recorded no device time for the ResNet step")
+    log(
+        f"  profiled ResNet step: host {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.1%}); by family: "
+        + ", ".join(f"{k} {v:.1f} ms ({v / busy_ms:.1%})"
+                    for k, v in sorted(families.items(), key=lambda kv: -kv[1]))
+    )
+    for us, count, key in sorted(kernels, reverse=True)[:12]:
+        log(f"    {us / 1e3:8.2f} ms in {count:4d} launches  {key[:110]}")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     from distributed_tensorflow_examples_tpu_torch.ops import _build
+    from distributed_tensorflow_examples_tpu_torch.ops import bn
     from distributed_tensorflow_examples_tpu_torch.ops import flash_attention as flash
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -661,7 +1132,7 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     log("phase 1: build")
-    sources = ["flash_fwd", "flash_bwd"]
+    sources = ["flash_fwd", "flash_bwd", "bn_stats"]
     t0 = time.perf_counter()
     built = _build.build(sources)
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
@@ -700,6 +1171,15 @@ def main() -> int:
     time_flash(flash, 8, 2048, 128, torch.bfloat16, False)
     bwd = time_flash_bwd(flash, train_bh, 2048, 128, torch.bfloat16, True)
     log(f"  [{card}]")
+    # ResNet-50's BatchNorm shapes at batch 256 (the stem, a stage-0 bn3, a
+    # stage-3 bn3) and a ragged one (C = 24, not a multiple of 8).
+    bn_errs = [
+        check_bn(bn, (RESNET_BATCH, 112, 112, 64), torch.bfloat16, seed=11),
+        check_bn(bn, (RESNET_BATCH, 56, 56, 256), torch.bfloat16, seed=12),
+        check_bn(bn, (RESNET_BATCH, 7, 7, 2048), torch.bfloat16, seed=13),
+        check_bn(bn, (3, 5, 7, 24), torch.float32, seed=14),
+    ]
+    bn_times = time_bn(bn, card)
 
     log("phase 3: serve the flagship transformer end to end")
     serve_launches = serve_end_to_end(card)
@@ -707,6 +1187,9 @@ def main() -> int:
     log("phase 4: train the flagship transformer end to end")
     kernel_ms = {"flash_fwd": train_fwd["ms"], **{k: v["ms"] for k, v in bwd.items()}}
     train_launches = train_end_to_end(card, kernel_ms)
+
+    log("phase 5: train ResNet-50 end to end with the fused BatchNorm statistics")
+    resnet_launches = resnet_end_to_end(card)
 
     csrc = "distributed_tensorflow_examples_tpu_torch/ops/csrc"
     tpu = "distributed_tensorflow_examples_tpu/ops/flash_attention.py"
@@ -727,6 +1210,13 @@ def main() -> int:
             "launches_by_path": {"train": train_launches.get(name, 0)},
             "max_abs_err": max(e[name] for e in bwd_errs), **bwd[name],
         } for name, line in (("flash_dq", 211), ("flash_dkv", 244))),
+        *({
+            "name": name, "route": "cuda", "source": f"{csrc}/bn_stats.cu",
+            "replaces": f"distributed_tensorflow_examples_tpu/ops/bn.py:{line}",
+            "launches": resnet_launches.get(name, 0),
+            "launches_by_path": {"train_resnet50": resnet_launches.get(name, 0)},
+            "max_abs_err": max(e[name] for e in bn_errs), **bn_times[name],
+        } for name, line in (("bn_stats", 166), ("bn_bwd_stats", 239))),
     ]}
     log(card)
     log(json.dumps(record))

@@ -18,13 +18,22 @@ import numpy as np
 import torch
 
 
-def _leaves(tree, prefix=""):
-    """``(path, leaf)`` pairs in ``jax.tree`` order (dict keys sorted)."""
+def _items(tree, prefix=()):
+    """``(key path tuple, leaf)`` pairs in ``jax.tree`` order (dict keys
+    sorted), for any dict keys — a ResNet's ``"stage0/block0"`` included."""
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _leaves(tree[k], f"{prefix}{k}/")
+            yield from _items(tree[k], prefix + (k,))
     else:
-        yield prefix[:-1], tree
+        yield prefix, tree
+
+
+def _leaves(tree):
+    """``(path, leaf)`` pairs in ``jax.tree`` order, the path's keys joined
+    by ``/`` (a name for messages and checkpoint files, not for rebuilding
+    the tree: a key may hold a ``/`` itself)."""
+    for path, leaf in _items(tree):
+        yield "/".join(path), leaf
 
 
 def _shape(leaf) -> tuple:
@@ -36,7 +45,7 @@ def flat_param_spec(template):
     leaves are shape tuples (``models.transformer.param_shapes``), arrays
     or tensors.  ``unflatten(flat, device)`` copies the float32 vector to
     ``device`` once and returns the tree as views into that one buffer."""
-    paths, shapes = zip(*[(p, _shape(l)) for p, l in _leaves(template)])
+    paths, shapes = zip(*[(p, _shape(l)) for p, l in _items(template)])
     sizes = [int(np.prod(s)) if s else 1 for s in shapes]
     offsets = np.cumsum([0] + sizes).tolist()
     total = offsets[-1]
@@ -50,7 +59,7 @@ def flat_param_spec(template):
         flat = flat.to(device)
         tree: dict = {}
         for path, shape, a, b in zip(paths, shapes, offsets, offsets[1:]):
-            *parents, leaf = path.split("/")
+            *parents, leaf = path
             node = tree
             for key in parents:
                 node = node.setdefault(key, {})

@@ -1,3 +1,4 @@
-"""Input data of the port: the token corpora and the device infeed."""
+"""Input data of the port: the image and token datasets, the in-memory
+batch stream, the image-source resolution and the device infeed."""
 
-from . import datasets, pipeline  # noqa: F401
+from . import datasets, pipeline, streams  # noqa: F401

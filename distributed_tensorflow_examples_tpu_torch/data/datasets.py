@@ -1,19 +1,62 @@
-"""Token corpora for the transformer LM: a copy of the text-corpus part of
-``distributed_tensorflow_examples_tpu/data/datasets.py``.
+"""Datasets: a copy of the image (ImageNet-shaped synthetic) and
+text-corpus parts of ``distributed_tensorflow_examples_tpu/data/datasets.py``.
 
-Pure numpy, bit for bit the JAX package's (the same ids and batches from
-the same seed), so both packages train on identical streams.  With no
-corpus file under ``data_dir`` the stream is the deterministic synthetic
-one: Zipf-distributed tokens with bigram structure, so next-token loss
-has a learnable signal.
+Pure numpy, bit for bit the JAX package's (the same arrays, ids and
+batches from the same seed, the draws in the same order), so both packages
+train on identical streams.  The synthetic images are class-conditional
+Gaussian blobs; with no corpus file under ``data_dir`` the token stream is
+the deterministic synthetic one: Zipf-distributed tokens with bigram
+structure, so next-token loss has a learnable signal.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Iterator
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class ArrayDataset:
+    train: dict[str, np.ndarray]
+    test: dict[str, np.ndarray]
+    source: str  # "file:<path>" or "synthetic"
+    num_classes: int = 0
+    vocab: dict | None = None
+
+
+def _synth_image_splits(rng: np.random.Generator, n_train, n_test, h, w, c, num_classes):
+    """Class-conditional Gaussian blobs; train and test share the class
+    prototypes, so test accuracy is a generalisation signal."""
+    protos = rng.normal(0.0, 1.0, size=(num_classes, h, w, c)).astype(np.float32)
+
+    def draw(n):
+        y = rng.integers(0, num_classes, size=n).astype(np.int32)
+        x = 0.5 * protos[y] + rng.normal(0.0, 1.0, size=(n, h, w, c)).astype(np.float32)
+        return x, y
+
+    return draw(n_train), draw(n_test)
+
+
+def imagenet_synthetic(
+    *,
+    image_size: int = 224,
+    n_train: int = 2048,
+    n_test: int = 256,
+    num_classes: int = 1000,
+    seed: int = 0,
+) -> ArrayDataset:
+    """Synthetic ImageNet-shaped splits (the W3 ResNet-50 workload):
+    images [n, size, size, 3] float32 NHWC, labels int32."""
+    rng = np.random.default_rng(seed)
+    (xt, yt), (xe, ye) = _synth_image_splits(
+        rng, n_train, n_test, image_size, image_size, 3, num_classes
+    )
+    return ArrayDataset(
+        {"image": xt, "label": yt}, {"image": xe, "label": ye}, "synthetic", num_classes
+    )
 
 
 def _tokenize_corpus(words: list[str], vocab_size: int):

@@ -1,5 +1,9 @@
-"""Batch grouping and the host-to-device infeed: the one-device part of
-``distributed_tensorflow_examples_tpu/data/pipeline.py``.
+"""Batching, batch grouping and the host-to-device infeed: the one-process
+part of ``distributed_tensorflow_examples_tpu/data/pipeline.py``.
+
+:class:`InMemoryPipeline` gives the JAX pipeline's batches for the same
+seed on one process: epoch e's order is
+``default_rng((seed, e)).permutation(n)``.
 
 :func:`prefetch_to_device` takes ``prefetch_to_mesh``'s role: a
 background thread keeps ``depth`` batches queued, each field copied from
@@ -16,6 +20,32 @@ from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+
+
+class InMemoryPipeline:
+    """Shuffled, infinitely repeating batch stream over in-memory numpy
+    arrays (one process: every batch is ``batch_size`` rows; the ragged
+    end of an epoch is dropped)."""
+
+    def __init__(self, arrays: dict[str, np.ndarray], *, batch_size: int, seed: int = 0):
+        lengths = {k: len(v) for k, v in arrays.items()}
+        if len(set(lengths.values())) != 1:
+            raise ValueError(f"mismatched field lengths {lengths}")
+        self.fields = dict(arrays)
+        self.n = next(iter(lengths.values()))
+        if not 0 < batch_size <= self.n:
+            raise ValueError(f"batch_size {batch_size} must be in [1, {self.n}]")
+        self.batch_size = batch_size
+        self.seed = seed
+
+    def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
+        epoch = 0
+        while True:
+            order = np.random.default_rng((self.seed, epoch)).permutation(self.n)
+            for s in range(self.n // self.batch_size):
+                idx = order[s * self.batch_size : (s + 1) * self.batch_size]
+                yield {k: v[idx] for k, v in self.fields.items()}
+            epoch += 1
 
 
 def to_device(batch: dict, device) -> dict[str, torch.Tensor]:

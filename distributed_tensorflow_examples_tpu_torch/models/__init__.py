@@ -1,3 +1,3 @@
 """Models of the port (plain functions over dicts of tensors)."""
 
-from . import layers, transformer  # noqa: F401
+from . import layers, resnet, transformer  # noqa: F401

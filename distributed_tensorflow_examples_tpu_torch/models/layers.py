@@ -1,15 +1,68 @@
 """Functional layers over plain dicts of tensors.
 
 The port of the pieces of ``distributed_tensorflow_examples_tpu/
-models/layers.py`` the transformer needs: its forward's dense and
-embedding layers and its training loss.  Kernels keep the JAX
-[in, out] layout (``x @ W``), so a parameter tree crosses between the two
-packages without a transpose.
+models/layers.py`` the transformer and ResNet need: initialisers (numpy, at
+the JAX scales), dense, conv2d, batchnorm, embedding, the training loss and
+accuracy.  Parameters keep the JAX layouts — dense kernels [in, out], conv
+kernels HWIO, activations NHWC — so a tree or a flat registry vector
+crosses between the two packages without a transpose.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+from ..ops import bn as bn_ops
+
+# ----------------------------------------------------------------------------
+# Initialisers (numpy ``Generator`` draws; JAX draws other numbers from its
+# own keys, so what matches is the distribution and the tree)
+# ----------------------------------------------------------------------------
+
+
+def glorot_uniform(rng: np.random.Generator, shape):
+    """U[-l, l], l = sqrt(6 / (fan_in + fan_out)) over the last two dims."""
+    limit = math.sqrt(6.0 / (shape[-2] + shape[-1]))
+    return rng.uniform(-limit, limit, shape).astype(np.float32)
+
+
+def he_normal_conv(rng: np.random.Generator, shape):
+    """He init for HWIO conv kernels (fan_in = h*w*cin)."""
+    std = math.sqrt(2.0 / (shape[0] * shape[1] * shape[2]))
+    return (std * rng.standard_normal(shape)).astype(np.float32)
+
+
+def dense_init(rng, in_dim: int, out_dim: int, *, use_bias: bool = True):
+    """Glorot-uniform kernel [in, out] (the JAX default), zero bias."""
+    p = {"kernel": glorot_uniform(rng, (in_dim, out_dim))}
+    if use_bias:
+        p["bias"] = np.zeros((out_dim,), np.float32)
+    return p
+
+
+def conv_init(rng, kh: int, kw: int, cin: int, cout: int, *, use_bias: bool = True):
+    p = {"kernel": he_normal_conv(rng, (kh, kw, cin, cout))}
+    if use_bias:
+        p["bias"] = np.zeros((cout,), np.float32)
+    return p
+
+
+def batchnorm_init(c: int, *, ghost_slices: int = 0):
+    """(params, stats): unit scale, zero bias; running mean 0, var 1, with a
+    leading per-slice dim [S, C] when ``ghost_slices > 0``."""
+    params = {"scale": np.ones((c,), np.float32), "bias": np.zeros((c,), np.float32)}
+    shape = (ghost_slices, c) if ghost_slices > 0 else (c,)
+    stats = {"mean": np.zeros(shape, np.float32), "var": np.ones(shape, np.float32)}
+    return params, stats
+
+
+# ----------------------------------------------------------------------------
+# Dense and conv
+# ----------------------------------------------------------------------------
 
 
 def dense(params, x, *, dtype=None):
@@ -23,6 +76,115 @@ def dense(params, x, *, dtype=None):
     if "bias" in params:
         y = y + params["bias"].to(dtype)
     return y
+
+
+def _conv_pads(padding, size, window, strides):
+    """((lo, hi), (lo, hi)) over H and W, as ``lax.conv_general_dilated``
+    reads ``padding``: "SAME" (out = ceil(in / stride), the odd pixel of
+    padding on the high side), "VALID", or explicit pairs."""
+    if padding == "VALID":
+        return ((0, 0), (0, 0))
+    if padding == "SAME":
+        pads = []
+        for n, k, s in zip(size, window, strides):
+            total = max((-(-n // s) - 1) * s + k - n, 0)
+            pads.append((total // 2, total - total // 2))
+        return tuple(pads)
+    return tuple((int(lo), int(hi)) for lo, hi in padding)
+
+
+def conv2d(params, x, *, stride=1, padding="SAME", dtype=None):
+    """NHWC x HWIO -> NHWC, in ``dtype`` (operands cast to it, output in it,
+    as the JAX compute-dtype conv) or float32.  The convolution itself is
+    cuDNN's (``F.conv2d``): the kernel is permuted to OIHW channels_last,
+    and the NHWC activation is read as the channels_last NCHW tensor it
+    already is in memory, so NHWC <-> NCHW costs nothing and the output
+    stays NHWC-contiguous.  Symmetric padding goes to the convolution;
+    asymmetric "SAME" padding (stride 2 over an even size) is an explicit
+    zero pad first."""
+    k = params["kernel"]
+    dt = dtype or torch.float32
+    strides = (stride, stride) if isinstance(stride, int) else tuple(stride)
+    (hlo, hhi), (wlo, whi) = _conv_pads(padding, x.shape[1:3], k.shape[:2], strides)
+    w = k.permute(3, 2, 0, 1).to(dtype=dt, memory_format=torch.channels_last)
+    xn = x.to(dt).permute(0, 3, 1, 2)
+    if hlo == hhi and wlo == whi:
+        y = F.conv2d(xn, w, stride=strides, padding=(hlo, wlo))
+    else:
+        y = F.conv2d(F.pad(xn, (wlo, whi, hlo, hhi)), w, stride=strides)
+    y = y.permute(0, 2, 3, 1)
+    if "bias" in params:
+        y = y + params["bias"].to(dt)
+    return y
+
+
+# ----------------------------------------------------------------------------
+# BatchNorm (params + running stats threaded through model_state)
+# ----------------------------------------------------------------------------
+
+
+def batchnorm(
+    params, stats, x, *, train: bool, momentum=0.9, eps=1e-5, mesh=None,
+    relu: bool = False, ghost_slices: int = 0,
+):
+    """Returns ``(y, new_stats)`` for x [..., C], as the JAX ``batchnorm``:
+
+    - train with a ``mesh``: the fused statistics path (``ops/bn.py``: the
+      B6/B7 kernels on the card, under a custom backward);
+    - train without: one-pass f32 statistics, clamped biased variance,
+      autograd through them;
+    - eval: the running stats ([S, C] ghost stats by the law of total
+      variance).
+
+    The running stats update as ``momentum * old + (1 - momentum) * new``
+    (the reverse of ``nn.BatchNorm2d``'s convention, and with the biased
+    variance).  ``relu`` applies ReLU inside the layer; on the fused path
+    the backward then recomputes the mask in the kernel.  Ghost-batch
+    training waits for the port's model-parallel slice (A8)."""
+    if train and ghost_slices > 0:
+        raise NotImplementedError(
+            "ghost-batch BN training (bn_ghost_slices > 0, statistics scoped to "
+            "a 'slice' mesh axis) waits for the port's model-parallel slice (A8)"
+        )
+    if train:
+        if mesh is not None:
+            y, mean, var = bn_ops.batchnorm_train(
+                params["scale"], params["bias"], x, eps, mesh, relu
+            )
+            return y, {
+                "mean": momentum * stats["mean"] + (1 - momentum) * mean,
+                "var": momentum * stats["var"] + (1 - momentum) * var,
+            }
+        axes = tuple(range(x.dim() - 1))
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=axes)
+        mean_sq = xf.square().mean(dim=axes)
+        # Clamp: f32 cancellation can push E[x^2]-E[x]^2 slightly negative.
+        var = torch.clamp(mean_sq - mean.square(), min=0.0)
+        new_stats = {
+            "mean": momentum * stats["mean"] + (1 - momentum) * mean.detach(),
+            "var": momentum * stats["var"] + (1 - momentum) * var.detach(),
+        }
+    else:
+        mean, var = stats["mean"], stats["var"]
+        if mean.dim() == 2:
+            # Ghost-trained [S, C] stats: the global moments by the law of
+            # total variance (mean of the variances + variance of the means).
+            gmean = mean.mean(dim=0)
+            var = var.mean(dim=0) + (mean - gmean).square().mean(dim=0)
+            mean = gmean
+        new_stats = stats
+    inv = torch.rsqrt(var + eps) * params["scale"]
+    dt = x.dtype
+    y = (x - mean.to(dt)) * inv.to(dt) + params["bias"].to(dt)
+    if relu:
+        y = torch.relu(y)
+    return y, new_stats
+
+
+# ----------------------------------------------------------------------------
+# Embedding, loss, metrics
+# ----------------------------------------------------------------------------
 
 
 def embedding_lookup(params, ids, *, dtype=None):
@@ -46,3 +208,8 @@ def softmax_cross_entropy(logits, labels):
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return (logz - gold).mean()
+
+
+def accuracy(logits, labels):
+    """Share of rows whose argmax (the first, on a tie) is the label."""
+    return (torch.argmax(logits, dim=-1) == labels.long()).to(torch.float32).mean()

@@ -1,4 +1,4 @@
-"""The transformer example's optimizer, with optax's formulas.
+"""The examples' optimizers, with optax's formulas.
 
 The JAX package builds ``optax.chain(optax.clip_by_global_norm(clip_norm),
 optax.adamw(learning_rate))``.  :class:`ClippedAdamW` is the same update
@@ -16,10 +16,22 @@ as a hand-written clip followed by ``torch.optim.AdamW``:
 
 The optimizer state is the ``torch.optim.AdamW`` itself: it holds the
 parameter tensors, which the train step updates in place.
+
+:class:`SGD` is ``optax.sgd(schedule, momentum)`` (ResNet-50's optimizer):
+``optax.trace`` (buf = g + momentum * buf, from zeros; no dampening, no
+Nesterov) scaled by the learning rate, which is ``torch.optim.SGD`` with
+the rate of update k set from the schedule before the update.  k is the
+train step's count of updates so far, not a counter of the optimizer's own,
+so a resumed run reads the right rate.  :func:`piecewise_constant_schedule`
+is optax's, in float32 as optax computes it.
+
+Both run fused (one kernel for every leaf) and share ``init(params) ->
+opt_state`` and ``update(opt_state, params, step)``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .state import leaves
@@ -52,10 +64,61 @@ class ClippedAdamW:
         )
 
     @torch.no_grad()
-    def update(self, opt_state: torch.optim.AdamW, params) -> None:
-        ps = leaves(params)
-        for p in ps:
-            if p.grad is None:  # optax moves every leaf, a zero gradient too
-                p.grad = torch.zeros_like(p)
+    def update(self, opt_state: torch.optim.AdamW, params, step: int | None = None) -> None:
+        """``step`` is unused: AdamW's own count, saved with its state,
+        drives the bias correction."""
+        ps = _grads_or_zeros(params)
         clip_by_global_norm_([p.grad for p in ps], self.clip_norm)
+        opt_state.step()
+
+
+def _grads_or_zeros(params) -> list:
+    """The leaves, each with a ``.grad`` (zeros where autograd left none:
+    optax moves every leaf, a zero gradient too)."""
+    ps = leaves(params)
+    for p in ps:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return ps
+
+
+def piecewise_constant_schedule(init_value: float, boundaries_and_scales=None):
+    """optax's ``piecewise_constant_schedule``: ``schedule(count)`` is
+    ``init_value`` times every scale whose boundary ``count`` has reached
+    (``count >= boundary``; updates count from 0), in float32."""
+    items = sorted((int(b), np.float32(s)) for b, s in (boundaries_and_scales or {}).items())
+
+    def schedule(count: int) -> float:
+        if not items:  # optax hands the value back untouched
+            return init_value
+        v = np.float32(init_value)
+        for boundary, scale in items:
+            if count >= boundary:
+                v = np.float32(scale * v)
+        return float(v)
+
+    return schedule
+
+
+class SGD:
+    """``optax.sgd(learning_rate, momentum)``: ``learning_rate`` a float or
+    a ``schedule(count)``."""
+
+    def __init__(self, learning_rate, momentum: float = 0.0):
+        self.schedule = learning_rate if callable(learning_rate) else (lambda _count: learning_rate)
+        self.momentum = momentum
+
+    def init(self, params) -> torch.optim.SGD:
+        return torch.optim.SGD(
+            leaves(params), lr=self.schedule(0), momentum=self.momentum,
+            dampening=0.0, nesterov=False, fused=True,
+        )
+
+    @torch.no_grad()
+    def update(self, opt_state: torch.optim.SGD, params, step: int) -> None:
+        """Update number ``step`` (0 for the first) at ``schedule(step)``."""
+        _grads_or_zeros(params)
+        lr = self.schedule(int(step))
+        for group in opt_state.param_groups:
+            group["lr"] = lr
         opt_state.step()

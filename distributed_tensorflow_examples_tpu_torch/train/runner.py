@@ -1,11 +1,13 @@
 """Experiment runner on one device: the port of
 ``distributed_tensorflow_examples_tpu/train/runner.py``.
 
-flags -> state on the device -> train step -> hooks (stop, step counter,
-logging, summary, checkpoint, preemption) -> ``TrainSession``, plus the
-host-to-device infeed and the ``FINAL`` line the scrapers read.  A mesh
-beyond one device (``--mesh`` other than empty or ``data=1``) waits for
-the port's multi-device items (A5 data parallel, A8 model parallel).
+flags -> mesh -> state on the device -> train step -> hooks (stop, step
+counter, logging, summary, checkpoint, preemption) -> ``TrainSession``,
+plus the host-to-device infeed, the full-split ``evaluate`` and the
+``FINAL`` line the scrapers read.  A mesh beyond one device (``--mesh``
+other than empty or ``data=1``) waits for the port's multi-device items
+(A5 data parallel, A8 model parallel): ``parallel.mesh.build_mesh``
+raises.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import os
 from typing import Any, Callable, Iterable
 
 from ..data import pipeline as pipeline_lib
+from ..parallel.mesh import MeshSpec, build_mesh
 from ..utils import device as device_lib
 from ..utils.metrics import MetricsWriter
 from . import hooks as hooks_lib
@@ -21,45 +24,45 @@ from .checkpoint import CheckpointManager
 from .loop import TrainSession
 from .preemption import PreemptionCheckpointHook
 from .state import create_state
-from .step import build_train_step
-
-
-def check_single_device_mesh(mesh: str) -> None:
-    """Accept the meshes that mean one device: '' or data=1."""
-    spec = (mesh or "").replace(" ", "")
-    if spec in ("", "data=1"):
-        return
-    raise NotImplementedError(
-        f"--mesh={mesh!r}: the port trains on one device so far; data "
-        "parallel waits for its multi-device item (A5) and model-parallel "
-        "axes for its model-parallel slice (A8)"
-    )
+from .step import build_eval_step, build_train_step
 
 
 class Experiment:
     """One configured training run on one device.
 
     ``init_fn(seed) -> params | (params, model_state)`` (numpy or tensor
-    leaves), the framework-standard ``loss_fn``, and an optimizer such as
-    ``train.optim.ClippedAdamW``.  ``flags`` carries the JAX CLI's names:
-    seed, mesh, unroll, grad_accum, log_dir, train_steps,
-    log_every_steps, checkpoint_every_steps, batch_size (and optionally
-    device).
+    leaves), the framework-standard ``loss_fn`` (or ``loss_fn_factory(mesh)``
+    for a loss that needs the mesh, as the JAX ``Experiment`` takes it),
+    and an optimizer such as ``train.optim.ClippedAdamW`` or ``SGD``.
+    ``flags`` carries the JAX CLI's names: seed, mesh, unroll, grad_accum,
+    log_dir, train_steps, log_every_steps, checkpoint_every_steps,
+    batch_size (and optionally device).  ``mesh`` defaults to the one
+    ``--mesh`` describes.
     """
 
     def __init__(
         self,
         *,
         init_fn: Callable,
-        loss_fn: Callable,
+        loss_fn: Callable | None = None,
         optimizer,
         flags,
         device=None,
+        mesh=None,
         extra_hooks: Iterable[hooks_lib.Hook] = (),
+        loss_fn_factory: Callable | None = None,
     ):
-        check_single_device_mesh(getattr(flags, "mesh", ""))
         self.flags = flags
         self.device = device_lib.resolve(device or getattr(flags, "device", None))
+        self.mesh = (
+            mesh if mesh is not None
+            else build_mesh(MeshSpec.parse(getattr(flags, "mesh", "")), self.device)
+        )
+        if loss_fn is None:
+            if loss_fn_factory is None:
+                raise ValueError("pass loss_fn or loss_fn_factory")
+            loss_fn = loss_fn_factory(self.mesh)
+        self._loss_fn = loss_fn
         self.optimizer = optimizer
         self.state = create_state(init_fn, optimizer, flags.seed, self.device)
         self.step_fn = build_train_step(
@@ -108,6 +111,34 @@ class Experiment:
         final = self.session.run(self.batches(local_iter))
         self.state = final
         return final
+
+    def evaluate(
+        self, arrays: dict, *, eval_fn: Callable | None = None,
+        batch_size: int | None = None,
+    ) -> dict[str, float]:
+        """Full-split eval of numpy ``arrays``: metrics averaged over the
+        complete batches of ``batch_size`` (default ``--batch_size``; the
+        ragged tail is left out).  ``eval_fn(params, model_state, batch) ->
+        metrics``; by default the loss's own metrics."""
+        if eval_fn is None:
+            loss_fn = self._loss_fn
+
+            def eval_fn(params, mstate, batch):
+                return loss_fn(params, mstate, batch, None)[1][1]
+
+        step = build_eval_step(eval_fn)
+        n = len(next(iter(arrays.values())))
+        ebs = min(batch_size or self.flags.batch_size, n)
+        if ebs <= 0:
+            return {}
+        sums: dict[str, float] = {}
+        count = 0
+        for i in range(0, (n // ebs) * ebs, ebs):
+            batch = pipeline_lib.to_device({k: v[i : i + ebs] for k, v in arrays.items()}, self.device)
+            for k, v in step(self.state, batch).items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+            count += 1
+        return {k: v / count for k, v in sums.items()}
 
     def finish(self, **final_metrics) -> None:
         """Print the FINAL line (the contract tests/bench scrape) and close."""

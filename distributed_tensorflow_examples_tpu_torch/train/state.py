@@ -50,10 +50,22 @@ def as_param_leaves(tree, device) -> dict:
     return leaf.requires_grad_(True)
 
 
+def as_state_leaves(tree, device):
+    """Every leaf of ``tree`` (numpy arrays or tensors) as a tensor on
+    ``device`` that takes no gradient: model state such as BatchNorm's
+    running stats, which the checkpoint saves and loads as tensors."""
+    if isinstance(tree, dict):
+        return {k: as_state_leaves(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device=device, copy=True)
+    return torch.tensor(np.asarray(tree), device=device)
+
+
 def create_state(init_params_fn: Callable, optimizer, seed: int, device) -> TrainState:
     """``init_params_fn(seed) -> params | (params, model_state)`` (numpy or
-    tensor leaves), placed on ``device`` as separate leaves, with the
-    optimizer's initial state."""
+    tensor leaves), placed on ``device``: params as separate leaves that
+    require grad, model state as tensors that do not, with the optimizer's
+    initial state."""
     out = init_params_fn(seed)
     params, model_state = out if isinstance(out, tuple) else (out, {})
     params = as_param_leaves(params, device)
@@ -61,6 +73,6 @@ def create_state(init_params_fn: Callable, optimizer, seed: int, device) -> Trai
         step=0,
         params=params,
         opt_state=optimizer.init(params),
-        model_state=model_state,
+        model_state=as_state_leaves(model_state, device),
         seed=int(seed),
     )

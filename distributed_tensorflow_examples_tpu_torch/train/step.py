@@ -75,7 +75,7 @@ def build_train_step(
                 k: torch.stack([m[k] for m in per_micro]).mean(dim=0)
                 for k in per_micro[0]
             }
-        optimizer.update(state.opt_state, params)
+        optimizer.update(state.opt_state, params, state.step)
         _zero_grads(params)
         return (
             TrainState(
