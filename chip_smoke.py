@@ -8,8 +8,8 @@ it fails:
 
 1. Build: compile every CUDA kernel source in the checkout
    (``distributed_tensorflow_examples_tpu_torch/ops/csrc``: ``flash_fwd``,
-   ``flash_bwd``, ``bn_stats``), one ``nvcc`` per source, all started
-   together.
+   ``flash_bwd``, ``flash_fused_bwd``, ``bn_stats``), one ``nvcc`` per
+   source, all started together.
 2. Kernels against their plain PyTorch versions on the card, at the shapes
    the main paths give them and at the edges the kernels must also take
    (ragged T, head dims 32/64, float32 in and out, non-causal), with the
@@ -23,7 +23,14 @@ it fails:
    f32 one, bitwise equal run to run, and timed against
    ``torch.batch_norm_stats`` / ``torch.batch_norm_backward_reduce`` (the
    yardsticks; the port calls neither) at the stem's shape and summed over
-   the 53 BatchNorm shapes of one training step.
+   the 53 BatchNorm shapes of one training step.  The fused backward
+   (``flash_fused_bwd``) likewise at the T 8192 path's [16, 8192, 128] bf16
+   causal (bitwise equal run to run), [8, 2048, 128] non-causal, ragged
+   T 1000 at D 64 and 32, and f32 in and out; timed there against its plain
+   version, SDPA's backward and the split pair at the same shape.  Then
+   the parity gate (the port's twin of ``tools/flash_parity.py``, all three
+   of the reference's cases): fused against split and dense gradients, and
+   bitwise determinism; the run fails unless ``parity_ok``.
 3. Serve end to end at full width: the flagship transformer (vocab 32000,
    dim 1024, 12 layers, 8 heads, T 2048, bf16), random weights from
    ``numpy.random.default_rng(0)`` at the JAX init's scales, published to
@@ -51,14 +58,29 @@ it fails:
    the example's default: no cut), through ``examples.resnet50``'s
    ``run_training`` with the fused statistics path switched on
    (``loss_fn_factory=lambda mesh: resnet.loss_fn(cfg, mesh=mesh)``) for
-   ``RESNET_STEPS`` steps.  Loss finite, step 1 within 0.5 of ln(1000)
-   plus the l2 term of the initial weights, falling; 53 launches of each
+   ``RESNET_STEPS`` steps.  Loss finite, step 1 within
+   ``TOL_RESNET_START`` (1.0) of ln(1000) plus the l2 term of the initial
+   weights, falling; 53 launches of each
    BN kernel in every step and none in the eval; running stats moved.
    One step from the same weights and batch through the fused path and
    the plain-torch BatchNorm (float32, batch 64) must agree in loss and
    per-leaf gradients, and the fused path may be no further than the
    plain one from a float64 step.  Last, one bf16 step under
    ``torch.profiler``.
+6. Train the flagship at T 8192 (the reference's ``bench_t8192_fused``:
+   vocab 32000, dim 1024, 12 layers, 8 heads, batch 2, bf16) through
+   ``run_training`` for ``TRAIN_STEPS`` steps with ``DTX_FUSED_BWD=1`` set
+   for this phase only, as the reference opts in; its default 1024 blocks
+   give nq = nk = 8, so every attention backward takes the fused kernel.
+   Loss finite, within 0.5 of ln(32000) at step 1, falling; in every step
+   12 launches of ``flash_fused_bwd`` and ``flash_fwd`` and none of
+   ``flash_dq``/``flash_dkv``.  One step from the initial weights on the
+   first batch must match the split path's (``DTX_FUSED_BWD=0``) in loss
+   and per-leaf gradients; the whole step is timed fused against split
+   in turns.  Last, one step under ``torch.profiler``.
+
+Phase 4 still runs the split kernels: at T 2048 the blocks give
+nq = nk = 2, under the fused regime.  No path is cut in depth.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The run needs one card; it exits
@@ -102,9 +124,11 @@ TOL_LOGITS = 0.125
 #: of a rounding boundary moves one term by 2^-8 of itself); float32 the
 #: summation order only.
 TOL_BWD = {torch.bfloat16: 8e-3, torch.float32: 2e-5}
-#: The full-width training phase.
+#: The full-width training phases (T 2048 in phase 4, T 8192 in phase 6).
 TRAIN_STEPS = 6
 TRAIN_BATCH = 8
+LONG_T = 8192
+LONG_BATCH = 2
 #: Flash step vs xla step from the same weights and batch, bf16 at full
 #: width: the two round attention differently (p to bf16 inside the kernel,
 #: the softmax output to bf16 in mha).  On an H100 (700 W) it gave a
@@ -161,8 +185,10 @@ TOL_RESNET_VS_F64 = 1.5
 TOL_RESNET_START = 1.0
 #: Device rows of a profile that are the profiler's own markers, not work.
 CUPTI_MARKERS = ("Command Buffer Full", "Activity Buffer Request")
+#: The port's flash kernels in an LM step's profile, by kernel name.
+FLASH_FAMILIES = ("flash_fwd", "flash_dq", "flash_dkv", "flash_fused_bwd", "fused_dq_reduce")
 #: Kernel families of a training step's profile, by substrings of the
-#: kernel name (after the three flash kernels).
+#: kernel name (after the flash kernels).
 KERNEL_FAMILIES = (
     ("optimizer", ("adam", "multi_tensor_apply")),
     ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
@@ -201,7 +227,9 @@ def _kernel_instance(mangled: str) -> str:
         dtype = "bf16" if "bfloat16" in mangled else "f32"
         return (f"{bn.group(1)}<{dtype}, VEC={vec.group(1) if vec else '?'}"
                 + (f", RELU={relu.group(1)}>" if relu else ">"))
-    kernel = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)I", mangled)
+    if "fused_dq_reduce_kernel" in mangled:
+        return f"fused_dq_reduce_kernel<{'bf16' if 'bfloat16' in mangled else 'f32'}>"
+    kernel = re.search(r"(flash_(?:fwd|dq|dkv|fused_bwd)_kernel)I", mangled)
     d = re.search(r"Li(\d+)E", mangled)
     types = next((v for k, v in _TYPES.items()
                   if re.search(r"_kernelI" + re.escape(k), mangled)), "?")
@@ -268,6 +296,8 @@ def flash_bound_ms(
 BWD_WORK = {
     "flash_dq": dict(products=3, tiles_in=4, tiles_out=1, rows_in=2, rows_out=0),
     "flash_dkv": dict(products=4, tiles_in=4, tiles_out=2, rows_in=2, rows_out=0),
+    # q.k^T, do.v^T, p^T.do, ds^T.q and ds.k once per pair; dq, dk, dv out.
+    "flash_fused_bwd": dict(products=5, tiles_in=4, tiles_out=3, rows_in=2, rows_out=0),
 }
 
 
@@ -388,6 +418,70 @@ def time_flash_bwd(flash, bh, t, d, dtype, causal) -> dict:
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_bwd_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
     return out
+
+
+def check_fused_bwd(flash, bh, t, d, dtype, causal, out_dtype=None, determinism=False) -> float:
+    """The fused backward kernel vs its plain version on one input, each of
+    dq, dk, dv held to ``TOL_BWD`` relative to the largest plain entry;
+    returns the max absolute error."""
+    args = _bwd_inputs(flash, bh, t, d, dtype, causal, seed=bh * 131 + t * 7 + d + 1)
+    kw = dict(causal=causal, out_dtype=out_dtype)
+    got = flash.fused_bwd_call(*args, **kw)
+    torch.cuda.synchronize()
+    want = flash.fused_bwd_plain(*args, **kw)
+    tol = TOL_BWD[out_dtype or dtype]
+    rels, abs_errs = [], []
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        if a.dtype != (out_dtype or dtype) or a.shape != b.shape:
+            raise SystemExit(f"fused backward {name}: {a.dtype} {tuple(a.shape)}")
+        abs_errs.append((a.float() - b.float()).abs().max().item())
+        rels.append(abs_errs[-1] / max(b.float().abs().max().item(), 1e-30))
+    del want
+    log(
+        f"  flash_fused_bwd [{bh}, {t}, {d}] {str(dtype)[6:]}->{str(out_dtype or dtype)[6:]} "
+        f"causal={causal} (S = {flash.fused_slices(bh, t)} slices): max|Δ|/max|plain| "
+        f"dq {rels[0]:.3e}, dk {rels[1]:.3e}, dv {rels[2]:.3e} (tol {tol:g})"
+    )
+    if not all(math.isfinite(r) and r <= tol for r in rels):
+        raise SystemExit(f"the fused backward disagrees with its plain version at [{bh}, {t}, {d}]")
+    if determinism:
+        same = all(torch.equal(a, b) for a, b in zip(got, flash.fused_bwd_call(*args, **kw)))
+        log(f"  flash_fused_bwd second run bitwise equal: {same}")
+        if not same:
+            raise SystemExit("the fused backward kernel is not deterministic run to run")
+    return max(abs_errs)
+
+
+def time_fused_bwd(flash, bh, t, d, dtype, causal) -> dict:
+    """The fused kernel, its plain version, SDPA's backward and the bound at
+    one shape, and the split pair (dq + dk/dv) there for the 7 -> 5
+    product trade."""
+    import torch.nn.functional as F
+
+    args = _bwd_inputs(flash, bh, t, d, dtype, causal, seed=4)
+    q4, k4, v4 = (x.view(1, bh, t, d).detach().requires_grad_() for x in args[:3])
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+    do4 = args[3].view(1, bh, t, d)
+    sdpa_bwd_ms = time_ms(
+        lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True), iters=10
+    )
+    del q4, k4, v4, o4
+    ms = time_ms(lambda: flash.fused_bwd_call(*args, causal=causal), iters=5, warmup=1)
+    dq_ms = time_ms(lambda: flash.dq_call(*args, causal=causal), iters=5, warmup=1)
+    dkv_ms = time_ms(lambda: flash.dkv_call(*args, causal=causal), iters=5, warmup=1)
+    plain_ms = time_ms(lambda: flash.fused_bwd_plain(*args, causal=causal), iters=1, warmup=1)
+    bound_ms, bound_by = flash_bound_ms(bh, t, d, dtype, causal, **BWD_WORK["flash_fused_bwd"])
+    split_bound = sum(flash_bound_ms(bh, t, d, dtype, causal, **BWD_WORK[k])[0]
+                      for k in ("flash_dq", "flash_dkv"))
+    log(
+        f"  timing flash_fused_bwd [{bh}, {t}, {d}] {str(dtype)[6:]} causal={causal}: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward {sdpa_bwd_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}); split pair at this shape: flash_dq "
+        f"{dq_ms:.4f} + flash_dkv {dkv_ms:.4f} = {dq_ms + dkv_ms:.4f} ms (bound "
+        f"{split_bound:.4f} ms)"
+    )
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_bwd_ms, bound_ms=bound_ms,
+                bound_by=bound_by, split_dq_ms=dq_ms, split_dkv_ms=dkv_ms)
 
 
 def resnet50_bn_shapes(batch: int, image: int) -> list[tuple[tuple, bool]]:
@@ -722,6 +816,82 @@ def _ask_and_check(cfg, card: str, server, flat, step: int, version: int) -> dic
     return launches
 
 
+def step_clock(kernels):
+    """A training hook that records (step, ms, loss, launches of each of
+    ``kernels`` in the step) for every step; reading the loss waits for the
+    step's device work."""
+    from distributed_tensorflow_examples_tpu_torch import ops
+    from distributed_tensorflow_examples_tpu_torch.train import hooks
+
+    class StepClock(hooks.Hook):
+        def __init__(self):
+            self.steps: list = []
+
+        def begin(self, loop):
+            torch.cuda.synchronize()
+            self._t = time.perf_counter()
+            self._launches = dict(ops.LAUNCHES)
+
+        def after_step(self, loop, metrics):
+            loss = float(metrics["loss"])
+            now = time.perf_counter()
+            counts = {k: ops.LAUNCHES[k] - self._launches.get(k, 0) for k in kernels}
+            self.steps.append((loop.step, (now - self._t) * 1e3, loss, counts))
+            self._t, self._launches = now, dict(ops.LAUNCHES)
+
+    return StepClock()
+
+
+def profile_lm_step(cfg, init, batch, card: str) -> None:
+    """Where an LM step's time goes: one full step (after a warm-up step)
+    under torch.profiler, device time summed by kernel family, against the
+    host clock around the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_tensorflow_examples_tpu_torch.models import transformer
+    from distributed_tensorflow_examples_tpu_torch.train import optim, state, step
+
+    opt = optim.ClippedAdamW(1e-3, 1.0)
+    st = state.create_state(lambda seed: init, opt, SEED, "cuda")
+    train_step = step.build_train_step(transformer.loss_fn(cfg), opt)
+    st, m = train_step(st, batch)
+    float(m["loss"])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st, m = train_step(st, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del st, m
+    # Only device-side rows: a CPU op's row repeats its kernels' device time,
+    # and CUPTI's own markers are not work.
+    families: dict = {}
+    kernels = []
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if us <= 0 or e.device_type != DeviceType.CUDA or e.key in CUPTI_MARKERS:
+            continue
+        kernels.append((us, e.count, e.key))
+        name = e.key.lower()
+        fam = next((f for f in FLASH_FAMILIES if f + "_kernel" in name), None)
+        if fam is None:
+            fam = next((f for f, keys in KERNEL_FAMILIES if any(k in name for k in keys)), "other")
+        families[fam] = families.get(fam, 0.0) + us / 1e3
+    busy_ms = sum(families.values())
+    if busy_ms <= 0:
+        raise SystemExit("torch.profiler recorded no device time for the profiled step")
+    log(
+        f"  profiled step: host {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.1%}); by family: "
+        + ", ".join(f"{k} {v:.1f} ms ({v / busy_ms:.1%})"
+                    for k, v in sorted(families.items(), key=lambda kv: -kv[1]))
+    )
+    for us, count, key in sorted(kernels, reverse=True)[:10]:
+        log(f"    {us / 1e3:8.2f} ms in {count:4d} launches  {key[:110]}")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
+
+
 def train_end_to_end(card: str, kernel_ms: dict) -> dict:
     """Train, check, compare and publish (the module docstring's phase 4);
     returns the kernel launch counts of the main path's run."""
@@ -730,27 +900,11 @@ def train_end_to_end(card: str, kernel_ms: dict) -> dict:
     from distributed_tensorflow_examples_tpu_torch.examples import transformer_lm as cli
     from distributed_tensorflow_examples_tpu_torch.models import transformer
     from distributed_tensorflow_examples_tpu_torch.serve import ModelRegistry
-    from distributed_tensorflow_examples_tpu_torch.train import hooks, optim, state, step
-
-    class StepClock(hooks.Hook):
-        """Wall time and loss of every step; reading the loss waits for
-        the step's device work."""
-
-        def __init__(self):
-            self.steps: list = []
-
-        def begin(self, loop):
-            torch.cuda.synchronize()
-            self._t = time.perf_counter()
-
-        def after_step(self, loop, metrics):
-            loss = float(metrics["loss"])
-            now = time.perf_counter()
-            self.steps.append((loop.step, (now - self._t) * 1e3, loss))
-            self._t = now
+    from distributed_tensorflow_examples_tpu_torch.train import state
 
     registry_dir = ROOT / "build" / "smoke_train_registry"
     shutil.rmtree(registry_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
     t_len = 2048
     args = cli.build_parser().parse_args([
         f"--batch_size={TRAIN_BATCH}", f"--seq_len={t_len}", "--vocab_size=32000",
@@ -759,16 +913,16 @@ def train_end_to_end(card: str, kernel_ms: dict) -> dict:
         "--attention=auto", f"--registry_dir={registry_dir}", "--device=cuda",
     ])
     cfg = cli.config_from_args(args)
-    clock = StepClock()
+    clock = step_clock(())
     ops.reset_launches()  # every count to 0 just before the main path
     t0 = time.perf_counter()
     exp = cli.run_training(args, extra_hooks=[clock])
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)  # read just after the main path
     try:
-        losses = [loss for _s, _ms, loss in clock.steps]
+        losses = [loss for _s, _ms, loss, _c in clock.steps]
         log("  steps: " + ", ".join(
-            f"{s}: loss {loss:.4f} in {ms:.1f} ms" for s, ms, loss in clock.steps
+            f"{s}: loss {loss:.4f} in {ms:.1f} ms" for s, ms, loss, _c in clock.steps
         ))
         want = cfg.n_layers * TRAIN_STEPS
         log(
@@ -796,7 +950,7 @@ def train_end_to_end(card: str, kernel_ms: dict) -> dict:
         log(f"  published transformer_lm/v{exp.published_version} at step {got_step}: "
             f"{flat.size} params round-trip bit for bit")
 
-        step_ms = float(np.median([ms for _s, ms, _l in clock.steps[1:]]))
+        step_ms = float(np.median([ms for _s, ms, _l, _c in clock.steps[1:]]))
         tokens_per_s = TRAIN_BATCH * t_len / (step_ms / 1e3)
         per_layer = {k: kernel_ms[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")}
         kernel_step_ms = cfg.n_layers * sum(per_layer.values())
@@ -845,50 +999,149 @@ def train_end_to_end(card: str, kernel_ms: dict) -> dict:
         raise SystemExit("the flash training step disagrees with the xla-attention step")
     del result, g_flash, g_xla
 
-    # Where a step's time goes: one full step (after a warm-up step) under
-    # torch.profiler, device time summed by kernel family, against the host
-    # clock around the step.
-    from torch.profiler import ProfilerActivity, profile
+    profile_lm_step(cfg, init, batch, card)
+    return launches
 
+
+def _with_fused_env(value: str, fn):
+    """``fn()`` with ``DTX_FUSED_BWD`` set to ``value``, restored after."""
+    import os
+
+    saved = os.environ.get("DTX_FUSED_BWD")
+    os.environ["DTX_FUSED_BWD"] = value
+    try:
+        return fn()
+    finally:
+        if saved is None:
+            del os.environ["DTX_FUSED_BWD"]
+        else:
+            os.environ["DTX_FUSED_BWD"] = saved
+
+
+def train_long_end_to_end(card: str, fused_ms: float) -> dict:
+    """Train at T 8192 through the fused backward, check, compare with the
+    split backward and profile (the module docstring's phase 6); returns
+    the kernel launch counts of the main path's run."""
+    from distributed_tensorflow_examples_tpu_torch import bridge, ops
+    from distributed_tensorflow_examples_tpu_torch.data import datasets
+    from distributed_tensorflow_examples_tpu_torch.examples import transformer_lm as cli
+    from distributed_tensorflow_examples_tpu_torch.models import transformer
+    from distributed_tensorflow_examples_tpu_torch.train import optim, state, step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = cli.build_parser().parse_args([
+        f"--batch_size={LONG_BATCH}", f"--seq_len={LONG_T}", "--vocab_size=32000",
+        "--dim=1024", "--n_layers=12", "--n_heads=8", f"--train_steps={TRAIN_STEPS}",
+        "--learning_rate=1e-3", "--log_every_steps=1", f"--seed={SEED}",
+        "--attention=auto", "--device=cuda",
+    ])
+    cfg = cli.config_from_args(args)
+    names = ("flash_fwd", "flash_fused_bwd", "flash_dq", "flash_dkv")
+    clock = step_clock(names)
+    ops.reset_launches()  # every count to 0 just before the main path
+    t0 = time.perf_counter()
+    exp = _with_fused_env("1", lambda: cli.run_training(args, extra_hooks=[clock]))
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)  # read just after the main path
+    n_params = sum(p.numel() for p in state.leaves(exp.state.params))
+    del exp
+    losses = [loss for _s, _ms, loss, _c in clock.steps]
+    log("  steps: " + ", ".join(
+        f"{s}: loss {loss:.4f} in {ms:.1f} ms, launches "
+        + "/".join(str(c[k]) for k in names) for s, ms, loss, c in clock.steps
+    ) + f" ({'/'.join(names)})")
+    log(
+        f"  {TRAIN_STEPS} steps of [{LONG_BATCH}, {LONG_T}] ({n_params} params) in "
+        f"{wall:.1f} s (corpus, init, steps); launches "
+        + ", ".join(f"{k} {launches.get(k, 0)}" for k in names)
+        + f" (want flash_fwd and flash_fused_bwd {cfg.n_layers} x {TRAIN_STEPS} = "
+        f"{cfg.n_layers * TRAIN_STEPS}, the split pair 0)"
+    )
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"T {LONG_T} training losses not finite: {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5 or not losses[-1] < losses[0]:
+        raise SystemExit(
+            f"T {LONG_T} training loss did not start near ln({cfg.vocab_size}) = "
+            f"{math.log(cfg.vocab_size):.3f} and fall: {losses}"
+        )
+    per_step = {"flash_fwd": cfg.n_layers, "flash_fused_bwd": cfg.n_layers,
+                "flash_dq": 0, "flash_dkv": 0}
+    if any(c != per_step for *_r, c in clock.steps):
+        raise SystemExit(f"the T {LONG_T} path did not run the fused backward alone, "
+                         f"once per layer and step: {[c for *_r, c in clock.steps]}")
+    step_ms = float(np.median([ms for _s, ms, _l, _c in clock.steps[1:]]))
+    log(
+        f"  e2e: step {step_ms:.1f} ms (median of steps 2-{TRAIN_STEPS}, host clock to "
+        f"the loss read), {LONG_BATCH * LONG_T / (step_ms / 1e3):.0f} tokens/s; "
+        f"flash_fused_bwd {cfg.n_layers} x {fused_ms:.3f} = {cfg.n_layers * fused_ms:.1f} ms "
+        f"a step at [{LONG_BATCH * cfg.n_heads}, {LONG_T}, {cfg.head_dim}] (CUDA events) [{card}]"
+    )
+
+    # One step's loss and gradients from the initial weights on the first
+    # batch: the fused backward against the split one.
+    ids, _vocab, _src = datasets.text_corpus(
+        None, vocab_size=cfg.vocab_size,
+        synth_tokens=max(2_000_000, LONG_BATCH * (LONG_T + 1) * 50), seed=SEED,
+    )
+    first = next(datasets.lm_batches(ids, batch_size=LONG_BATCH, seq_len=LONG_T))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in first.items()}
+    init = transformer.init_numpy(cfg, SEED)
+    paths = [p for p, _l in bridge._leaves(init)]
+    result = {}
+    for mode in ("1", "0"):
+        def one_step():
+            params = state.as_param_leaves(init, "cuda")
+            loss, _ = transformer.loss_fn(cfg)(params, {}, batch, None)
+            loss.backward()
+            return loss.item(), [p.grad for p in state.leaves(params)]
+
+        before = dict(ops.LAUNCHES)
+        result[mode] = _with_fused_env(mode, one_step)
+        ran = {k: ops.LAUNCHES[k] - before.get(k, 0) for k in ("flash_fused_bwd", "flash_dq")}
+        want = ({"flash_fused_bwd": cfg.n_layers, "flash_dq": 0} if mode == "1"
+                else {"flash_fused_bwd": 0, "flash_dq": cfg.n_layers})
+        if ran != want:
+            raise SystemExit(f"DTX_FUSED_BWD={mode} step ran {ran}, want {want}")
+    (l_fused, g_fused), (l_split, g_split) = result["1"], result["0"]
+    rels = _leaf_rel_errors(g_fused, g_split)
+    worst = int(np.argmax(rels))
+    log(
+        f"  step 1, fused vs split backward (same weights, batch [{LONG_BATCH}, {LONG_T}]): "
+        f"loss {l_fused:.5f} vs {l_split:.5f} (|Δ| {abs(l_fused - l_split):.2e}, tol "
+        f"{TOL_TRAIN_LOSS:g}; the training run's step 1 read {losses[0]:.5f}); per-leaf "
+        f"gradient error max {rels[worst]:.3e} at {paths[worst]}, median "
+        f"{float(np.median(rels)):.3e} (tol {TOL_TRAIN_GRAD:g})"
+    )
+    if not (abs(l_fused - l_split) <= TOL_TRAIN_LOSS and rels[worst] <= TOL_TRAIN_GRAD):
+        raise SystemExit("the fused-backward training step disagrees with the split one")
+    del result, g_fused, g_split
+
+    # The whole step, fused against split backward, in turns on one state
+    # (after a warm-up step): host clock to the loss read.
     opt = optim.ClippedAdamW(1e-3, 1.0)
     st = state.create_state(lambda seed: init, opt, SEED, "cuda")
     train_step = step.build_train_step(transformer.loss_fn(cfg), opt)
-    st, m = train_step(st, batch)
-    float(m["loss"])
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        st, m = train_step(st, batch)
-        float(m["loss"])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # Only device-side rows: a CPU op's row repeats its kernels' device time,
-    # and CUPTI's own markers are not work.
-    from torch.autograd import DeviceType
+    times: dict = {"1": [], "0": []}
+    for mode in ("1", "1", "0", "0", "1", "1", "0"):
+        def timed():
+            nonlocal st
+            t0 = time.perf_counter()
+            st, m = train_step(st, batch)
+            float(m["loss"])
+            return (time.perf_counter() - t0) * 1e3
 
-    families: dict = {}
-    kernels = []
-    for e in prof.key_averages():
-        us = e.self_device_time_total
-        if us <= 0 or e.device_type != DeviceType.CUDA or e.key in CUPTI_MARKERS:
-            continue
-        kernels.append((us, e.count, e.key))
-        name = e.key.lower()
-        fam = next((f for f in ("flash_fwd", "flash_dq", "flash_dkv") if f + "_kernel" in name), None)
-        if fam is None:
-            fam = next((f for f, keys in KERNEL_FAMILIES if any(k in name for k in keys)), "other")
-        families[fam] = families.get(fam, 0.0) + us / 1e3
-    busy_ms = sum(families.values())
-    if busy_ms <= 0:
-        raise SystemExit("torch.profiler recorded no device time for the profiled step")
+        times[mode].append(_with_fused_env(mode, timed))
+    del st, opt
+    fused_step, split_step = (float(np.median(times[m][1 if m == "1" else 0:])) for m in "10")
     log(
-        f"  profiled step: host {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.1%}); by family: "
-        + ", ".join(f"{k} {v:.1f} ms ({v / busy_ms:.1%})"
-                    for k, v in sorted(families.items(), key=lambda kv: -kv[1]))
+        f"  the step in turns (fused, split, split, fused, fused, split after a warm-up): "
+        f"fused {fused_step:.1f} ms, split {split_step:.1f} ms (medians; "
+        f"{LONG_BATCH * LONG_T / (fused_step / 1e3):.0f} vs "
+        f"{LONG_BATCH * LONG_T / (split_step / 1e3):.0f} tokens/s) [{card}]"
     )
-    for us, count, key in sorted(kernels, reverse=True)[:10]:
-        log(f"    {us / 1e3:8.2f} ms in {count:4d} launches  {key[:110]}")
-    log(f"  [{card}]")
+
+    _with_fused_env("1", lambda: profile_lm_step(cfg, init, batch, card))
     return launches
 
 
@@ -941,27 +1194,7 @@ def resnet_end_to_end(card: str) -> dict:
     from distributed_tensorflow_examples_tpu_torch.examples import resnet50 as cli
     from distributed_tensorflow_examples_tpu_torch.models import resnet
     from distributed_tensorflow_examples_tpu_torch.parallel.mesh import MeshSpec, build_mesh
-    from distributed_tensorflow_examples_tpu_torch.train import hooks, optim, state, step
-
-    class StepClock(hooks.Hook):
-        """Wall time, loss and BN kernel launches of every step; reading
-        the loss waits for the step's device work."""
-
-        def __init__(self):
-            self.steps: list = []
-
-        def begin(self, loop):
-            torch.cuda.synchronize()
-            self._t = time.perf_counter()
-            self._launches = dict(ops.LAUNCHES)
-
-        def after_step(self, loop, metrics):
-            loss = float(metrics["loss"])
-            now = time.perf_counter()
-            counts = {k: ops.LAUNCHES[k] - self._launches.get(k, 0)
-                      for k in ("bn_stats", "bn_bwd_stats")}
-            self.steps.append((loop.step, (now - self._t) * 1e3, loss, counts))
-            self._t, self._launches = now, dict(ops.LAUNCHES)
+    from distributed_tensorflow_examples_tpu_torch.train import optim, state, step
 
     args = cli.build_parser().parse_args([
         f"--batch_size={RESNET_BATCH}", f"--image_size={RESNET_IMAGE}", "--num_classes=1000",
@@ -973,7 +1206,7 @@ def resnet_end_to_end(card: str) -> dict:
     kernels = [k for k in resnet._kernels(init[0])]
     l2_term = 1e-4 * float(sum(np.sum(np.square(k, dtype=np.float64)) for k in kernels))
     n_bn = len(resnet50_bn_shapes(RESNET_BATCH, RESNET_IMAGE))
-    clock = StepClock()
+    clock = step_clock(("bn_stats", "bn_bwd_stats"))
     ops.reset_launches()  # every count to 0 just before the main path
     t0 = time.perf_counter()
     final = io.StringIO()
@@ -1132,7 +1365,7 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     log("phase 1: build")
-    sources = ["flash_fwd", "flash_bwd", "bn_stats"]
+    sources = ["flash_fwd", "flash_bwd", "flash_fused_bwd", "bn_stats"]
     t0 = time.perf_counter()
     built = _build.build(sources)
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
@@ -1170,6 +1403,17 @@ def main() -> int:
     train_fwd = time_flash(flash, train_bh, 2048, 128, torch.bfloat16, True)
     time_flash(flash, 8, 2048, 128, torch.bfloat16, False)
     bwd = time_flash_bwd(flash, train_bh, 2048, 128, torch.bfloat16, True)
+    # The T 8192 training path's shape: batch 2 x 8 heads = BH 16.
+    long_bh = LONG_BATCH * 8
+    fused_errs = [
+        check_fused_bwd(flash, long_bh, LONG_T, 128, torch.bfloat16, True, determinism=True),
+        check_fused_bwd(flash, 8, 2048, 128, torch.bfloat16, False),
+        check_fused_bwd(flash, 8, 1000, 64, torch.bfloat16, True),
+        check_fused_bwd(flash, 8, 1000, 32, torch.bfloat16, False),
+        check_fused_bwd(flash, 8, 1000, 64, torch.float32, True, out_dtype=torch.float32),
+        check_fused_bwd(flash, 8, 2048, 128, torch.bfloat16, True, out_dtype=torch.float32),
+    ]
+    fused = time_fused_bwd(flash, long_bh, LONG_T, 128, torch.bfloat16, True)
     log(f"  [{card}]")
     # ResNet-50's BatchNorm shapes at batch 256 (the stem, a stage-0 bn3, a
     # stage-3 bn3) and a ragged one (C = 24, not a multiple of 8).
@@ -1181,6 +1425,14 @@ def main() -> int:
     ]
     bn_times = time_bn(bn, card)
 
+    log("phase 2b: the fused backward's parity gate (twin of tools/flash_parity.py)")
+    from distributed_tensorflow_examples_tpu_torch.tools import flash_parity
+
+    parity = flash_parity.run(quick=False, segmented=False, device="cuda")
+    log(f"  {json.dumps(parity)}")
+    if not parity["parity_ok"]:
+        raise SystemExit("the fused backward failed its parity gate")
+
     log("phase 3: serve the flagship transformer end to end")
     serve_launches = serve_end_to_end(card)
 
@@ -1191,6 +1443,9 @@ def main() -> int:
     log("phase 5: train ResNet-50 end to end with the fused BatchNorm statistics")
     resnet_launches = resnet_end_to_end(card)
 
+    log(f"phase 6: train the flagship at T {LONG_T} end to end through the fused backward")
+    long_launches = train_long_end_to_end(card, fused["ms"])
+
     csrc = "distributed_tensorflow_examples_tpu_torch/ops/csrc"
     tpu = "distributed_tensorflow_examples_tpu/ops/flash_attention.py"
     record = {"kernels": [
@@ -1198,18 +1453,27 @@ def main() -> int:
             "name": "flash_fwd", "route": "cuda", "source": f"{csrc}/flash_fwd.cu",
             "replaces": f"{tpu}:135",
             "launches": serve_launches.get("flash_fwd", 0)
-            + train_launches.get("flash_fwd", 0),
+            + train_launches.get("flash_fwd", 0) + long_launches.get("flash_fwd", 0),
             "launches_by_path": {"serve": serve_launches.get("flash_fwd", 0),
-                                 "train": train_launches.get("flash_fwd", 0)},
+                                 "train": train_launches.get("flash_fwd", 0),
+                                 "train_t8192": long_launches.get("flash_fwd", 0)},
             "max_abs_err": max(errs), **main_shape,
         },
         *({
             "name": name, "route": "cuda", "source": f"{csrc}/flash_bwd.cu",
             "replaces": f"{tpu}:{line}",
-            "launches": train_launches.get(name, 0),
-            "launches_by_path": {"train": train_launches.get(name, 0)},
+            "launches": train_launches.get(name, 0) + long_launches.get(name, 0),
+            "launches_by_path": {"train": train_launches.get(name, 0),
+                                 "train_t8192": long_launches.get(name, 0)},
             "max_abs_err": max(e[name] for e in bwd_errs), **bwd[name],
         } for name, line in (("flash_dq", 211), ("flash_dkv", 244))),
+        {
+            "name": "flash_fused_bwd", "route": "cuda",
+            "source": f"{csrc}/flash_fused_bwd.cu", "replaces": f"{tpu}:518",
+            "launches": long_launches.get("flash_fused_bwd", 0),
+            "launches_by_path": {"train_t8192": long_launches.get("flash_fused_bwd", 0)},
+            "max_abs_err": max(fused_errs), **fused,
+        },
         *({
             "name": name, "route": "cuda", "source": f"{csrc}/bn_stats.cu",
             "replaces": f"distributed_tensorflow_examples_tpu/ops/bn.py:{line}",

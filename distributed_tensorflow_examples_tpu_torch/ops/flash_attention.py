@@ -1,11 +1,12 @@
-"""Flash attention, forward and split backward: hand-written CUDA kernels
-for Hopper and their plain PyTorch versions.
+"""Flash attention, forward and backward (split and fused): hand-written
+CUDA kernels for Hopper and their plain PyTorch versions.
 
 The port of ``distributed_tensorflow_examples_tpu/ops/flash_attention.py``.
 The kernels replace the Pallas TPU kernels ``_fwd_kernel``
 (``csrc/flash_fwd.cu``), ``_dq_kernel`` and ``_dkv_kernel``
-(``csrc/flash_bwd.cu``); each source note says what bounds it on the card
-and how its design answers that.  The contract is the JAX one:
+(``csrc/flash_bwd.cu``) and ``_fused_bwd_kernel``
+(``csrc/flash_fused_bwd.cu``); each source note says what bounds it on the
+card and how its design answers that.  The contract is the JAX one:
 
 - q, k, v fold to [B*H, T, D]; q is scaled once by ``log2(e)/sqrt(D)`` in
   its own dtype, and the online softmax runs in base 2 (``exp2``);
@@ -22,13 +23,28 @@ and how its design answers that.  The contract is the JAX one:
   ds.k in k's dtype and ds^T.q in q's; dq is scaled by 1/sqrt(D) and dk
   by 1/log2(e) at the end.
 
-:func:`fwd_call`, :func:`dq_call` and :func:`dkv_call` run the kernel on
-CUDA tensors and the plain version (:func:`fwd_plain`, :func:`dq_plain`,
-:func:`dkv_plain`: the same algorithm tile by tile) on CPU tensors only.
-A CUDA tensor the kernel does not take raises; nothing falls back.
+- the fused backward (:func:`fused_bwd_call`) computes dq, dk and dv from
+  one s/p per tile pair (5 block products instead of the split pair's 7);
+  each ds.k contribution to dq is scaled by 1/sqrt(D) before it is added,
+  as ``_fused_bwd_kernel`` does, where the split dq scales once at the end.
+
+:func:`fwd_call`, :func:`dq_call`, :func:`dkv_call` and
+:func:`fused_bwd_call` run the kernel on CUDA tensors and the plain
+version (:func:`fwd_plain`, :func:`dq_plain`, :func:`dkv_plain`,
+:func:`fused_bwd_plain`: the same algorithm tile by tile) on CPU tensors
+only.  A CUDA tensor the kernel does not take raises; nothing falls back.
+
 :func:`flash_attention` is differentiable through :class:`FlashAttention`,
-whose backward is the split one (dq, then dk/dv), as the JAX ``_bwd``
-runs it by default.
+whose backward takes the JAX ``_bwd``'s decision: the fused kernel where
+:func:`_fused_bwd_policy` wants it (nq, nk >= 4 and ``DTX_FUSED_BWD=1``,
+the ``_FUSED_BWD_VALIDATED`` latch, or ``_FUSED_BWD_OVERRIDE``), the split
+pair otherwise.  nq and nk come from the JAX block sizes (``block_q``/
+``block_k``, or ``DTX_FLASH_BQ``/``DTX_FLASH_BK``, default 1024, each cut
+to the largest divisor of T by :func:`_pick_block`); they only decide the
+dispatch.  The Hopper kernels tile by their own ``BLOCK`` = 64 rows
+whatever the blocks say.  Where the reference segments q past its VMEM cap
+(``fused_bwd_segmented``), the port runs one fused call: its dq lives in
+device memory and has no cap, and the results agree (the tests hold them).
 """
 
 from __future__ import annotations
@@ -40,6 +56,7 @@ import os
 import torch
 
 from . import LAUNCHES, _build
+from .common import largest_divisor
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -323,43 +340,220 @@ def dkv_plain(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
     return dk, dv
 
 
-def _check_fused_bwd_env() -> None:
-    """``DTX_FUSED_BWD``, read as the JAX ``_fused_bwd_policy`` reads it:
-    '' or '0' keep the split backward; '1' asks for the fused kernel, which
-    the port does not have yet; any other value is a typo that must not
-    record a split-kernel run under a fused label."""
+# ----------------------------------------------------------------------------
+# Fused backward: dq, dk and dv from one s/p per tile pair
+# ----------------------------------------------------------------------------
+
+#: Streaming multiprocessors of the H100 the fused kernel is laid out for.
+#: Its grid is (BH, S): S blocks per batch*head share the k tiles, so BH * S
+#: blocks fill the card.  S depends on the shape alone, never on the card a
+#: run lands on, so a shape gives the same bits everywhere.
+SMS = 132
+
+
+def fused_slices(bh: int, t: int) -> int:
+    """S, the number of blocks (and of f32 dq workspace slices) per
+    batch*head of the fused backward: as many as fill ``SMS`` with one
+    block each, at most one per k tile."""
+    nk = -(-t // BLOCK)
+    return max(1, min(nk, SMS // bh))
+
+
+def owned_k_tiles(s: int, slices: int, nk: int) -> list[int]:
+    """The k tiles block ``s`` of ``slices`` owns, in the order it visits
+    them: round r takes tile ``r*S + s`` on even rounds and ``r*S + S-1-s``
+    on odd ones (a snake), so under a causal mask, where k tile j meets
+    nq - j q tiles, every block gets the same work to within one round."""
+    out = []
+    for r in range(-(-nk // slices)):
+        kj = r * slices + (slices - 1 - s if r % 2 else s)
+        if kj < nk:
+            out.append(kj)
+    return out
+
+
+def fused_bwd_call(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
+    """``(dq, dk, dv)`` [BH, T, D] (in the input dtype, or ``out_dtype``:
+    f32 for the partials ring attention merges) for the same inputs as
+    :func:`dq_call`: the fused kernel on a CUDA tensor, the plain version
+    on a CPU tensor, an error on anything else."""
+    _check_bwd(q, k, v, do, lse, delta, out_dtype)
+    if _device_of("flash_fused_bwd", q) == "cpu":
+        return fused_bwd_plain(q, k, v, do, lse, delta, causal=causal, out_dtype=out_dtype)
+    bh, t, d = q.shape
+    _cuda_checks("flash_fused_bwd", d, q, k, v, do, lse, delta)
+    out_dtype = out_dtype or q.dtype
+    fn = _build.load("flash_fused_bwd").dtx_flash_fused_bwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    slices = fused_slices(bh, t)
+    # No memset: a block's first k tile stores every row its slice will
+    # hold, and the reduction reads only the slices that hold a row.
+    ws = torch.empty((slices, bh, t, d), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty(q.shape, dtype=out_dtype, device=q.device) for _ in range(3))
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), ws.data_ptr(), bh, t, d, slices,
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[out_dtype], int(bool(causal)),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _raise_on("flash_fused_bwd", err, q, out_dtype)
+    LAUNCHES["flash_fused_bwd"] += 1
+    return dq, dk, dv
+
+
+def fused_bwd_plain(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
+    """The fused kernel's algorithm in plain PyTorch, in its order: block s
+    of :func:`fused_slices` walks its :func:`owned_k_tiles`, each over the
+    q tiles from the diagonal when causal, keeping dk/dv for the k tile and
+    adding every q tile's scaled ds.k into its own f32 slice of an
+    [S, BH, T, D] workspace; the slices are then summed in order 0..S-1."""
+    _check_bwd(q, k, v, do, lse, delta, out_dtype)
+    bh, t, d = q.shape
+    f32 = torch.float32
+    qs, kf, vf, dof, lse2 = _bwd_operands(q, k, v, do, lse)
+    scale = 1.0 / math.sqrt(d)
+    slices, nk = fused_slices(bh, t), -(-t // BLOCK)
+    ws = torch.zeros((slices, bh, t, d), dtype=f32, device=q.device)
+    dk = torch.empty(k.shape, dtype=out_dtype or k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=out_dtype or v.dtype, device=q.device)
+    for s in range(slices):
+        for kj in owned_k_tiles(s, slices, nk):
+            k0, k1 = kj * BLOCK, min(kj * BLOCK + BLOCK, t)
+            dk_acc = torch.zeros((bh, k1 - k0, d), dtype=f32, device=q.device)
+            dv_acc = torch.zeros((bh, k1 - k0, d), dtype=f32, device=q.device)
+            for q0 in range(k0 if causal else 0, t, BLOCK):  # causal: from the diagonal
+                q1 = min(q0 + BLOCK, t)
+                p = _probs(qs, kf, lse2, q0, q1, k0, k1, causal)
+                dv_acc = dv_acc + p.to(do.dtype).to(f32).transpose(1, 2) @ dof[:, q0:q1]
+                dp = dof[:, q0:q1] @ vf[:, k0:k1].transpose(1, 2)
+                # ds enters ds^T.q in q's dtype and ds.k in k's (the same).
+                ds = (p * (dp - delta[:, q0:q1])).to(q.dtype).to(f32)
+                dk_acc = dk_acc + ds.transpose(1, 2) @ qs[:, q0:q1]
+                ws[s, :, q0:q1] += (ds @ kf[:, k0:k1]) * scale
+            dk[:, k0:k1] = (dk_acc * (1.0 / LOG2E)).to(dk.dtype)
+            dv[:, k0:k1] = dv_acc.to(dv.dtype)
+    acc = ws[0]
+    for s in range(1, slices):
+        acc = acc + ws[s]
+    return acc.to(out_dtype or q.dtype), dk, dv
+
+
+# ----------------------------------------------------------------------------
+# Backward dispatch: the JAX ``_bwd``'s, copied (not imported)
+# ----------------------------------------------------------------------------
+
+#: Fused-backward override: None = auto (the policy below), True/False force.
+_FUSED_BWD_OVERRIDE: bool | None = None
+
+#: The reference's hardware-validation latch, closed as there: without
+#: ``DTX_FUSED_BWD=1`` (or the override) the backward stays split.
+_FUSED_BWD_VALIDATED = False
+
+#: The reference's cap on the fused kernel's [T, D] f32 dq accumulator
+#: (TPU VMEM, 8 MB).  Past it the reference segments q
+#: (``fused_bwd_segmented``); the port's dq lives in device memory, so it
+#: runs one uncapped fused call wherever the reference takes either.
+_FUSED_MAX_ACC_BYTES = 8 * 1024 * 1024
+
+
+def _fused_bwd_policy(nq: int, nk: int) -> bool:
+    """Whether the fused backward is wanted: the override, then
+    ``DTX_FUSED_BWD`` ('0' split, '1' the regime without the latch, any
+    other value a ValueError, so a typo never records a split run under a
+    fused label), then the latch; in the regime nq, nk >= 4."""
+    if _FUSED_BWD_OVERRIDE is not None:
+        return _FUSED_BWD_OVERRIDE
     env = os.environ.get("DTX_FUSED_BWD", "")
     if env not in ("", "0", "1"):
         raise ValueError(f"DTX_FUSED_BWD={env!r}: must be '0' or '1'")
-    if env == "1":
-        raise NotImplementedError(
-            "DTX_FUSED_BWD=1: the fused backward kernel (B4, _fused_bwd_kernel) "
-            "is not ported yet; unset it or set 0 for the split dq/dkv kernels"
-        )
+    if env == "0":
+        return False
+    if env != "1" and not _FUSED_BWD_VALIDATED:
+        return False
+    return nq >= 4 and nk >= 4
+
+
+def _use_fused_bwd(nq: int, nk: int, tq: int, d: int) -> bool:
+    """The reference's "one fused call?" answer: wanted and the [tq, d] f32
+    accumulator under its cap."""
+    return _fused_bwd_policy(nq, nk) and tq * d * 4 <= _FUSED_MAX_ACC_BYTES
+
+
+def _fused_segment_rows(tq: int, d: int, bq: int, bk: int) -> int:
+    """The reference's q-segment length past the cap: the largest that fits
+    the cap, divides tq and is a multiple of both blocks; 0 when none does
+    (the reference then runs the split kernels)."""
+    cap_rows = _FUSED_MAX_ACC_BYTES // (d * 4)
+    for m in range(2, tq // bq + 1):
+        if tq % m:
+            continue
+        seg = tq // m
+        if seg % bq or seg % bk:
+            continue
+        if seg <= cap_rows:
+            return seg
+    return 0
+
+
+def _takes_fused(t: int, d: int, bq: int, bk: int) -> bool:
+    """``_bwd``'s decision: the fused mechanism (one call, or segments in
+    the reference) or the split kernels."""
+    if not _fused_bwd_policy(t // bq, t // bk):
+        return False
+    return t * d * 4 <= _FUSED_MAX_ACC_BYTES or bool(_fused_segment_rows(t, d, bq, bk))
+
+
+def _pick_block(t: int, want: int) -> int:
+    """Largest divisor of ``t`` that is <= ``want``, as the reference picks
+    its tiles.  (The reference also warns about tiles under 128 rows, slow
+    on the TPU; here the block only sets nq/nk, so there is nothing to
+    warn about.)"""
+    return largest_divisor(t, want)
+
+
+def _env_block(name: str) -> int:
+    """``DTX_FLASH_BQ``/``DTX_FLASH_BK`` (default 1024), validated as the
+    reference validates them: an integer >= 128, or a ValueError."""
+    raw = os.environ.get(name, "1024")
+    try:
+        val = int(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r}: flash block overrides must be integers") from None
+    if val < 128:
+        raise ValueError(f"{name}={val}: flash blocks must be >= 128")
+    return val
 
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention over folded q, k, v [BH, T, D] with the FA2 backward:
     the port of the JAX ``_flash_bhd`` custom VJP.  The forward saves
-    (q, k, v, o, lse); the backward computes delta, then dq
-    (:func:`dq_call`) and dk/dv (:func:`dkv_call`)."""
+    (q, k, v, o, lse); the backward computes delta, then dq, dk and dv with
+    :func:`fused_bwd_call` where :func:`_takes_fused` says so for the
+    dispatch blocks (bq, bk), else with :func:`dq_call` and
+    :func:`dkv_call`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, block_q, block_k):
         o, lse = fwd_call(q, k, v, causal=causal)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.blocks = causal, (block_q, block_k)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        _check_fused_bwd_env()
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
         delta = compute_delta(do, o)
-        dq = dq_call(q, k, v, do, lse, delta, causal=ctx.causal)
-        dk, dv = dkv_call(q, k, v, do, lse, delta, causal=ctx.causal)
-        return dq, dk, dv, None
+        t, d = q.shape[1], q.shape[2]
+        if _takes_fused(t, d, *ctx.blocks):
+            dq, dk, dv = fused_bwd_call(q, k, v, do, lse, delta, causal=ctx.causal)
+        else:
+            dq = dq_call(q, k, v, do, lse, delta, causal=ctx.causal)
+            dk, dv = dkv_call(q, k, v, do, lse, delta, causal=ctx.causal)
+        return dq, dk, dv, None, None, None
 
 
 def flash_viable(t: int, device, head_dim: int) -> bool:
@@ -370,10 +564,18 @@ def flash_viable(t: int, device, head_dim: int) -> bool:
     return torch.device(device).type == "cuda" and t >= 1 and head_dim in HEAD_DIMS
 
 
-def flash_attention(q, k, v, *, causal: bool = False):
+def flash_attention(q, k, v, *, causal: bool = False,
+                    block_q: int | None = None, block_k: int | None = None):
     """Drop-in for ``ops.attention.mha``: q/k/v [B, H, T, D] -> [B, H, T, D],
-    differentiable (:class:`FlashAttention`)."""
+    differentiable (:class:`FlashAttention`).  ``block_q``/``block_k`` (else
+    ``DTX_FLASH_BQ``/``DTX_FLASH_BK``, read at every call) are the
+    reference's blocks: here they choose the backward, not the tiles."""
+    if block_q is None:
+        block_q = _env_block("DTX_FLASH_BQ")
+    if block_k is None:
+        block_k = _env_block("DTX_FLASH_BK")
     B, H, T, D = q.shape
+    bq, bk = _pick_block(T, block_q), _pick_block(T, block_k)
     fold = lambda x: x.reshape(B * H, T, D).contiguous()
-    o = FlashAttention.apply(fold(q), fold(k), fold(v), bool(causal))
+    o = FlashAttention.apply(fold(q), fold(k), fold(v), bool(causal), bq, bk)
     return o.reshape(B, H, T, D)

@@ -155,10 +155,17 @@ def test_cpu_backward_launches_no_kernel():
 
 
 def test_fused_backward_env(monkeypatch):
+    """``DTX_FUSED_BWD=1`` at T 64 (one 64-row block: nq = nk = 1, under the
+    fused regime) runs the split backward, as the JAX ``_bwd`` does; a
+    value other than ''/0/1 raises."""
     q, k, v = (x.requires_grad_() for x in _torch(_arrays((1, 1, 64, 32), 4, 3), "float32"))
     monkeypatch.setenv("DTX_FUSED_BWD", "1")
-    with pytest.raises(NotImplementedError, match="B4"):
-        torch_flash.flash_attention(q, k, v, causal=True).sum().backward()
+    calls = []
+    monkeypatch.setattr(torch_flash, "fused_bwd_call", lambda *a, **kw: calls.append(a))
+    torch_flash.flash_attention(q, k, v, causal=True).sum().backward()
+    assert q.grad is not None and not calls
+    assert not jax_flash._use_fused_bwd(1, 1, 64, 32)
+    q.grad = None
     monkeypatch.setenv("DTX_FUSED_BWD", "yes")
     with pytest.raises(ValueError, match="DTX_FUSED_BWD"):
         torch_flash.flash_attention(q, k, v, causal=True).sum().backward()

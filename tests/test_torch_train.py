@@ -42,6 +42,7 @@ from distributed_tensorflow_examples_tpu_torch import bridge
 from distributed_tensorflow_examples_tpu_torch.data import datasets, pipeline
 from distributed_tensorflow_examples_tpu_torch.examples import transformer_lm as cli
 from distributed_tensorflow_examples_tpu_torch.models import transformer as torch_tf
+from distributed_tensorflow_examples_tpu_torch.ops import flash_attention as torch_flash_ops
 from distributed_tensorflow_examples_tpu_torch.serve import ModelRegistry
 from distributed_tensorflow_examples_tpu_torch.train import (
     Experiment, checkpoint, hooks, loop, optim, preemption, state, step,
@@ -60,7 +61,7 @@ TOL = {
 }
 
 
-def _batches(n, batch=4, seq_len=64):
+def _batches(n, batch=4, seq_len=TINY["max_seq_len"]):
     ids, _vocab, _src = datasets.text_corpus(None, vocab_size=64, synth_tokens=20000, seed=0)
     it = datasets.lm_batches(ids, batch_size=batch, seq_len=seq_len)
     return [next(it) for _ in range(n)]
@@ -89,13 +90,14 @@ def _optimizers(clip=1.0, lr=LR):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_run(attention, dtype, loss_chunks, grad_accum):
+def _jax_run(attention, dtype, loss_chunks, grad_accum, seq_len):
     """JAX: init params, first-step gradients, per-step losses, final params."""
-    jcfg, _ = _configs(attention=attention, compute_dtype=dtype, loss_chunks=loss_chunks)
+    jcfg, _ = _configs(attention=attention, compute_dtype=dtype, loss_chunks=loss_chunks,
+                       max_seq_len=seq_len)
     jopt, _ = _optimizers()
     js = jax_state.create_state(lambda r: jax_tf.init(jcfg, r), jopt, jax.random.key(0))
     jparams = jax.device_get(js.params)
-    batches = _batches(STEPS)
+    batches = _batches(STEPS, seq_len=seq_len)
     jloss_fn = jax_tf.loss_fn(jcfg)
     grads = None
     if grad_accum == 1:
@@ -112,25 +114,45 @@ def _jax_run(attention, dtype, loss_chunks, grad_accum):
     return jparams, grads, losses, final
 
 
+def _case(attention, dtype, loss_chunks, grad_accum, fused=False):
+    """One case, under the id the four-field cases had."""
+    ident = f"{attention}-{dtype}-{loss_chunks}-{grad_accum}" + ("-fused-t512" if fused else "")
+    return pytest.param(attention, dtype, loss_chunks, grad_accum, fused, id=ident)
+
+
 @pytest.mark.parametrize(
-    "attention,dtype,loss_chunks,grad_accum",
+    "attention,dtype,loss_chunks,grad_accum,fused",
     [
-        ("xla", "float32", 0, 1),
-        ("flash", "float32", 0, 1),
-        ("xla", "bfloat16", 0, 1),
-        ("flash", "bfloat16", 0, 1),
-        ("flash", "float32", 2, 1),
-        ("xla", "float32", 0, 2),
+        _case("xla", "float32", 0, 1),
+        _case("flash", "float32", 0, 1),
+        _case("xla", "bfloat16", 0, 1),
+        _case("flash", "bfloat16", 0, 1),
+        _case("flash", "float32", 2, 1),
+        _case("xla", "float32", 0, 2),
+        # DTX_FLASH_BQ/BK = 128 at T 512: nq = nk = 4, so DTX_FUSED_BWD=1
+        # sends every attention backward of both packages to the fused kernel.
+        _case("flash", "float32", 0, 1, fused=True),
     ],
 )
-def test_train_steps_match_jax(attention, dtype, loss_chunks, grad_accum):
-    jparams, jgrads, jlosses, jfinal = _jax_run(attention, dtype, loss_chunks, grad_accum)
-    _, tcfg = _configs(attention=attention, compute_dtype=dtype, loss_chunks=loss_chunks)
+def test_train_steps_match_jax(attention, dtype, loss_chunks, grad_accum, fused, monkeypatch):
+    seq_len = TINY["max_seq_len"]
+    fused_calls = []
+    if fused:
+        seq_len = 512
+        for name, value in (("DTX_FLASH_BQ", "128"), ("DTX_FLASH_BK", "128"),
+                            ("DTX_FUSED_BWD", "1")):
+            monkeypatch.setenv(name, value)
+        real = torch_flash_ops.fused_bwd_plain
+        monkeypatch.setattr(torch_flash_ops, "fused_bwd_plain",
+                            lambda *a, **kw: fused_calls.append(1) or real(*a, **kw))
+    jparams, jgrads, jlosses, jfinal = _jax_run(attention, dtype, loss_chunks, grad_accum, seq_len)
+    _, tcfg = _configs(attention=attention, compute_dtype=dtype, loss_chunks=loss_chunks,
+                       max_seq_len=seq_len)
     _, topt = _optimizers()
     tol = TOL[dtype]
     ts = _port_state(tcfg, jparams, topt)
     loss_fn = torch_tf.loss_fn(tcfg)
-    batches = _batches(STEPS)
+    batches = _batches(STEPS, seq_len=seq_len)
 
     if jgrads is not None:
         loss, _ = loss_fn(ts.params, {}, _torch_batch(batches[0]), None)
@@ -155,6 +177,8 @@ def test_train_steps_match_jax(attention, dtype, loss_chunks, grad_accum):
         diff = np.abs(p.detach().numpy() - want)
         assert diff.max() <= tol["param"], f"{path}: max |Δparam| {diff.max():.3e}"
         assert diff.mean() <= tol["param_mean"], f"{path}: mean |Δparam| {diff.mean():.3e}"
+    # The fused path ran: each layer's backward, for the gradients and the steps.
+    assert len(fused_calls) == (tcfg.n_layers * (1 + STEPS) if fused else 0)
 
 
 @pytest.mark.parametrize("clip", [1e-3, 1e3], ids=["clip_active", "clip_idle"])
