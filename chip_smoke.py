@@ -9,7 +9,16 @@ it fails:
 1. Build: compile every CUDA kernel source in the checkout
    (``distributed_tensorflow_examples_tpu_torch/ops/csrc``: ``flash_fwd``,
    ``flash_bwd``, ``flash_fused_bwd``, ``bn_stats``), one ``nvcc`` per
-   source, all started together.
+   source, all started together.  Print each kernel instance's registers
+   and spills (``-Xptxas -v``) and the tensor-core instructions (``HMMA``,
+   ``HGMMA``) that ``cuobjdump -sass`` finds in the SASS of the two
+   tensor-core kernels (``flash_fwd_tc_kernel``,
+   ``flash_fused_bwd_tc_kernel``, one instance per head dim); the run
+   fails if one of those spills, has no ptxas report or none, or if
+   ``cuobjdump`` is missing.  Each of the two libraries must also report
+   (``dtx_<name>_route``) the tensor-core kernel for bf16 in and out,
+   with the tiles the plain version walks, and the CUDA-core one for any
+   f32 side.
 2. Kernels against their plain PyTorch versions on the card, at the shapes
    the main paths give them and at the edges the kernels must also take
    (ragged T, head dims 32/64, float32 in and out, non-causal), with the
@@ -17,7 +26,9 @@ it fails:
    bits on a second run.  Then each kernel, its plain version and the
    PyTorch call computing the same function (``scaled_dot_product_attention``
    and its backward, timed as a yardstick only; the port never calls
-   either) are timed with CUDA events at the main path's shape.  The
+   either) are timed with CUDA events at the main path's shape, with the
+   achieved TFLOP/s of the forward and the fused backward; the forward
+   also at the training shapes [64, 2048, 128] and [16, 8192, 128].  The
    BatchNorm statistics kernels (``bn_stats``, ``bn_bwd_stats`` with and
    without the ReLU mask) likewise, at ResNet-50's shapes and a ragged
    f32 one, bitwise equal run to run, and timed against
@@ -26,8 +37,10 @@ it fails:
    the 53 BatchNorm shapes of one training step.  The fused backward
    (``flash_fused_bwd``) likewise at the T 8192 path's [16, 8192, 128] bf16
    causal (bitwise equal run to run), [8, 2048, 128] non-causal, ragged
-   T 1000 at D 64 and 32, and f32 in and out; timed there against its plain
-   version, SDPA's backward and the split pair at the same shape.  Then
+   T 1000 at D 64 and 32, T 320 and 192 (a last 128-row k group half
+   empty), and f32 in and out; timed there against its plain version,
+   SDPA's backward and the split pair at the same shape, with the bytes of
+   its f32 dq workspace a call (``fused_dq_workspace_bytes``).  Then
    the parity gate (the port's twin of ``tools/flash_parity.py``, all three
    of the reference's cases): fused against split and dense gradients, and
    bitwise determinism; the run fails unless ``parity_ok``.
@@ -39,8 +52,10 @@ it fails:
    for one-row predicts by the port's ``ServeClient``, two of them
    concurrently.  Every answer must be finite logits [1, 2048, 32000] with
    the published step and version stamps; the flash forward must have run
-   12 times per apply; one answer must match an ``attention="xla"`` apply
-   of the same weights on the card.
+   12 times per apply, every time on its tensor-core kernel
+   (``TENSOR_CORE_LAUNCHES``, as in phases 4 and 6); one answer must match an ``attention="xla"`` apply
+   of the same weights on the card.  One padded apply is timed (flash and
+   xla attention) and profiled once: device busy against the host's time.
 4. Train end to end at full width: the same flagship, batch 8 x T 2048,
    through the port's training job (``examples.transformer_lm``'s
    ``run_training``: ``Experiment`` over the synthetic ``text_corpus``,
@@ -82,7 +97,10 @@ it fails:
 Phase 4 still runs the split kernels: at T 2048 the blocks give
 nq = nk = 2, under the fused regime.  No path is cut in depth.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (the two kernels
+with a tensor-core instance carry its launches on the main paths and its
+SASS tensor-core instruction count, and the forward its times at the
+three shapes); the last line is
 ``{"ok": true, "device": {...}}``.  The run needs one card; it exits
 non-zero without one, and without the repository beside it.
 """
@@ -229,10 +247,13 @@ def _kernel_instance(mangled: str) -> str:
                 + (f", RELU={relu.group(1)}>" if relu else ">"))
     if "fused_dq_reduce_kernel" in mangled:
         return f"fused_dq_reduce_kernel<{'bf16' if 'bfloat16' in mangled else 'f32'}>"
-    kernel = re.search(r"(flash_(?:fwd|dq|dkv|fused_bwd)_kernel)I", mangled)
+    kernel = re.search(r"(flash_(?:fwd|dq|dkv|fused_bwd)(?:_tc)?_kernel)I", mangled)
     d = re.search(r"Li(\d+)E", mangled)
-    types = next((v for k, v in _TYPES.items()
-                  if re.search(r"_kernelI" + re.escape(k), mangled)), "?")
+    if "_tc_kernelI" in mangled:  # bf16 in and out; the template names only D
+        types = "bf16->bf16"
+    else:
+        types = next((v for k, v in _TYPES.items()
+                      if re.search(r"_kernelI" + re.escape(k), mangled)), "?")
     return f"{kernel.group(1) if kernel else mangled}<{types}, D={d.group(1) if d else '?'}>"
 
 
@@ -256,6 +277,111 @@ def ptxas_report(log_text: str) -> list[str]:
     return out
 
 
+def spills(report_line: str) -> bool:
+    """Whether a :func:`ptxas_report` line shows spill stores or loads."""
+    import re
+
+    return any(int(n) for n in re.findall(r"(\d+) bytes spill", report_line))
+
+
+def tensor_core_counts(library: Path) -> dict[str, int]:
+    """Tensor-core instructions (``HMMA``, ``HGMMA``) in the SASS of each
+    kernel instance of a built library, from ``cuobjdump -sass``."""
+    import os
+    import re
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        raise SystemExit("cuobjdump not found: the tensor-core check needs the CUDA toolkit's")
+    sass = subprocess.run([exe, "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts: dict = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _kernel_instance(m.group(1))
+            counts[name] = 0
+        elif name and re.search(r"\bHG?MMA\.", line):
+            counts[name] += 1
+    return counts
+
+
+#: The sources with a tensor-core kernel (bf16 in and out) beside their
+#: CUDA-core one.
+TENSOR_CORE_SOURCES = ("flash_fwd", "flash_fused_bwd")
+
+
+def check_build(_build, sources) -> dict:
+    """Each kernel instance's registers and spills (``-Xptxas -v``), and the
+    tensor-core instructions in the SASS of the tensor-core kernels;
+    fails when a tensor-core kernel's report is missing, lacks a head dim,
+    shows a spill, or its SASS has no tensor-core instruction.  Returns
+    the tensor-core instruction count of each tensor-core source."""
+    for name in sources:
+        ptxas = Path(str(_build.library_path(name)) + ".log")
+        if not ptxas.exists():
+            if name in TENSOR_CORE_SOURCES:
+                raise SystemExit(f"no ptxas report beside {_build.library_path(name)}: "
+                                 "delete the library to rebuild it")
+            continue
+        report = ptxas_report(ptxas.read_text())
+        for line in report:
+            log(f"  ptxas: {line}")
+            if "_tc_kernel" in line and spills(line):
+                raise SystemExit(f"a tensor-core kernel spills registers: {line}")
+        if name in TENSOR_CORE_SOURCES:
+            for d in (32, 64, 128):
+                if not any("_tc_kernel" in ln and f"D={d}>" in ln for ln in report):
+                    raise SystemExit(f"{name}: no ptxas line for the tensor-core kernel at D {d}")
+    totals = {}
+    for name in TENSOR_CORE_SOURCES:
+        counts = {k: n for k, n in tensor_core_counts(_build.library_path(name)).items()
+                  if "_tc_kernel" in k}
+        log(f"  SASS tensor-core instructions (HMMA/HGMMA) in lib{name}: "
+            + ", ".join(f"{k} {n}" for k, n in sorted(counts.items())))
+        if not counts or min(counts.values()) == 0:
+            raise SystemExit(f"{name}: a bf16 kernel instance has no tensor-core instruction")
+        totals[name] = sum(counts.values())
+    return totals
+
+
+def check_routes(flash) -> None:
+    """The built libraries take the tensor-core kernel for bf16 in and out
+    only, with the tiles the plain versions walk (``FWD_BLOCK_Q``/``_K``,
+    ``FUSED_BLOCK_Q``/``FUSED_GROUP_K``), and the CUDA-core kernel with
+    64-row tiles (``BLOCK``) for any f32 side."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    want = {
+        ("flash_fwd", bf16, bf16): (True, (flash.FWD_BLOCK_Q, flash.FWD_BLOCK_K)),
+        ("flash_fused_bwd", bf16, bf16): (True, (flash.FUSED_BLOCK_Q, flash.FUSED_GROUP_K)),
+    }
+    for name in TENSOR_CORE_SOURCES:
+        for pair in ((bf16, f32), (f32, f32), (f32, bf16)):
+            want[(name, *pair)] = (False, (flash.BLOCK, flash.BLOCK))
+    for key, route in want.items():
+        got = flash.kernel_route(*key)
+        if got != route:
+            raise SystemExit(f"{key[0]} {key[1]} -> {key[2]}: the library reports "
+                             f"(tensor cores, tiles) {got}, the plain version walks {route}")
+    log("  routes: bf16 in and out -> tensor-core kernels (flash_fwd tiles "
+        f"{want[('flash_fwd', bf16, bf16)][1]}, flash_fused_bwd {want[('flash_fused_bwd', bf16, bf16)][1]}"
+        "), any f32 side -> CUDA-core kernels, as the plain versions walk them")
+
+
+def require_tensor_cores(path: str, launches: dict, tc_launches: dict) -> None:
+    """Fails unless every launch of a kernel with a tensor-core instance
+    took that instance on ``path``: an f32 side slipping onto a bf16 path
+    would run the CUDA-core kernel, ~10x slower, at the same launch count."""
+    for name in TENSOR_CORE_SOURCES:
+        n, tc = launches.get(name, 0), tc_launches.get(name, 0)
+        if tc != n:
+            raise SystemExit(f"the {path} path launched {name} {n} times, {tc} of them "
+                             "on its tensor-core kernel")
+    log(f"  tensor-core launches ({path}): " + ", ".join(
+        f"{k} {tc_launches.get(k, 0)} of {launches.get(k, 0)}" for k in TENSOR_CORE_SOURCES))
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Device time of one call, from CUDA events around ``iters`` calls."""
     for _ in range(warmup):
@@ -271,6 +397,13 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def flash_flops(bh: int, t: int, d: int, causal: bool, products: int = 2) -> int:
+    """Operations of ``products`` [T, D]-by-pair matrix products over the
+    (causal: visible) score pairs."""
+    pairs = t * (t + 1) // 2 if causal else t * t
+    return products * 2 * bh * pairs * d
+
+
 def flash_bound_ms(
     bh: int, t: int, d: int, dtype, causal: bool, *,
     products: int = 2, tiles_in: int = 3, tiles_out: int = 1,
@@ -283,8 +416,7 @@ def flash_bound_ms(
     rows (lse, delta) at the memory rate.  Forward: q.k^T and p.v, q/k/v
     in, o and lse out.  dq: q.k^T, do.v^T and ds.k.  dk/dv: q.k^T, do.v^T,
     p^T.do and ds^T.q.  Both read q, k, v, do, lse and delta."""
-    pairs = t * (t + 1) // 2 if causal else t * t
-    flops = products * 2 * bh * pairs * d
+    flops = flash_flops(bh, t, d, causal, products)
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
     esize = torch.tensor([], dtype=dtype).element_size()
     nbytes = (tiles_in + tiles_out) * bh * t * d * esize + (rows_in + rows_out) * bh * t * 4
@@ -338,13 +470,14 @@ def time_flash(flash, bh, t, d, dtype, causal) -> dict:
         lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal), iters=20
     )
     bound_ms, bound_by = flash_bound_ms(bh, t, d, dtype, causal)
+    tflops = flash_flops(bh, t, d, causal) / (ms * 1e-3) / 1e12
     log(
         f"  timing flash_fwd [{bh}, {t}, {d}] {str(dtype)[6:]} causal={causal}: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by})"
+        f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
     )
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, tflops=tflops)
 
 
 def _bwd_inputs(flash, bh, t, d, dtype, causal, seed):
@@ -473,15 +606,22 @@ def time_fused_bwd(flash, bh, t, d, dtype, causal) -> dict:
     bound_ms, bound_by = flash_bound_ms(bh, t, d, dtype, causal, **BWD_WORK["flash_fused_bwd"])
     split_bound = sum(flash_bound_ms(bh, t, d, dtype, causal, **BWD_WORK[k])[0]
                       for k in ("flash_dq", "flash_dkv"))
+    tflops = flash_flops(bh, t, d, causal, products=5) / (ms * 1e-3) / 1e12
+    ws_walk, ws_reduce = flash.fused_dq_workspace_bytes(bh, t, d, causal=causal)
     log(
         f"  timing flash_fused_bwd [{bh}, {t}, {d}] {str(dtype)[6:]} causal={causal}: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward {sdpa_bwd_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}); split pair at this shape: flash_dq "
-        f"{dq_ms:.4f} + flash_dkv {dkv_ms:.4f} = {dq_ms + dkv_ms:.4f} ms (bound "
-        f"{split_bound:.4f} ms)"
+        f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
+        f"backward {sdpa_bwd_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); split pair "
+        f"at this shape: flash_dq {dq_ms:.4f} + flash_dkv {dkv_ms:.4f} = "
+        f"{dq_ms + dkv_ms:.4f} ms (bound {split_bound:.4f} ms)"
+    )
+    log(
+        f"  flash_fused_bwd dq workspace bytes a call: {ws_walk} in the blocks' walk "
+        f"({ws_walk / 1e9:.3f} GB; {ws_walk / (ms * 1e-3) / 1e12:.2f} TB/s over the "
+        f"kernel's time), {ws_reduce} in the reduction, S = {flash.fused_slices(bh, t)}"
     )
     return dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_bwd_ms, bound_ms=bound_ms,
-                bound_by=bound_by, split_dq_ms=dq_ms, split_dkv_ms=dkv_ms)
+                bound_by=bound_by, split_dq_ms=dq_ms, split_dkv_ms=dkv_ms, tflops=tflops)
 
 
 def resnet50_bn_shapes(batch: int, image: int) -> list[tuple[tuple, bool]]:
@@ -708,6 +848,27 @@ def serve_end_to_end(card: str) -> dict:
     return launches
 
 
+def profile_apply(apply) -> tuple[float, float, float]:
+    """One inference call (after a warm-up) under torch.profiler: (device
+    busy ms, host ms to the synchronize, ms in the flash forward)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        apply()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            apply()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0
+            and e.device_type == DeviceType.CUDA and e.key not in CUPTI_MARKERS]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in rows if "flash_fwd" in e.key) / 1e3
+    return busy_ms, wall_ms, flash_ms
+
+
 def _ask_and_check(cfg, card: str, server, flat, step: int, version: int) -> dict:
     from distributed_tensorflow_examples_tpu_torch import bridge, ops
     from distributed_tensorflow_examples_tpu_torch.models import transformer
@@ -741,6 +902,7 @@ def _ask_and_check(cfg, card: str, server, flat, step: int, version: int) -> dic
         ask(i, client)
     wall = time.perf_counter() - t_run
     launches = dict(ops.LAUNCHES)  # read just after the main path
+    tc_launches = dict(ops.TENSOR_CORE_LAUNCHES)
     stats = client.stats()
     applies = stats["applies"] - applies0
     client.close()
@@ -788,11 +950,17 @@ def _ask_and_check(cfg, card: str, server, flat, step: int, version: int) -> dic
         t_copy = time.perf_counter()
         logits[:1].cpu()  # what the replica copies for a lone request
         d2h_ms = (time.perf_counter() - t_copy) * 1e3
+    busy_ms, wall_ms, flash_ms = profile_apply(lambda: transformer.apply(cfg, params, padded))
     del params, logits
     log(
         f"  one padded apply [2, {t}] on the device: {apply_ms:.2f} ms with the "
         f"flash kernel, {xla_ms:.2f} ms with xla attention; one logits row "
         f"[1, {t}, {cfg.vocab_size}] bf16 to the host: {d2h_ms:.1f} ms [{card}]"
+    )
+    log(
+        f"  profiled apply (flash): host {wall_ms:.2f} ms to the synchronize, device busy "
+        f"{busy_ms:.2f} ms (idle share {max(0.0, 1 - busy_ms / wall_ms):.1%}), of it "
+        f"flash_fwd {flash_ms:.2f} ms"
     )
 
     want = cfg.n_layers * applies
@@ -802,6 +970,7 @@ def _ask_and_check(cfg, card: str, server, flat, step: int, version: int) -> dic
     )
     if launches.get("flash_fwd", 0) != want:
         raise SystemExit("the serving path did not run the flash kernel once per layer")
+    require_tensor_cores("serve", launches, tc_launches)
 
     lat = np.asarray(latencies)
     p50_ms = float(np.percentile(lat, 50) * 1e3)
@@ -813,7 +982,7 @@ def _ask_and_check(cfg, card: str, server, flat, step: int, version: int) -> dic
         f"in {wall:.2f} s; server-side p50 "
         f"{stats.get('serve/latency_p50_ms', float('nan')):.1f} ms [{card}]"
     )
-    return launches
+    return launches, tc_launches
 
 
 def step_clock(kernels):
@@ -874,7 +1043,8 @@ def profile_lm_step(cfg, init, batch, card: str) -> None:
             continue
         kernels.append((us, e.count, e.key))
         name = e.key.lower()
-        fam = next((f for f in FLASH_FAMILIES if f + "_kernel" in name), None)
+        fam = next((f for f in FLASH_FAMILIES
+                    if f + "_kernel" in name or f + "_tc_kernel" in name), None)
         if fam is None:
             fam = next((f for f, keys in KERNEL_FAMILIES if any(k in name for k in keys)), "other")
         families[fam] = families.get(fam, 0.0) + us / 1e3
@@ -919,6 +1089,7 @@ def train_end_to_end(card: str, kernel_ms: dict) -> dict:
     exp = cli.run_training(args, extra_hooks=[clock])
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)  # read just after the main path
+    tc_launches = dict(ops.TENSOR_CORE_LAUNCHES)
     try:
         losses = [loss for _s, _ms, loss, _c in clock.steps]
         log("  steps: " + ", ".join(
@@ -941,6 +1112,7 @@ def train_end_to_end(card: str, kernel_ms: dict) -> dict:
         for k in ("flash_fwd", "flash_dq", "flash_dkv"):
             if launches.get(k, 0) != want:
                 raise SystemExit(f"the training path did not run {k} once per layer and step")
+        require_tensor_cores("train", launches, tc_launches)
 
         reg = ModelRegistry(str(registry_dir))
         got_step, flat, _manifest = reg.load("transformer_lm", exp.published_version)
@@ -1000,7 +1172,7 @@ def train_end_to_end(card: str, kernel_ms: dict) -> dict:
     del result, g_flash, g_xla
 
     profile_lm_step(cfg, init, batch, card)
-    return launches
+    return launches, tc_launches
 
 
 def _with_fused_env(value: str, fn):
@@ -1018,7 +1190,7 @@ def _with_fused_env(value: str, fn):
             os.environ["DTX_FUSED_BWD"] = saved
 
 
-def train_long_end_to_end(card: str, fused_ms: float) -> dict:
+def train_long_end_to_end(card: str, fused_ms: float, fwd_ms: float) -> dict:
     """Train at T 8192 through the fused backward, check, compare with the
     split backward and profile (the module docstring's phase 6); returns
     the kernel launch counts of the main path's run."""
@@ -1044,6 +1216,7 @@ def train_long_end_to_end(card: str, fused_ms: float) -> dict:
     exp = _with_fused_env("1", lambda: cli.run_training(args, extra_hooks=[clock]))
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)  # read just after the main path
+    tc_launches = dict(ops.TENSOR_CORE_LAUNCHES)
     n_params = sum(p.numel() for p in state.leaves(exp.state.params))
     del exp
     losses = [loss for _s, _ms, loss, _c in clock.steps]
@@ -1070,12 +1243,14 @@ def train_long_end_to_end(card: str, fused_ms: float) -> dict:
     if any(c != per_step for *_r, c in clock.steps):
         raise SystemExit(f"the T {LONG_T} path did not run the fused backward alone, "
                          f"once per layer and step: {[c for *_r, c in clock.steps]}")
+    require_tensor_cores(f"T {LONG_T} train", launches, tc_launches)
     step_ms = float(np.median([ms for _s, ms, _l, _c in clock.steps[1:]]))
     log(
         f"  e2e: step {step_ms:.1f} ms (median of steps 2-{TRAIN_STEPS}, host clock to "
         f"the loss read), {LONG_BATCH * LONG_T / (step_ms / 1e3):.0f} tokens/s; "
         f"flash_fused_bwd {cfg.n_layers} x {fused_ms:.3f} = {cfg.n_layers * fused_ms:.1f} ms "
-        f"a step at [{LONG_BATCH * cfg.n_heads}, {LONG_T}, {cfg.head_dim}] (CUDA events) [{card}]"
+        f"and flash_fwd {cfg.n_layers} x {fwd_ms:.3f} = {cfg.n_layers * fwd_ms:.1f} ms a step "
+        f"at [{LONG_BATCH * cfg.n_heads}, {LONG_T}, {cfg.head_dim}] (CUDA events) [{card}]"
     )
 
     # One step's loss and gradients from the initial weights on the first
@@ -1142,7 +1317,7 @@ def train_long_end_to_end(card: str, fused_ms: float) -> dict:
     )
 
     _with_fused_env("1", lambda: profile_lm_step(cfg, init, batch, card))
-    return launches
+    return launches, tc_launches
 
 
 #: Kernel families of a ResNet-50 step's profile, by substrings of the
@@ -1370,11 +1545,8 @@ def main() -> int:
     built = _build.build(sources)
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
         f"(per source: {json.dumps({k: round(v, 1) for k, v in built.items()})})")
-    for name in sources:
-        ptxas = Path(str(_build.library_path(name)) + ".log")
-        if ptxas.exists():
-            for line in ptxas_report(ptxas.read_text()):
-                log(f"  ptxas: {line}")
+    tensor_cores = check_build(_build, sources)
+    check_routes(flash)
 
     log("phase 2: kernels against their plain versions on the card")
     # The serving path's shape: the replica pads every apply to max_batch = 2
@@ -1387,6 +1559,8 @@ def main() -> int:
         check_flash(flash, 8, 2048, 32, torch.bfloat16, True),
         check_flash(flash, 8, 1000, 64, torch.float32, True, out_dtype=torch.float32),
         check_flash(flash, 8, 2048, 128, torch.bfloat16, True, out_dtype=torch.float32),
+        check_flash(flash, LONG_BATCH * 8, LONG_T, 128, torch.bfloat16, True),
+        check_flash(flash, 3, 136, 32, torch.bfloat16, False, out_dtype=torch.float32),
     ]
     # The training path's shape: batch 8 x 8 heads = BH 64.
     train_bh = TRAIN_BATCH * 8
@@ -1401,6 +1575,7 @@ def main() -> int:
     ]
     main_shape = time_flash(flash, 16, 2048, 128, torch.bfloat16, True)
     train_fwd = time_flash(flash, train_bh, 2048, 128, torch.bfloat16, True)
+    long_fwd = time_flash(flash, LONG_BATCH * 8, LONG_T, 128, torch.bfloat16, True)
     time_flash(flash, 8, 2048, 128, torch.bfloat16, False)
     bwd = time_flash_bwd(flash, train_bh, 2048, 128, torch.bfloat16, True)
     # The T 8192 training path's shape: batch 2 x 8 heads = BH 16.
@@ -1412,6 +1587,8 @@ def main() -> int:
         check_fused_bwd(flash, 8, 1000, 32, torch.bfloat16, False),
         check_fused_bwd(flash, 8, 1000, 64, torch.float32, True, out_dtype=torch.float32),
         check_fused_bwd(flash, 8, 2048, 128, torch.bfloat16, True, out_dtype=torch.float32),
+        check_fused_bwd(flash, 3, 320, 128, torch.bfloat16, True),
+        check_fused_bwd(flash, 3, 192, 32, torch.bfloat16, False),
     ]
     fused = time_fused_bwd(flash, long_bh, LONG_T, 128, torch.bfloat16, True)
     log(f"  [{card}]")
@@ -1434,17 +1611,17 @@ def main() -> int:
         raise SystemExit("the fused backward failed its parity gate")
 
     log("phase 3: serve the flagship transformer end to end")
-    serve_launches = serve_end_to_end(card)
+    serve_launches, serve_tc = serve_end_to_end(card)
 
     log("phase 4: train the flagship transformer end to end")
     kernel_ms = {"flash_fwd": train_fwd["ms"], **{k: v["ms"] for k, v in bwd.items()}}
-    train_launches = train_end_to_end(card, kernel_ms)
+    train_launches, train_tc = train_end_to_end(card, kernel_ms)
 
     log("phase 5: train ResNet-50 end to end with the fused BatchNorm statistics")
     resnet_launches = resnet_end_to_end(card)
 
     log(f"phase 6: train the flagship at T {LONG_T} end to end through the fused backward")
-    long_launches = train_long_end_to_end(card, fused["ms"])
+    long_launches, long_tc = train_long_end_to_end(card, fused["ms"], long_fwd["ms"])
 
     csrc = "distributed_tensorflow_examples_tpu_torch/ops/csrc"
     tpu = "distributed_tensorflow_examples_tpu/ops/flash_attention.py"
@@ -1457,7 +1634,12 @@ def main() -> int:
             "launches_by_path": {"serve": serve_launches.get("flash_fwd", 0),
                                  "train": train_launches.get("flash_fwd", 0),
                                  "train_t8192": long_launches.get("flash_fwd", 0)},
+            "tensor_core_launches": serve_tc.get("flash_fwd", 0)
+            + train_tc.get("flash_fwd", 0) + long_tc.get("flash_fwd", 0),
             "max_abs_err": max(errs), **main_shape,
+            "tensor_core_instructions": tensor_cores["flash_fwd"],
+            "at_shapes": {"[16, 2048, 128]": main_shape, "[64, 2048, 128]": train_fwd,
+                          "[16, 8192, 128]": long_fwd},
         },
         *({
             "name": name, "route": "cuda", "source": f"{csrc}/flash_bwd.cu",
@@ -1472,7 +1654,9 @@ def main() -> int:
             "source": f"{csrc}/flash_fused_bwd.cu", "replaces": f"{tpu}:518",
             "launches": long_launches.get("flash_fused_bwd", 0),
             "launches_by_path": {"train_t8192": long_launches.get("flash_fused_bwd", 0)},
+            "tensor_core_launches": long_tc.get("flash_fused_bwd", 0),
             "max_abs_err": max(fused_errs), **fused,
+            "tensor_core_instructions": tensor_cores["flash_fused_bwd"],
         },
         *({
             "name": name, "route": "cuda", "source": f"{csrc}/bn_stats.cu",

@@ -9,8 +9,9 @@ Each ``csrc/<name>.cu`` compiles on first use (or ahead of it, through
         ops/csrc/<name>.cu
 
 into ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``).  The library's file name carries a hash of its source,
-so an edited kernel is rebuilt and a stale one is never loaded; the
+``.gitignore``).  The library's file name carries a hash of its source
+and of the shared headers (``csrc/*.cuh``) it may include, so an edited
+kernel is rebuilt and a stale one is never loaded; the
 compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is
 kept beside it as ``<library>.log``.  Nothing here runs at import time.
 """
@@ -53,9 +54,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict[str, float]:

@@ -11,32 +11,65 @@
 // contribute exactly 0; p is rounded to the input precision before the
 // p.v product (the JAX kernel casts p to v's dtype for the MXU).
 //
-// What bounds it.  At the flagship shape (BH = 8 per row, T = 2048,
-// D = 128, bf16, causal) one call does 2*BH*T^2*D = 8.59 GFLOP (the two
-// products over the causal half), 8.7 us at 989 TFLOP/s bf16, and moves
-// 16.8 MB of q/k/v/o, 5.0 us at 3.35 TB/s: compute-bound.
+// What bounds it.  At the serving shape [16, 2048, 128] bf16 causal one
+// call does 2 products x 2*BH*T(T+1)/2*D = 17.2 GFLOP, 17.4 us at
+// 989 TFLOP/s bf16, and moves 33.6 MB of q/k/v/o, 10 us at 3.35 TB/s:
+// compute-bound, and only the tensor cores reach that rate (the CUDA
+// cores' f32 peak, 67 TFLOP/s, puts the same work at 0.26 ms).
 //
-// Design (the first, simple one; tensor cores come later).
-// - One block of 256 threads per (bh, 64-row q tile); the q tile lives in
-//   shared memory (transposed) for the whole loop, so q is read from device
-//   memory once.  Two blocks fit on an SM at D = 128.
-// - A loop over 64-row k/v tiles staged in shared memory as f32, the
-//   sequential k dimension of the TPU grid turned into a loop in the block.
-// - Causal: tiles above the diagonal are never visited (the loop stops at
-//   the diagonal tile); only the diagonal tile and a ragged last tile are
-//   masked.  Any T works: the ragged edge is masked, never padded.
-// - Products on the CUDA cores in f32 (4x4 register tiles per thread for
-//   q.k^T, 4 rows x D/16 columns of the accumulator per thread for p.v),
-//   so the kernel runs far below its bound: shared-memory loads, not the
-//   tensor cores, limit it.  wgmma/mma.sync, TMA and warp specialisation
-//   are the next steps for speed.
-// - Heavy causal tiles (high q tile index) are scheduled first.
+// bf16 in and out (every serving and training path): flash_fwd_tc_kernel,
+// the products on the tensor cores.
+// - A block of 256 threads (8 warps) per (bh, 128-row q block); warp w owns
+//   q rows 16w..16w+15.  The q block is loaded once, folded (x the scale,
+//   rounded to bf16, exactly as the f32 kernel and the JAX fold round it)
+//   and kept in registers as mma A fragments for the whole k loop.
+// - k and v stream in 64-row bf16 tiles through a two-stage ring filled by
+//   16-byte cp.async (zero fill past T): tile j+1 lands while tile j is in
+//   the products, and each k/v byte loaded serves 128 q rows.  Rows are
+//   padded by 16 bytes so ldmatrix reads hit 32 distinct banks.
+// - s = q.k^T by mma.sync.m16n8k16 (bf16 in, f32 accumulate) into
+//   registers; the row max and row sum stay in registers, reduced across
+//   the four lanes that share a row with __shfl_xor_sync; p is rounded to
+//   bf16 in registers and is the A operand of p.v as it stands (the C
+//   layout of two 16x8 score tiles is the A layout of one 16x16 tile); v's
+//   B fragments come from ldmatrix.trans, so no tile is transposed.  o
+//   stays in f32 registers until the epilogue.
+// - Causal: tiles above the diagonal are never visited (the block's loop
+//   stops at its last row's tile, a warp skips the tiles above its own
+//   rows); only tiles that straddle a warp's diagonal and a ragged last
+//   tile are masked.  Heavy q blocks (high index) are scheduled first.
+// - Registers: o 64 + s 32 + q 32 f32/b32 a thread at D = 128; one block
+//   (8 warps) an SM.  104,448 bytes of shared memory at D = 128.
+// - mma.sync (the Ampere instruction, which Hopper runs at a fraction of
+//   its wgmma rate) rather than wgmma: its fragments live in registers
+//   with a documented layout, so the online softmax, the masks and the
+//   rounding of p stay plain per-thread code.  The same structure on
+//   wgmma (two warpgroups of 64 rows, q and k as no-swizzle shared
+//   operands, p from registers, a wait after each product) ran no faster
+//   on the card: each warpgroup waits on its products between softmax
+//   steps.  The gain needs the softmax of one tile to overlap the next
+//   tile's products, swizzled TMA tiles and warp specialisation (ROADMAP
+//   B1).
+//
+// f32 in, or f32 out: flash_fwd_kernel, products on the CUDA cores in f32
+// (4x4 register tiles from f32 shared memory), 64x64 tiles.  No training
+// or serving path asks for either (ring partials and tests do), and both
+// are held to the f32 tolerance (1e-4 on o), which only scores equal to
+// the plain version's bit for bit can meet: TF32 products would miss it
+// outright, and bf16 tensor-core sums, whose order differs from a
+// sequential f32 one, move s by ~1e-7 relative, enough to flip a p across
+// a bf16 rounding boundary now and then, and each flip moves o by 2^-8 of
+// that term (up to ~5e-4 at [8, 2048, 128]).  The CUDA-core kernel's
+// sequential f32 sums give the plain version's s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+
+#include "tc_sm90.cuh"
 
 namespace {
 
@@ -62,8 +95,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
 
-// At D = 128 this is 115,712 bytes: two blocks fill an SM's 228 KB
-// exactly (with the 1 KB each block reserves), so the layout has no slack.
+// The f32 kernel's shared memory.  At D = 128 this is 115,712 bytes: two
+// blocks fill an SM's 228 KB exactly (with the 1 KB each block reserves).
 template <int D>
 constexpr size_t smem_floats() {
   return size_t(D) * kBlockQ                // q tile, transposed
@@ -230,6 +263,228 @@ flash_fwd_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 in: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kTcBlockQ = 128;  // q rows a block (FWD_BLOCK_Q), 16 a warp
+constexpr int kTcBlockK = 64;   // k/v rows a tile (FWD_BLOCK_K)
+using dtx::kTcThreads;
+using dtx::tc_stride;
+
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  return (size_t(kTcBlockQ) + 4 * size_t(kTcBlockK)) * tc_stride<D>() * sizeof(dtx::bf16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_tc_kernel(const dtx::bf16* __restrict__ q, const dtx::bf16* __restrict__ k,
+                    const dtx::bf16* __restrict__ v, dtx::bf16* __restrict__ o,
+                    float* __restrict__ lse, int t, int causal, float qscale) {
+  static_assert(D % 32 == 0, "head dim must be 32, 64 or 128");
+  using dtx::bf16;
+  constexpr int S = tc_stride<D>();
+  constexpr int kChunks = D / 8;           // 16-byte chunks a row
+  constexpr int kDepth = D / 16;           // k-steps of q.k^T
+  constexpr int kOTiles = D / 8;           // 16x8 tiles of o a warp
+  constexpr int kSTiles = kTcBlockK / 8;   // 16x8 tiles of s a warp
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kTcBlockQ][S]
+  bf16* ks = qs + kTcBlockQ * S;                 // [2][kTcBlockK][S]
+  bf16* vs = ks + 2 * kTcBlockK * S;             // [2][kTcBlockK][S]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int bh = blockIdx.x;
+  const int qb = static_cast<int>(gridDim.y) - 1 - static_cast<int>(blockIdx.y);  // heavy first
+  const int q0 = qb * kTcBlockQ;
+  const size_t base = static_cast<size_t>(bh) * t * D;
+  const int nk = (t + kTcBlockK - 1) / kTcBlockK;
+  const int q_last = min(t, q0 + kTcBlockQ) - 1;
+  const int k_end = causal ? min(nk, q_last / kTcBlockK + 1) : nk;  // never above the diagonal
+
+  auto load_kv = [&](int j, int stage) {
+    const int k0 = j * kTcBlockK;
+    for (int i = tid; i < kTcBlockK * kChunks; i += kTcThreads) {
+      const int r = i / kChunks, col = (i % kChunks) * 8, row = k0 + r;
+      const bool in = row < t;
+      const size_t off = base + static_cast<size_t>(in ? row : 0) * D + col;
+      const int dst = (stage * kTcBlockK + r) * S + col;
+      dtx::cp_async16(ks + dst, k + off, in);
+      dtx::cp_async16(vs + dst, v + off, in);
+    }
+  };
+  load_kv(0, 0);
+  dtx::cp_async_commit();
+
+  // The q block, folded once: x * round(qscale), rounded to bf16 (zero
+  // past T), as the f32 kernel and the JAX wrapper fold it.
+  const float qc = __bfloat162float(__float2bfloat16_rn(qscale));
+  for (int i = tid; i < kTcBlockQ * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, col = (i % kChunks) * 8, row = q0 + r;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (row < t) raw = *reinterpret_cast<const uint4*>(q + base + static_cast<size_t>(row) * D + col);
+    *reinterpret_cast<uint4*>(qs + r * S + col) = dtx::fold8(raw, qc);
+  }
+  __syncthreads();
+
+  const int wrow = warp * 16;  // the warp's first row in the block
+  uint32_t qf[kDepth][4];
+#pragma unroll
+  for (int kk = 0; kk < kDepth; ++kk)
+    dtx::ldsm_x4(qf[kk], qs + (wrow + lane % 8 + 8 * ((lane / 8) % 2)) * S + kk * 16 + 8 * (lane / 16));
+
+  float acc[kOTiles][4];
+#pragma unroll
+  for (int n = 0; n < kOTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf};  // rows g and g + 8
+  float l_r[2] = {0.f, 0.f};          // this lane's part of the row sums
+  const int row_a = q0 + wrow + g;    // row of c0, c1; row_a + 8 holds c2, c3
+  const int warp_last = q0 + wrow + 15;
+  const bool warp_live = q0 + wrow < t;
+
+  for (int j = 0; j < k_end; ++j) {
+    if (j + 1 < k_end) {
+      load_kv(j + 1, (j + 1) & 1);
+      dtx::cp_async_commit();
+      dtx::cp_async_wait<1>();
+    } else {
+      dtx::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j has landed for every thread
+    const int k0 = j * kTcBlockK;
+    if (warp_live && !(causal && k0 > warp_last)) {
+      const bf16* kt = ks + (j & 1) * kTcBlockK * S;
+      const bf16* vt = vs + (j & 1) * kTcBlockK * S;
+
+      // s = q.k^T (base-2 logits), 16 rows x 64 keys a warp.
+      float s[kSTiles][4];
+#pragma unroll
+      for (int n = 0; n < kSTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kDepth; ++kk) {
+#pragma unroll
+        for (int np = 0; np < kSTiles / 2; ++np) {
+          uint32_t b[4];
+          dtx::ldsm_x4(b, kt + (np * 16 + lane % 8 + 8 * (lane / 16)) * S + kk * 16 +
+                              8 * ((lane / 8) % 2));
+          dtx::mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
+          dtx::mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
+        }
+      }
+      // Only tiles that straddle this warp's diagonal and a ragged last
+      // tile carry masked scores.
+      const bool masked = (causal && k0 + kTcBlockK - 1 > q0 + wrow) || (k0 + kTcBlockK > t);
+      if (masked) {
+#pragma unroll
+        for (int n = 0; n < kSTiles; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + n * 8 + 2 * c + (e & 1);
+            const int row = row_a + 8 * (e / 2);
+            if (kpos >= t || (causal && kpos > row)) s[n][e] = kNegInf;
+          }
+      }
+      // Online softmax: the row max over the four lanes of a row.
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int n = 0; n < kSTiles; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+      }
+      float alpha[2], m_new[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        m_new[r] = fmaxf(m_r[r], mx[r]);
+        alpha[r] = exp2f(m_r[r] - m_new[r]);
+        m_r[r] = m_new[r];
+      }
+#pragma unroll
+      for (int n = 0; n < kSTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[n][e];
+          float p = exp2f(x - m_new[e / 2]);
+          if (masked && !(x > 0.5f * kNegInf)) p = 0.f;  // fully masked rows add 0
+          sum[e / 2] += p;
+          s[n][e] = p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + sum[r];
+#pragma unroll
+      for (int n = 0; n < kOTiles; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+      // o += p.v: p rounded to bf16 in registers, v through ldmatrix.trans.
+#pragma unroll
+      for (int kk = 0; kk < kTcBlockK / 16; ++kk) {
+        const uint32_t a[4] = {
+            dtx::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+            dtx::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            dtx::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            dtx::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
+        };
+#pragma unroll
+        for (int np = 0; np < kOTiles / 2; ++np) {
+          uint32_t b[4];
+          dtx::ldsm_x4_trans(b, vt + (kk * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * S + np * 16 +
+                                    8 * (lane / 16));
+          dtx::mma_bf16(acc[2 * np], a, b[0], b[1]);
+          dtx::mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage j & 1 before it refills
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= t) continue;
+    const float l = fmaxf(l_r[r], 1e-30f);
+    bf16* orow = o + base + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int n = 0; n < kOTiles; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * c) =
+          dtx::pack_bf16(acc[n][2 * r] / l, acc[n][2 * r + 1] / l);
+    if (c == 0) lse[static_cast<size_t>(bh) * t + row] = m_r[r] * kLn2 + logf(l);
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                      int t, int causal, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes<D>();
+  auto kernel = flash_fwd_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (t + kTcBlockQ - 1) / kTcBlockQ);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const dtx::bf16*>(q), static_cast<const dtx::bf16*>(k),
+      static_cast<const dtx::bf16*>(v), static_cast<dtx::bf16*>(o), static_cast<float*>(lse), t,
+      causal, dtx::fold_scale<D>());
+  return cudaGetLastError();
+}
+
 template <typename Tin, typename Tout, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
                    int bh, int t, int causal, cudaStream_t stream) {
@@ -242,15 +497,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (t + kBlockQ - 1) / kBlockQ);
-  // (1/sqrt(D)) * log2(e) in double, as the JAX wrapper computes it.
-  const float qscale =
-      static_cast<float>((1.0 / std::sqrt(static_cast<double>(D))) * 1.4426950408889634);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const Tin*>(q), static_cast<const Tin*>(k), static_cast<const Tin*>(v),
-      static_cast<Tout*>(o), static_cast<float*>(lse), t, causal, qscale);
+      static_cast<Tout*>(o), static_cast<float*>(lse), t, causal, dtx::fold_scale<D>());
   return cudaGetLastError();
 }
 
+// The tensor-core kernel at head dim d.
+cudaError_t launch_tc_d(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                        int t, int d, int causal, cudaStream_t stream) {
+  switch (d) {
+    case 32: return launch_tc<32>(q, k, v, o, lse, bh, t, causal, stream);
+    case 64: return launch_tc<64>(q, k, v, o, lse, bh, t, causal, stream);
+    case 128: return launch_tc<128>(q, k, v, o, lse, bh, t, causal, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The CUDA-core kernel at head dim d.
 template <typename Tin, typename Tout>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
                      int bh, int t, int d, int causal, cudaStream_t stream) {
@@ -264,17 +528,30 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, void*
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Returns the launch's
-// cudaError_t (0 = success); the caller raises on anything else.
+// The kernel a launch with these dtype codes (0 = float32, 1 = bfloat16)
+// takes: 1, the tensor-core kernel (bf16 in and out), or 0, the CUDA-core
+// one.  tiles gets that kernel's {q rows a block, k rows a tile}.  The
+// wrapper counts tensor-core launches by it; the checks hold the plain
+// version's tiles to it.
+extern "C" int dtx_flash_fwd_route(int in_dtype, int out_dtype, int* tiles) {
+  const int tc = dtx::tc_route(in_dtype, out_dtype);
+  tiles[0] = tc ? kTcBlockQ : kBlockQ;
+  tiles[1] = tc ? kTcBlockK : kBlockK;
+  return tc;
+}
+
+// dtype codes: 0 = float32, 1 = bfloat16.  bf16 operands must be 16-byte
+// aligned (the wrapper checks).  Returns the launch's cudaError_t
+// (0 = success); the caller raises on anything else.
 extern "C" int dtx_flash_fwd(const void* q, const void* k, const void* v, void* o,
                              void* lse, int bh, int t, int d, int in_dtype,
                              int out_dtype, int causal, void* stream) {
   if (bh < 1 || t < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtx::tc_route(in_dtype, out_dtype))
+    return launch_tc_d(q, k, v, o, lse, bh, t, d, causal, s);
   if (in_dtype == 0 && out_dtype == 0)
     return launch_d<float, float>(q, k, v, o, lse, bh, t, d, causal, s);
-  if (in_dtype == 1 && out_dtype == 1)
-    return launch_d<__nv_bfloat16, __nv_bfloat16>(q, k, v, o, lse, bh, t, d, causal, s);
   if (in_dtype == 1 && out_dtype == 0)
     return launch_d<__nv_bfloat16, float>(q, k, v, o, lse, bh, t, d, causal, s);
   if (in_dtype == 0 && out_dtype == 1)

@@ -41,8 +41,15 @@ the ``_FUSED_BWD_VALIDATED`` latch, or ``_FUSED_BWD_OVERRIDE``), the split
 pair otherwise.  nq and nk come from the JAX block sizes (``block_q``/
 ``block_k``, or ``DTX_FLASH_BQ``/``DTX_FLASH_BK``, default 1024, each cut
 to the largest divisor of T by :func:`_pick_block`); they only decide the
-dispatch.  The Hopper kernels tile by their own ``BLOCK`` = 64 rows
-whatever the blocks say.  Where the reference segments q past its VMEM cap
+dispatch.  The Hopper kernels tile by their own sizes whatever the blocks
+say: the forward 128-row q blocks and 64-row k tiles (``FWD_BLOCK_Q``,
+``FWD_BLOCK_K``), the split pair 64-row tiles (``BLOCK``), the fused
+backward 128-row k groups and 64-row q tiles (``FUSED_GROUP_K``,
+``FUSED_BLOCK_Q``); each plain version walks its kernel's tiles in its
+kernel's order.  bf16 in and out runs the forward and the fused backward
+on the tensor cores; f32 in or out runs CUDA-core kernels with 64-row
+tiles, which sum in another order (f32 rounding apart, the same result).
+Where the reference segments q past its VMEM cap
 (``fused_bwd_segmented``), the port runs one fused call: its dq lives in
 device memory and has no cap, and the results agree (the tests hold them).
 """
@@ -50,20 +57,31 @@ device memory and has no cap, and the results agree (the tests hold them).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 
 import torch
 
-from . import LAUNCHES, _build
+from . import LAUNCHES, TENSOR_CORE_LAUNCHES, _build
 from .common import largest_divisor
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
-#: Rows of one q tile and of one k/v tile, in the kernel and the plain version.
+#: Rows of one q tile and of one k/v tile of the split backward (dq, dk/dv),
+#: in the kernels and the plain versions.
 BLOCK = 64
+#: The forward's q block (8 warps of 16 rows) and k/v tile, in the kernel
+#: and the plain version: the online softmax rescales at every k tile.
+FWD_BLOCK_Q = 128
+FWD_BLOCK_K = 64
+#: The fused backward's k group (8 warps of 16 keys; a block sums the whole
+#: group's dq contribution before it touches its workspace slice) and its
+#: streamed q tile, in the kernel and the plain version.
+FUSED_GROUP_K = 128
+FUSED_BLOCK_Q = 64
 #: Head dims the kernel is instantiated for.
 HEAD_DIMS = (32, 64, 128)
 
@@ -108,11 +126,14 @@ def fwd_call(q, k, v, *, causal: bool, out_dtype=None):
 
 def _cuda_checks(name: str, d: int, *tensors) -> None:
     """What every kernel wrapper refuses: a head dim the kernel was not
-    instantiated for, or a non-contiguous operand."""
+    instantiated for, a non-contiguous operand, or a bf16 operand off a
+    16-byte boundary (the tensor-core kernels copy 16-byte chunks)."""
     if d not in HEAD_DIMS:
         raise ValueError(f"{name} kernel takes head dims {HEAD_DIMS}, got {d}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{name} kernel needs contiguous operands")
+    if any(x.dtype == torch.bfloat16 and x.data_ptr() % 16 for x in tensors):
+        raise ValueError(f"{name} kernel needs 16-byte aligned bfloat16 operands")
 
 
 def _raise_on(name: str, err: int, q, out_dtype) -> None:
@@ -121,6 +142,26 @@ def _raise_on(name: str, err: int, q, out_dtype) -> None:
             f"{name} kernel launch failed with cudaError_t {err} "
             f"(shape {tuple(q.shape)}, {q.dtype} -> {out_dtype})"
         )
+
+
+@functools.cache
+def kernel_route(name: str, in_dtype, out_dtype) -> tuple[bool, tuple[int, int]]:
+    """What the built library ``name`` (``"flash_fwd"`` or
+    ``"flash_fused_bwd"``) launches for these dtypes, as the library
+    itself decides: whether it takes the tensor-core kernel, and that
+    kernel's (q rows, k rows) tile.  Builds the library if needed."""
+    tiles = (ctypes.c_int * 2)()
+    fn = getattr(_build.load(name), f"dtx_{name}_route")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    tc = fn(_DTYPE_CODES[in_dtype], _DTYPE_CODES[out_dtype], tiles)
+    return bool(tc), (tiles[0], tiles[1])
+
+
+def _count_launch(name: str, in_dtype, out_dtype) -> None:
+    LAUNCHES[name] += 1
+    if kernel_route(name, in_dtype, out_dtype)[0]:
+        TENSOR_CORE_LAUNCHES[name] += 1
 
 
 def _fwd_cuda(q, k, v, *, causal, out_dtype):
@@ -141,14 +182,18 @@ def _fwd_cuda(q, k, v, *, causal, out_dtype):
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on("flash_fwd", err, q, out_dtype)
-    LAUNCHES["flash_fwd"] += 1
+    _count_launch("flash_fwd", q.dtype, out_dtype)
     return o, lse
 
 
 def fwd_plain(q, k, v, *, causal: bool, out_dtype=None):
-    """The kernel's algorithm in plain PyTorch, tile by tile (``BLOCK``
-    rows, base 2, the same lse contract) — the reference the CPU tests
-    hold against JAX and the card holds the kernel against."""
+    """The kernel's algorithm in plain PyTorch, tile by tile
+    (``FWD_BLOCK_Q``-row q blocks, ``FWD_BLOCK_K``-row k tiles up to the
+    block's last row when causal, base 2, the same lse contract) — the
+    reference the CPU tests hold against JAX and the card holds the kernel
+    against.  (The kernel's warps also skip the k tiles above their own
+    16 rows; for those rows such a tile is fully masked, which leaves m, l
+    and the accumulator exactly as they were.)"""
     _check(q, k, v, out_dtype)
     bh, t, d = q.shape
     out_dtype = out_dtype or q.dtype
@@ -157,14 +202,14 @@ def fwd_plain(q, k, v, *, causal: bool, out_dtype=None):
     kf, vf = k.to(f32), v.to(f32)
     o = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     lse = torch.empty((bh, t, 1), dtype=f32, device=q.device)
-    for q0 in range(0, t, BLOCK):
-        q1 = min(q0 + BLOCK, t)
+    for q0 in range(0, t, FWD_BLOCK_Q):
+        q1 = min(q0 + FWD_BLOCK_Q, t)
         m = torch.full((bh, q1 - q0, 1), NEG_INF, dtype=f32, device=q.device)
         l = torch.zeros((bh, q1 - q0, 1), dtype=f32, device=q.device)
         acc = torch.zeros((bh, q1 - q0, d), dtype=f32, device=q.device)
         k_stop = q1 if causal else t  # causal: no tile above the diagonal
-        for k0 in range(0, k_stop, BLOCK):
-            k1 = min(k0 + BLOCK, t)
+        for k0 in range(0, k_stop, FWD_BLOCK_K):
+            k1 = min(k0 + FWD_BLOCK_K, t)
             s = qs[:, q0:q1] @ kf[:, k0:k1].transpose(1, 2)
             masked = causal and k1 - 1 > q0
             if masked:
@@ -345,31 +390,52 @@ def dkv_plain(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
 # ----------------------------------------------------------------------------
 
 #: Streaming multiprocessors of the H100 the fused kernel is laid out for.
-#: Its grid is (BH, S): S blocks per batch*head share the k tiles, so BH * S
-#: blocks fill the card.  S depends on the shape alone, never on the card a
-#: run lands on, so a shape gives the same bits everywhere.
+#: Its grid is (BH, S): S blocks per batch*head share the k groups, so
+#: BH * S blocks fill the card.  S depends on the shape alone, never on the
+#: card a run lands on, so a shape gives the same bits everywhere.
 SMS = 132
 
 
 def fused_slices(bh: int, t: int) -> int:
     """S, the number of blocks (and of f32 dq workspace slices) per
     batch*head of the fused backward: as many as fill ``SMS`` with one
-    block each, at most one per k tile."""
-    nk = -(-t // BLOCK)
-    return max(1, min(nk, SMS // bh))
+    block each, at most one per ``FUSED_GROUP_K``-row k group."""
+    ng = -(-t // FUSED_GROUP_K)
+    return max(1, min(ng, SMS // bh))
 
 
-def owned_k_tiles(s: int, slices: int, nk: int) -> list[int]:
-    """The k tiles block ``s`` of ``slices`` owns, in the order it visits
-    them: round r takes tile ``r*S + s`` on even rounds and ``r*S + S-1-s``
-    on odd ones (a snake), so under a causal mask, where k tile j meets
-    nq - j q tiles, every block gets the same work to within one round."""
+def owned_k_groups(s: int, slices: int, ng: int) -> list[int]:
+    """The k groups block ``s`` of ``slices`` owns, in the order it visits
+    them: round r takes group ``r*S + s`` on even rounds and ``r*S + S-1-s``
+    on odd ones (a snake), so under a causal mask, where group j meets
+    nq - 2j q tiles, every block gets the same work to within one round."""
     out = []
-    for r in range(-(-nk // slices)):
-        kj = r * slices + (slices - 1 - s if r % 2 else s)
-        if kj < nk:
-            out.append(kj)
+    for r in range(-(-ng // slices)):
+        g = r * slices + (slices - 1 - s if r % 2 else s)
+        if g < ng:
+            out.append(g)
     return out
+
+
+def fused_dq_workspace_bytes(bh: int, t: int, d: int, *, causal: bool) -> tuple[int, int]:
+    """Bytes of the f32 dq workspace one fused call moves on the card:
+    (the blocks' walk, the reduction).  The walk writes each (q tile, k
+    group) visit's rows of the block's slice and, past the block's first
+    group, reads them first; the reduction reads, for each row, every slice
+    that holds it (causal: the slices whose first group is at or below the
+    row).  Both in the order of :func:`fused_bwd_plain`'s walk."""
+    slices, ng = fused_slices(bh, t), -(-t // FUSED_GROUP_K)
+    row_bytes = d * 4
+    walk = 0
+    for s in range(slices):
+        for i, g in enumerate(owned_k_groups(s, slices, ng)):
+            start = g * FUSED_GROUP_K if causal else 0  # causal: from the diagonal
+            for q0 in range(start, t, FUSED_BLOCK_Q):
+                rows = min(FUSED_BLOCK_Q, t - q0)
+                walk += rows * row_bytes * (1 if i == 0 else 2)
+    # Slice s holds the rows from its first group on (causal), or all.
+    reads = sum(t - s * FUSED_GROUP_K if causal else t for s in range(slices))
+    return bh * walk, bh * reads * row_bytes
 
 
 def fused_bwd_call(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
@@ -387,7 +453,7 @@ def fused_bwd_call(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     slices = fused_slices(bh, t)
-    # No memset: a block's first k tile stores every row its slice will
+    # No memset: a block's first k group stores every row its slice will
     # hold, and the reduction reads only the slices that hold a row.
     ws = torch.empty((slices, bh, t, d), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty(q.shape, dtype=out_dtype, device=q.device) for _ in range(3))
@@ -400,32 +466,35 @@ def fused_bwd_call(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on("flash_fused_bwd", err, q, out_dtype)
-    LAUNCHES["flash_fused_bwd"] += 1
+    _count_launch("flash_fused_bwd", q.dtype, out_dtype)
     return dq, dk, dv
 
 
 def fused_bwd_plain(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
     """The fused kernel's algorithm in plain PyTorch, in its order: block s
-    of :func:`fused_slices` walks its :func:`owned_k_tiles`, each over the
-    q tiles from the diagonal when causal, keeping dk/dv for the k tile and
-    adding every q tile's scaled ds.k into its own f32 slice of an
-    [S, BH, T, D] workspace; the slices are then summed in order 0..S-1."""
+    of :func:`fused_slices` walks its :func:`owned_k_groups`
+    (``FUSED_GROUP_K`` keys each), each over the ``FUSED_BLOCK_Q``-row q
+    tiles from the group's diagonal when causal, keeping dk/dv for the
+    group and adding every q tile's scaled ds.k, summed over the whole
+    group, into its own f32 slice of an [S, BH, T, D] workspace; the slices
+    are then summed in order 0..S-1."""
     _check_bwd(q, k, v, do, lse, delta, out_dtype)
     bh, t, d = q.shape
     f32 = torch.float32
     qs, kf, vf, dof, lse2 = _bwd_operands(q, k, v, do, lse)
     scale = 1.0 / math.sqrt(d)
-    slices, nk = fused_slices(bh, t), -(-t // BLOCK)
+    slices, ng = fused_slices(bh, t), -(-t // FUSED_GROUP_K)
     ws = torch.zeros((slices, bh, t, d), dtype=f32, device=q.device)
     dk = torch.empty(k.shape, dtype=out_dtype or k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=out_dtype or v.dtype, device=q.device)
     for s in range(slices):
-        for kj in owned_k_tiles(s, slices, nk):
-            k0, k1 = kj * BLOCK, min(kj * BLOCK + BLOCK, t)
+        for g in owned_k_groups(s, slices, ng):
+            k0, k1 = g * FUSED_GROUP_K, min(g * FUSED_GROUP_K + FUSED_GROUP_K, t)
             dk_acc = torch.zeros((bh, k1 - k0, d), dtype=f32, device=q.device)
             dv_acc = torch.zeros((bh, k1 - k0, d), dtype=f32, device=q.device)
-            for q0 in range(k0 if causal else 0, t, BLOCK):  # causal: from the diagonal
-                q1 = min(q0 + BLOCK, t)
+            # causal: from the diagonal
+            for q0 in range(k0 if causal else 0, t, FUSED_BLOCK_Q):
+                q1 = min(q0 + FUSED_BLOCK_Q, t)
                 p = _probs(qs, kf, lse2, q0, q1, k0, k1, causal)
                 dv_acc = dv_acc + p.to(do.dtype).to(f32).transpose(1, 2) @ dof[:, q0:q1]
                 dp = dof[:, q0:q1] @ vf[:, k0:k1].transpose(1, 2)

@@ -29,6 +29,11 @@ CASES = [
     for t in (128, 200)
     for d in (32, 64)
     for causal in (False, True)
+] + [
+    # T 136 crosses the forward's 128-row q block and its 64-row k tile by
+    # 8 rows.
+    ("bfloat16", 136, 32, True),
+    ("float32", 136, 64, False),
 ]
 
 
@@ -148,3 +153,62 @@ def test_entry_point_without_cpu_request_raises_when_no_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         device.resolve("cuda:0")
     assert device.resolve("cpu").type == "cpu"
+
+
+def test_kernel_checks_refuse_what_the_tensor_core_kernels_cannot_take():
+    """The checks every CUDA wrapper runs before a launch: a head dim the
+    kernels were not built for, a non-contiguous operand, and a bf16
+    operand off a 16-byte boundary (the tensor-core kernels copy 16-byte
+    chunks).  Run here on CPU tensors; on the card they raise the same."""
+    q = torch.zeros(2, 64, 32, dtype=torch.bfloat16)
+    torch_flash._cuda_checks("flash_fwd", 32, q, q, q)
+    with pytest.raises(ValueError, match="head dims"):
+        torch_flash._cuda_checks("flash_fwd", 48, q)
+    with pytest.raises(ValueError, match="contiguous"):
+        torch_flash._cuda_checks("flash_fwd", 32, q.transpose(0, 1))
+    off = torch.zeros(2 * 64 * 32 + 1, dtype=torch.bfloat16)[1:].view(2, 64, 32)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        torch_flash._cuda_checks("flash_fused_bwd", 32, q, off)
+    # float32 operands (the CUDA-core kernels) take any 4-byte alignment.
+    f = torch.zeros(2 * 64 * 32 + 1)[1:].view(2, 64, 32)
+    torch_flash._cuda_checks("flash_fwd", 32, f, f, f)
+
+
+def _constexprs(source: str) -> dict:
+    import re
+    from pathlib import Path
+
+    text = (Path(torch_flash.__file__).parent / "csrc" / source).read_text()
+    return {m[0]: int(m[1]) for m in re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+
+
+def test_kernel_sources_tile_as_their_plain_versions():
+    """The tiles the CUDA sources are written for are the ones the plain
+    versions walk (on the card, ``chip_smoke.py`` also asks the built
+    libraries): the forward's tensor-core 128-row q block and 64-row k
+    tile, the fused backward's 128-key group and 64-row q tile, and the
+    64-row tiles of the CUDA-core kernels and the split pair."""
+    fwd, fused = _constexprs("flash_fwd.cu"), _constexprs("flash_fused_bwd.cu")
+    split = _constexprs("flash_bwd.cu")
+    assert (fwd["kTcBlockQ"], fwd["kTcBlockK"]) == (torch_flash.FWD_BLOCK_Q,
+                                                     torch_flash.FWD_BLOCK_K)
+    assert (fused["kQTile"], fused["kGroup"]) == (torch_flash.FUSED_BLOCK_Q,
+                                                   torch_flash.FUSED_GROUP_K)
+    assert fwd["kBlockQ"] == fwd["kBlockK"] == fused["kBlock"] == torch_flash.BLOCK
+    assert split["kBlock"] == torch_flash.BLOCK
+
+
+@pytest.mark.parametrize("tensor_core", [True, False])
+def test_launch_counts_record_the_route_the_library_took(monkeypatch, tensor_core):
+    """A launch adds one to its kernel's count, and to its tensor-core
+    count only where the library says it took the tensor-core kernel;
+    ``reset_launches`` clears both."""
+    monkeypatch.setattr(torch_flash, "kernel_route",
+                        lambda name, i, o: (tensor_core, (128, 64)))
+    torch_ops.reset_launches()
+    torch_flash._count_launch("flash_fwd", torch.bfloat16, torch.bfloat16)
+    assert torch_ops.LAUNCHES["flash_fwd"] == 1
+    assert torch_ops.TENSOR_CORE_LAUNCHES["flash_fwd"] == int(tensor_core)
+    torch_ops.reset_launches()
+    assert not torch_ops.LAUNCHES and not torch_ops.TENSOR_CORE_LAUNCHES

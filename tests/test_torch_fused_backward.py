@@ -102,6 +102,10 @@ SWEEP = [
     (192, 8, 48, 16, True, "float32", None),
     (128, 16, 16, 16, True, "bfloat16", None),
     (200, 32, 40, 40, False, "bfloat16", "float32"),
+    # The last 128-row k group of the port's walk half-empty (T 320: 64 of
+    # its 128 rows; T 192 likewise), causal and not.
+    (320, 16, 64, 64, True, "bfloat16", None),
+    (192, 16, 64, 32, False, "float32", None),
 ]
 
 
@@ -268,15 +272,54 @@ def test_fused_wrapper_refuses_other_devices():
 
 @pytest.mark.parametrize("bh,t", [(16, 8192), (64, 2048), (1, 32768), (2, 100), (200, 640)])
 def test_k_tiles_split_over_slices_once_each_and_balanced(bh, t):
+    """The fused backward's k groups (``FUSED_GROUP_K`` rows) over its
+    ``fused_slices`` blocks: each group owned once, the causal work (group
+    j meets nq - 2j q tiles) balanced to within one round."""
     slices = torch_flash.fused_slices(bh, t)
-    nk = -(-t // torch_flash.BLOCK)
-    assert 1 <= slices <= nk and bh * slices <= max(torch_flash.SMS, bh)
-    owned = [torch_flash.owned_k_tiles(s, slices, nk) for s in range(slices)]
-    assert sorted(kj for tiles in owned for kj in tiles) == list(range(nk))
-    causal_work = [sum(nk - kj for kj in tiles) for tiles in owned]
-    assert max(causal_work) - min(causal_work) <= nk  # within one round
+    ng = -(-t // torch_flash.FUSED_GROUP_K)
+    nq = -(-t // torch_flash.FUSED_BLOCK_Q)
+    assert 1 <= slices <= ng and bh * slices <= max(torch_flash.SMS, bh)
+    owned = [torch_flash.owned_k_groups(s, slices, ng) for s in range(slices)]
+    assert sorted(g for groups in owned for g in groups) == list(range(ng))
+    assert [groups[0] for groups in owned] == list(range(slices))  # first groups store
+    causal_work = [sum(nq - 2 * g for g in groups) for groups in owned]
+    assert max(causal_work) - min(causal_work) <= nq  # within one round
     if (bh, t) == (16, 8192):
         assert slices == 8 and len(set(causal_work)) == 1
+
+
+def _ws_bytes_by_visit(bh, t, d, causal):
+    """The workspace bytes of one fused call counted visit by visit in the
+    kernel's terms: group g (``FUSED_GROUP_K`` = G keys) is a slice's first
+    exactly when g < S (round 0), every visit of a ``FUSED_BLOCK_Q``-row q
+    tile to a first group stores and every other one reads and writes; the
+    reduction reads row r from every slice s with G s <= r (causal) or
+    from all."""
+    g_rows, q_rows = torch_flash.FUSED_GROUP_K, torch_flash.FUSED_BLOCK_Q
+    slices = torch_flash.fused_slices(bh, t)
+    ng = -(-t // g_rows)
+    walk = 0
+    for g in range(ng):
+        for q0 in range(g_rows * g if causal else 0, t, q_rows):
+            walk += min(q_rows, t - q0) * d * 4 * (1 if g < slices else 2)
+    held = [sum(1 for s in range(slices) if not causal or g_rows * s <= r) for r in range(t)]
+    return bh * walk, bh * sum(held) * d * 4
+
+
+@pytest.mark.parametrize("bh,t,d,causal", [(16, 8192, 128, True), (16, 8192, 128, False),
+                                           (64, 2048, 128, True), (3, 200, 32, True),
+                                           (200, 640, 64, False)])
+def test_dq_workspace_bytes_match_the_walk(bh, t, d, causal):
+    """``fused_dq_workspace_bytes``, which ``chip_smoke.py`` prints on the
+    card, against a count made visit by visit; at the T 8192 path's
+    shape the walk moves at most half of what one read-modify-write of
+    64 KB per (64-row q tile, 64-row k tile) pair would (8.66 GB)."""
+    got = torch_flash.fused_dq_workspace_bytes(bh, t, d, causal=causal)
+    assert got == _ws_bytes_by_visit(bh, t, d, causal)
+    if (bh, t, d, causal) == (16, 8192, 128, True):
+        per_64_tile = 16 * (128 * 129 // 2) * 64 * 128 * 4 * 2
+        assert got == (3_854_565_376, 507_510_784)
+        assert got[0] <= per_64_tile / 2
 
 
 def test_parity_twin_passes_on_the_cpu(capsys):
