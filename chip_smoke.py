@@ -11,14 +11,14 @@ it fails:
    ``flash_bwd``, ``flash_fused_bwd``, ``bn_stats``), one ``nvcc`` per
    source, all started together.  Print each kernel instance's registers
    and spills (``-Xptxas -v``) and the tensor-core instructions (``HMMA``,
-   ``HGMMA``) that ``cuobjdump -sass`` finds in the SASS of the two
-   tensor-core kernels (``flash_fwd_tc_kernel``,
-   ``flash_fused_bwd_tc_kernel``, one instance per head dim); the run
-   fails if one of those spills, has no ptxas report or none, or if
-   ``cuobjdump`` is missing.  Each of the two libraries must also report
-   (``dtx_<name>_route``) the tensor-core kernel for bf16 in and out,
-   with the tiles the plain version walks, and the CUDA-core one for any
-   f32 side.
+   ``HGMMA``) that ``cuobjdump -sass`` finds in the SASS of the four
+   tensor-core kernels (``flash_fwd_tc_kernel``, ``flash_dq_tc_kernel``,
+   ``flash_dkv_tc_kernel``, ``flash_fused_bwd_tc_kernel``, one instance
+   per head dim); the run fails if one of those spills, has no ptxas
+   report or none, or if ``cuobjdump`` is missing.  Each flash library
+   must also report (``dtx_<kernel>_route``) the tensor-core kernel for
+   bf16 in and out, with the tiles the plain version walks, and the
+   CUDA-core one for any f32 side.
 2. Kernels against their plain PyTorch versions on the card, at the shapes
    the main paths give them and at the edges the kernels must also take
    (ragged T, head dims 32/64, float32 in and out, non-causal), with the
@@ -62,7 +62,8 @@ it fails:
    ``attention="auto"``, clip 1.0 + AdamW 1e-3) for ``TRAIN_STEPS`` steps,
    publishing the trained weights to a registry.  The loss must start
    near ln(32000), stay finite and fall; the forward, dq and dk/dv
-   kernels must each have run 12 times per step; the published version
+   kernels must each have run 12 times per step, every time on its
+   tensor-core kernel; the published version
    must hold the trained parameters bit for bit; and one step's loss and
    gradients from the initial weights on the first batch must match an
    ``attention="xla"`` step.  Last, one step under ``torch.profiler``
@@ -92,12 +93,14 @@ it fails:
    ``flash_dq``/``flash_dkv``.  One step from the initial weights on the
    first batch must match the split path's (``DTX_FUSED_BWD=0``) in loss
    and per-leaf gradients; the whole step is timed fused against split
-   in turns.  Last, one step under ``torch.profiler``.
+   in turns; every flash launch of that comparison and of the turns must
+   have taken its tensor-core kernel.  Last, one step under
+   ``torch.profiler``.
 
 Phase 4 still runs the split kernels: at T 2048 the blocks give
 nq = nk = 2, under the fused regime.  No path is cut in depth.
 
-The line before the last is the kernels' JSON record (the two kernels
+The line before the last is the kernels' JSON record (the four kernels
 with a tensor-core instance carry its launches on the main paths and its
 SASS tensor-core instruction count, and the forward its times at the
 three shapes); the last line is
@@ -307,9 +310,15 @@ def tensor_core_counts(library: Path) -> dict[str, int]:
     return counts
 
 
-#: The sources with a tensor-core kernel (bf16 in and out) beside their
-#: CUDA-core one.
-TENSOR_CORE_SOURCES = ("flash_fwd", "flash_fused_bwd")
+#: The libraries with tensor-core kernels (bf16 in and out) beside their
+#: CUDA-core ones, and the kernels (launch names; ``<name>_tc_kernel`` in
+#: the source) each holds.
+TENSOR_CORE_LIBRARIES = {
+    "flash_fwd": ("flash_fwd",),
+    "flash_bwd": ("flash_dq", "flash_dkv"),
+    "flash_fused_bwd": ("flash_fused_bwd",),
+}
+TENSOR_CORE_KERNELS = tuple(k for ks in TENSOR_CORE_LIBRARIES.values() for k in ks)
 
 
 def check_build(_build, sources) -> dict:
@@ -317,11 +326,12 @@ def check_build(_build, sources) -> dict:
     tensor-core instructions in the SASS of the tensor-core kernels;
     fails when a tensor-core kernel's report is missing, lacks a head dim,
     shows a spill, or its SASS has no tensor-core instruction.  Returns
-    the tensor-core instruction count of each tensor-core source."""
+    the tensor-core instruction count of each tensor-core kernel, summed
+    over its head dims."""
     for name in sources:
         ptxas = Path(str(_build.library_path(name)) + ".log")
         if not ptxas.exists():
-            if name in TENSOR_CORE_SOURCES:
+            if name in TENSOR_CORE_LIBRARIES:
                 raise SystemExit(f"no ptxas report beside {_build.library_path(name)}: "
                                  "delete the library to rebuild it")
             continue
@@ -330,33 +340,41 @@ def check_build(_build, sources) -> dict:
             log(f"  ptxas: {line}")
             if "_tc_kernel" in line and spills(line):
                 raise SystemExit(f"a tensor-core kernel spills registers: {line}")
-        if name in TENSOR_CORE_SOURCES:
+        for kernel in TENSOR_CORE_LIBRARIES.get(name, ()):
             for d in (32, 64, 128):
-                if not any("_tc_kernel" in ln and f"D={d}>" in ln for ln in report):
-                    raise SystemExit(f"{name}: no ptxas line for the tensor-core kernel at D {d}")
+                if not any(ln.startswith(f"{kernel}_tc_kernel<") and f"D={d}>" in ln
+                           for ln in report):
+                    raise SystemExit(f"{name}: no ptxas line for {kernel}_tc_kernel at D {d}")
     totals = {}
-    for name in TENSOR_CORE_SOURCES:
+    for name, kernels in TENSOR_CORE_LIBRARIES.items():
         counts = {k: n for k, n in tensor_core_counts(_build.library_path(name)).items()
                   if "_tc_kernel" in k}
         log(f"  SASS tensor-core instructions (HMMA/HGMMA) in lib{name}: "
             + ", ".join(f"{k} {n}" for k, n in sorted(counts.items())))
-        if not counts or min(counts.values()) == 0:
-            raise SystemExit(f"{name}: a bf16 kernel instance has no tensor-core instruction")
-        totals[name] = sum(counts.values())
+        for kernel in kernels:
+            mine = [n for k, n in counts.items() if k.startswith(f"{kernel}_tc_kernel<")]
+            if len(mine) != 3 or min(mine) == 0:
+                raise SystemExit(f"{name}: an instance of {kernel}_tc_kernel is missing or has "
+                                 "no tensor-core instruction")
+            totals[kernel] = sum(mine)
     return totals
 
 
 def check_routes(flash) -> None:
     """The built libraries take the tensor-core kernel for bf16 in and out
-    only, with the tiles the plain versions walk (``FWD_BLOCK_Q``/``_K``,
-    ``FUSED_BLOCK_Q``/``FUSED_GROUP_K``), and the CUDA-core kernel with
-    64-row tiles (``BLOCK``) for any f32 side."""
+    only, with the (q rows, k rows) tiles the plain versions walk
+    (``FWD_BLOCK_Q``/``_K``, ``DQ_BLOCK_Q``/``_K``, ``DKV_BLOCK_Q``/
+    ``DKV_GROUP_K``, ``FUSED_BLOCK_Q``/``FUSED_GROUP_K``), and the
+    CUDA-core kernel with 64-row tiles (``BLOCK``) for any f32 side."""
     bf16, f32 = torch.bfloat16, torch.float32
-    want = {
-        ("flash_fwd", bf16, bf16): (True, (flash.FWD_BLOCK_Q, flash.FWD_BLOCK_K)),
-        ("flash_fused_bwd", bf16, bf16): (True, (flash.FUSED_BLOCK_Q, flash.FUSED_GROUP_K)),
+    tc_tiles = {
+        "flash_fwd": (flash.FWD_BLOCK_Q, flash.FWD_BLOCK_K),
+        "flash_dq": (flash.DQ_BLOCK_Q, flash.DQ_BLOCK_K),
+        "flash_dkv": (flash.DKV_BLOCK_Q, flash.DKV_GROUP_K),
+        "flash_fused_bwd": (flash.FUSED_BLOCK_Q, flash.FUSED_GROUP_K),
     }
-    for name in TENSOR_CORE_SOURCES:
+    want = {(name, bf16, bf16): (True, tiles) for name, tiles in tc_tiles.items()}
+    for name in TENSOR_CORE_KERNELS:
         for pair in ((bf16, f32), (f32, f32), (f32, bf16)):
             want[(name, *pair)] = (False, (flash.BLOCK, flash.BLOCK))
     for key, route in want.items():
@@ -364,22 +382,22 @@ def check_routes(flash) -> None:
         if got != route:
             raise SystemExit(f"{key[0]} {key[1]} -> {key[2]}: the library reports "
                              f"(tensor cores, tiles) {got}, the plain version walks {route}")
-    log("  routes: bf16 in and out -> tensor-core kernels (flash_fwd tiles "
-        f"{want[('flash_fwd', bf16, bf16)][1]}, flash_fused_bwd {want[('flash_fused_bwd', bf16, bf16)][1]}"
-        "), any f32 side -> CUDA-core kernels, as the plain versions walk them")
+    log("  routes: bf16 in and out -> tensor-core kernels (tiles "
+        + ", ".join(f"{k} {v}" for k, v in tc_tiles.items())
+        + "), any f32 side -> CUDA-core kernels, as the plain versions walk them")
 
 
 def require_tensor_cores(path: str, launches: dict, tc_launches: dict) -> None:
     """Fails unless every launch of a kernel with a tensor-core instance
     took that instance on ``path``: an f32 side slipping onto a bf16 path
     would run the CUDA-core kernel, ~10x slower, at the same launch count."""
-    for name in TENSOR_CORE_SOURCES:
+    for name in TENSOR_CORE_KERNELS:
         n, tc = launches.get(name, 0), tc_launches.get(name, 0)
         if tc != n:
             raise SystemExit(f"the {path} path launched {name} {n} times, {tc} of them "
                              "on its tensor-core kernel")
     log(f"  tensor-core launches ({path}): " + ", ".join(
-        f"{k} {tc_launches.get(k, 0)} of {launches.get(k, 0)}" for k in TENSOR_CORE_SOURCES))
+        f"{k} {tc_launches.get(k, 0)} of {launches.get(k, 0)}" for k in TENSOR_CORE_KERNELS))
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -543,13 +561,16 @@ def time_flash_bwd(flash, bh, t, d, dtype, causal) -> dict:
         ms = time_ms(lambda: call(*args, causal=causal), iters=20)
         plain_ms = time_ms(lambda: plain(*args, causal=causal), iters=2, warmup=1)
         bound_ms, bound_by = flash_bound_ms(bh, t, d, dtype, causal, **BWD_WORK[name])
+        products = BWD_WORK[name]["products"]
+        tflops = flash_flops(bh, t, d, causal, products) / (ms * 1e-3) / 1e12
         log(
             f"  timing {name} [{bh}, {t}, {d}] {str(dtype)[6:]} causal={causal}: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward (dq, dk, dv "
-            f"together) {sdpa_bwd_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+            f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
+            f"backward (dq, dk, dv together) {sdpa_bwd_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})"
         )
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_bwd_ms,
-                         bound_ms=bound_ms, bound_by=bound_by)
+                         bound_ms=bound_ms, bound_by=bound_by, tflops=tflops)
     return out
 
 
@@ -1190,6 +1211,18 @@ def _with_fused_env(value: str, fn):
             os.environ["DTX_FUSED_BWD"] = saved
 
 
+def _launch_counts(ops) -> tuple[dict, dict]:
+    """A copy of the launch counts and of the tensor-core launch counts."""
+    return dict(ops.LAUNCHES), dict(ops.TENSOR_CORE_LAUNCHES)
+
+
+def _launches_since(ops, before: tuple[dict, dict]) -> tuple[dict, dict]:
+    """The launches, and the tensor-core launches, made since
+    :func:`_launch_counts` gave ``before``."""
+    return tuple({k: n - was.get(k, 0) for k, n in now.items()}
+                 for now, was in zip(_launch_counts(ops), before))
+
+
 def train_long_end_to_end(card: str, fused_ms: float, fwd_ms: float) -> dict:
     """Train at T 8192 through the fused backward, check, compare with the
     split backward and profile (the module docstring's phase 6); returns
@@ -1271,13 +1304,15 @@ def train_long_end_to_end(card: str, fused_ms: float, fwd_ms: float) -> dict:
             loss.backward()
             return loss.item(), [p.grad for p in state.leaves(params)]
 
-        before = dict(ops.LAUNCHES)
+        before = _launch_counts(ops)
         result[mode] = _with_fused_env(mode, one_step)
-        ran = {k: ops.LAUNCHES[k] - before.get(k, 0) for k in ("flash_fused_bwd", "flash_dq")}
-        want = ({"flash_fused_bwd": cfg.n_layers, "flash_dq": 0} if mode == "1"
-                else {"flash_fused_bwd": 0, "flash_dq": cfg.n_layers})
-        if ran != want:
+        ran, ran_tc = _launches_since(ops, before)
+        bwd = ("flash_fused_bwd", "flash_dq", "flash_dkv")
+        want = dict(zip(bwd, (cfg.n_layers, 0, 0) if mode == "1" else (0, cfg.n_layers,
+                                                                          cfg.n_layers)))
+        if {k: ran.get(k, 0) for k in bwd} != want:
             raise SystemExit(f"DTX_FUSED_BWD={mode} step ran {ran}, want {want}")
+        require_tensor_cores(f"T {LONG_T} DTX_FUSED_BWD={mode} step", ran, ran_tc)
     (l_fused, g_fused), (l_split, g_split) = result["1"], result["0"]
     rels = _leaf_rel_errors(g_fused, g_split)
     worst = int(np.argmax(rels))
@@ -1298,6 +1333,7 @@ def train_long_end_to_end(card: str, fused_ms: float, fwd_ms: float) -> dict:
     st = state.create_state(lambda seed: init, opt, SEED, "cuda")
     train_step = step.build_train_step(transformer.loss_fn(cfg), opt)
     times: dict = {"1": [], "0": []}
+    before = _launch_counts(ops)
     for mode in ("1", "1", "0", "0", "1", "1", "0"):
         def timed():
             nonlocal st
@@ -1307,6 +1343,7 @@ def train_long_end_to_end(card: str, fused_ms: float, fwd_ms: float) -> dict:
             return (time.perf_counter() - t0) * 1e3
 
         times[mode].append(_with_fused_env(mode, timed))
+    require_tensor_cores(f"T {LONG_T} fused/split turns", *_launches_since(ops, before))
     del st, opt
     fused_step, split_step = (float(np.median(times[m][1 if m == "1" else 0:])) for m in "10")
     log(
@@ -1647,7 +1684,9 @@ def main() -> int:
             "launches": train_launches.get(name, 0) + long_launches.get(name, 0),
             "launches_by_path": {"train": train_launches.get(name, 0),
                                  "train_t8192": long_launches.get(name, 0)},
+            "tensor_core_launches": train_tc.get(name, 0) + long_tc.get(name, 0),
             "max_abs_err": max(e[name] for e in bwd_errs), **bwd[name],
+            "tensor_core_instructions": tensor_cores[name],
         } for name, line in (("flash_dq", 211), ("flash_dkv", 244))),
         {
             "name": "flash_fused_bwd", "route": "cuda",

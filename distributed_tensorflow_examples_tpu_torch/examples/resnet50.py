@@ -14,7 +14,8 @@ By default BatchNorm is plain torch, as the JAX example leaves its fused
 path off.  :func:`run_training` takes the JAX ``Experiment``'s
 ``loss_fn_factory``: ``lambda mesh: resnet.loss_fn(cfg, mesh=mesh)`` sends
 every BatchNorm through the statistics kernels (``ops/bn.py``).
-``--job_name=ps`` prints and exits 0, as the JAX CLI does; ghost-batch BN
+``--job_name=ps`` prints and exits 0, as the JAX CLI does, and the other
+TF-1 cluster flags are accepted and mapped (``utils/flags.py``); ghost-batch BN
 (``--bn_ghost_slices``), streamed ``--data_dir`` sources and a mesh beyond
 one device wait for the port's items A8, A10 and A5.
 """
@@ -28,6 +29,7 @@ import sys
 from ..data import datasets, streams
 from ..models import layers, resnet
 from ..train import Experiment, optim
+from ..utils import flags
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,6 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("--bn_ghost_slices", type=int, default=0,
         help=">0 scopes BN statistics to slice-local groups (waits for A8).")
     add("--device", default=None, help="torch device; default cuda (no silent CPU).")
+    flags.add_legacy_cluster_flags(p)
     return p
 
 
@@ -118,7 +121,7 @@ def run_training(args, *, loss_fn_factory=None, extra_hooks=()) -> Experiment:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
-    if args.job_name == "ps":
+    if flags.resolve_legacy_cluster(args)["is_legacy_ps_process"]:
         print("job_name=ps: parameter servers are not needed by the port's sync "
               "training; exiting 0.")
         return 0

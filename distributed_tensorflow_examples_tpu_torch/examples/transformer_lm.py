@@ -21,7 +21,10 @@ version (the row-wise logits predict path)::
         --serve_hosts=127.0.0.1:7200 --vocab_size=32000 --dim=1024 \\
         --n_layers=12 --n_heads=8 --seq_len=2048
 
-Both run on the card unless ``--device=cpu``.  Sampling after training
+Both run on the card unless ``--device=cpu``.  The reference's TF-1
+cluster flags are accepted and mapped (``utils/flags.py``):
+``--job_name=ps`` prints and exits 0, ``--ps_hosts`` is logged and
+ignored, ``--worker_hosts`` logged.  Sampling after training
 (``--sample_tokens``) waits for the port's decode slice (A2); pipeline
 stages, mixture-of-experts blocks and a mesh beyond one device wait for
 its model-parallel and multi-device items (A8, A5).
@@ -38,22 +41,15 @@ from ..models import transformer
 from ..serve import ModelRegistry, host_serve_task
 from ..train import Experiment, optim
 from ..train.checkpoint import flat_params_of
-
-
-def _bool(text: str) -> bool:
-    low = str(text).lower()
-    if low in ("1", "true", "yes"):
-        return True
-    if low in ("0", "false", "no"):
-        return False
-    raise argparse.ArgumentTypeError(f"not a boolean: {text!r}")
+from ..utils import flags
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add = p.add_argument
     add("--job_name", default="",
-        help="'' or 'worker' trains (the default); 'serve' hosts a replica.")
+        help="'' or 'worker' trains (the default); 'serve' hosts a replica; "
+             "'ps' exits 0 (no PS needed).")
     # Training (the JAX package's define_training_flags names and defaults).
     add("--batch_size", type=int, default=8, help="GLOBAL batch size.")
     add("--train_steps", type=int, default=500, help="Stop after this many steps.")
@@ -68,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="Gradient-accumulation microbatches per step.")
     add("--mesh", default="", help='Mesh spec; only "" or "data=1" (one device).')
     add("--clip_norm", type=float, default=1.0, help="Global-norm gradient clip.")
-    add("--remat", type=_bool, nargs="?", const=True, default=False,
+    add("--remat", type=flags.parse_bool, nargs="?", const=True, default=False,
         help="Rematerialise blocks in backward.")
     add("--loss_chunks", type=int, default=0,
         help=">1 chunks the LM head + cross-entropy over the sequence.")
@@ -93,9 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
     add("--serve_hosts", default="",
         help="Comma-separated host:port list; this task binds the port of "
              "entry --task_index.")
-    add("--task_index", type=int, default=0)
     add("--max_batch", type=int, default=32, help="Rows of one padded apply.")
     add("--device", default=None, help="torch device; default cuda (no silent CPU).")
+    flags.add_legacy_cluster_flags(p)
     return p
 
 
@@ -194,15 +190,18 @@ def run_training(args, *, extra_hooks=()) -> Experiment:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
+    if flags.resolve_legacy_cluster(args)["is_legacy_ps_process"]:
+        print("job_name=ps: parameter servers are not needed by the port's sync "
+              "training; exiting 0.")
+        return 0
     if args.job_name == "serve":
         _serve(args)
     elif args.job_name in ("", "worker"):
         run_training(args)
     else:
         raise SystemExit(
-            f"--job_name={args.job_name}: the port trains (empty or 'worker') "
-            "or serves ('serve'); the parameter-server roles come with its "
-            "PS plane (A9)"
+            f"--job_name={args.job_name}: the port trains (empty or 'worker'), "
+            "serves ('serve') or exits 0 ('ps')"
         )
     return 0
 

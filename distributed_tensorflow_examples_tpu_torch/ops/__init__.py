@@ -5,8 +5,8 @@ the card (a wrapper that takes its plain PyTorch version for a CPU tensor
 adds nothing), so a run can show that its main path went through the
 kernels: reset it, drive the path, read it.  ``TENSOR_CORE_LAUNCHES``
 counts, of those, the launches that took a kernel's tensor-core instance
-(the flash forward and fused backward with bf16 in and out), so a run can
-show that its path did not fall onto the CUDA-core one.
+(every flash kernel with bf16 in and out), so a run can show that its
+path did not fall onto the CUDA-core one.
 """
 
 from __future__ import annotations

@@ -19,36 +19,72 @@
 // D = 128, bf16, causal) dq does three products over the causal half,
 // 3*2*BH*T^2/2*D = 103 GFLOP (0.104 ms at 989 TFLOP/s bf16), and dk/dv
 // four, 137 GFLOP (0.139 ms); each moves under 0.2 GB (< 0.06 ms at
-// 3.35 TB/s): compute-bound.
+// 3.35 TB/s): compute-bound, so the products have to run on the tensor
+// cores (the CUDA cores' f32 peak, 67 TFLOP/s, puts the pair at 3.6 ms).
 //
-// Design (the first, simple one; tensor cores come later).
-// - dq: one block of 256 threads per (bh, 64-row q tile).  The q tile
-//   (scaled) and the do tile stay in shared memory, transposed, for the
-//   whole loop over 64-row k/v tiles; the loop stops at the diagonal tile
-//   when causal.  The dq accumulator (64 x D f32) lives in registers,
-//   4 rows x D/16 columns per thread.  Heavy (late) q tiles launch first.
-// - dk/dv: one block per (bh, 64-row k tile).  The k and v tiles stay in
-//   shared memory; the loop over q tiles STARTS at the diagonal tile when
-//   causal (the mirror of dq's bound).  The two accumulators (2 x 64 x D
-//   f32: 64 KB at D = 128) live in registers, so shared memory holds only
-//   the four f32 operand tiles and the p^T / ds^T tiles (165,888 bytes at
-//   D = 128, under the 227 KB a block may opt into).  Heavy (early) k
-//   tiles launch first.
-// - No atomics: each output row is written by exactly one block, so both
-//   kernels give the same bits run to run.
-// - Only the diagonal tile and ragged edge tiles are masked; any T works
-//   (the ragged edge is masked, never padded).
-// - Products on the CUDA cores in f32 (4x4 register tiles per thread),
-//   limited by shared-memory loads, far below the bound.  wgmma/mma.sync,
-//   TMA and warp specialisation are the next steps for speed.
-// - nvcc -Xptxas -v for sm_90a: 96 (dq) and 126 (dk/dv) registers a thread
-//   at D = 128, 79 and 96 at D = 64, 64 and 80 at D = 32; no spills.
+// bf16 in and out (the training path): flash_dq_tc_kernel and
+// flash_dkv_tc_kernel, the products on the tensor cores by
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate), with the helpers of
+// tc_sm90.cuh.  Rows of every shared tile are padded by 16 bytes, so
+// ldmatrix reads hit 32 distinct banks.
+// - dq, the shape of flash_fwd_tc_kernel: one block of 256 threads
+//   (8 warps) per (bh, 128-row q block); warp w owns q rows 16w..16w+15
+//   and keeps their dq (16 x D f32) in registers.  The folded q block
+//   (x round(qscale), rounded to bf16, as the f32 kernel and the JAX
+//   wrapper fold it) and the do block stay in shared memory; k and v
+//   stream in 64-row tiles through a two-stage cp.async ring (zero fill
+//   past T): tile j+1 lands while tile j is in the products.  s = q.k^T
+//   and dp = do.v^T for the warp's 16 rows x 64 keys (32 + 32 registers),
+//   with q and do read as A fragments by ldmatrix at each k-step (held in
+//   registers beside dq's 64 at D = 128 they would pass 255); p and ds in
+//   registers; ds rounded to bf16 is the A operand of dq += ds.k as it
+//   stands (the C layout of two 16x8 tiles is the A layout of one 16x16
+//   tile), k entering as B through ldmatrix.trans.  Causal: the block's
+//   loop stops at its last row's tile and a warp skips the tiles wholly
+//   above its own rows (there p = 0, so ds = 0: exact).  Heavy (late) q
+//   blocks launch first.  139,264 bytes of shared memory at D = 128.
+// - dk/dv, the walk of flash_fused_bwd_tc_kernel without its dq: one
+//   block of 8 warps per (bh, 128-key group); warp w owns keys
+//   16w..16w+15 and keeps their dk and dv (16 x D f32 each, 128 registers
+//   at D = 128) in registers.  The group's k and v sit in shared memory;
+//   64-row q and do tiles, with their lse and delta rows, stream through a
+//   two-stage cp.async ring, and each thread folds the q chunks it copied
+//   itself once they land.  s^T = k.q^T and dp^T = v.do^T in chunks of 16
+//   q columns at D = 128 (32 below: 32 columns spill beside dk and dv at
+//   128); p^T and ds^T rounded to bf16 in registers are the A operands of
+//   dv += p^T.do and dk += ds^T.q, do and q entering as B through
+//   ldmatrix.trans.  A warp whose keys all lie past T or above the tile's
+//   last query skips the tile (it would add exactly 0).  Causal: the q
+//   loop starts at the group's diagonal.  Heavy (early) groups launch
+//   first.  Without dq a block owns its dk/dv rows outright: no
+//   workspace, no second kernel.  140,288 bytes of shared memory at
+//   D = 128.
+// - mma.sync rather than wgmma, for the reasons flash_fwd.cu gives: the
+//   fragments' documented register layout keeps the masks, the exp2 and
+//   the bf16 rounding of p and ds plain per-thread code.
+//
+// f32 in, or f32 out: flash_dq_kernel and flash_dkv_kernel, products on
+// the CUDA cores in f32 (64-row tiles, 4x4 register tiles a thread, f32
+// operand tiles in shared memory: 148,736 and 165,888 bytes at D = 128).
+// No training path asks for either (ring partials and tests do), and both
+// are held to the f32 tolerance (2e-5), which only scores equal to the
+// plain version's bit for bit can meet (flash_fwd.cu says why bf16
+// tensor-core sums miss it).  Their loops: dq over k tiles up to the
+// diagonal, dk/dv over q tiles from it.
+//
+// Both routes: no atomics (each output row is written by exactly one
+// block, in a fixed k or q order), so the same inputs give the same bits
+// run to run; only tiles that straddle the diagonal or the ragged edge are
+// masked, and any T works (the ragged edge is masked, never padded).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+
+#include "tc_sm90.cuh"
 
 namespace {
 
@@ -377,6 +413,400 @@ flash_dkv_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 in and out: the tensor-core kernels
+// ---------------------------------------------------------------------------
+
+constexpr int kDqBlockQ = 128;   // q rows a dq block (DQ_BLOCK_Q), 16 a warp
+constexpr int kDqBlockK = 64;    // k/v rows a streamed tile (DQ_BLOCK_K)
+constexpr int kDkvGroupK = 128;  // k rows a dk/dv block owns (DKV_GROUP_K), 16 a warp
+constexpr int kDkvBlockQ = 64;   // q rows a streamed tile (DKV_BLOCK_Q)
+using dtx::bf16;
+using dtx::kTcThreads;
+using dtx::tc_stride;
+
+template <int D>
+constexpr size_t dq_tc_smem_bytes() {
+  return (2 * size_t(kDqBlockQ) + 4 * size_t(kDqBlockK)) * tc_stride<D>() * sizeof(bf16);
+}
+
+template <int D>
+constexpr size_t dkv_tc_smem_bytes() {
+  return (2 * size_t(kDkvGroupK) + 4 * size_t(kDkvBlockQ)) * tc_stride<D>() * sizeof(bf16)
+         + 4 * size_t(kDkvBlockQ) * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   bf16* __restrict__ dq, int t, int causal, float qscale, float scale) {
+  static_assert(D % 32 == 0, "head dim must be 32, 64 or 128");
+  constexpr int S = tc_stride<D>();
+  constexpr int kChunks = D / 8;             // 16-byte chunks a row
+  constexpr int kDepth = D / 16;             // k-steps of q.k^T and do.v^T
+  constexpr int kQTiles = D / 8;             // 16x8 tiles of dq a warp
+  constexpr int kSTiles = kDqBlockK / 8;     // 16x8 tiles of s (and dp) a warp
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kDqBlockQ][S], folded
+  bf16* dos = qs + kDqBlockQ * S;                // [kDqBlockQ][S]
+  bf16* ks = dos + kDqBlockQ * S;                // [2][kDqBlockK][S]
+  bf16* vs = ks + 2 * kDqBlockK * S;             // [2][kDqBlockK][S]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int bh = blockIdx.x;
+  const int qb = static_cast<int>(gridDim.y) - 1 - static_cast<int>(blockIdx.y);  // heavy first
+  const int q0 = qb * kDqBlockQ;
+  const size_t base = static_cast<size_t>(bh) * t * D;
+  const size_t row_base = static_cast<size_t>(bh) * t;
+  const int nk = (t + kDqBlockK - 1) / kDqBlockK;
+  const int q_last = min(t, q0 + kDqBlockQ) - 1;
+  const int k_end = causal ? min(nk, q_last / kDqBlockK + 1) : nk;  // stop at the diagonal
+
+  auto load_kv = [&](int j, int stage) {
+    const int k0 = j * kDqBlockK;
+    for (int i = tid; i < kDqBlockK * kChunks; i += kTcThreads) {
+      const int r = i / kChunks, col = (i % kChunks) * 8, row = k0 + r;
+      const bool in = row < t;
+      const size_t off = base + static_cast<size_t>(in ? row : 0) * D + col;
+      const int dst = (stage * kDqBlockK + r) * S + col;
+      dtx::cp_async16(ks + dst, k + off, in);
+      dtx::cp_async16(vs + dst, v + off, in);
+    }
+  };
+  load_kv(0, 0);
+  for (int i = tid; i < kDqBlockQ * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, col = (i % kChunks) * 8, row = q0 + r;
+    const bool in = row < t;
+    dtx::cp_async16(dos + r * S + col, dout + base + static_cast<size_t>(in ? row : 0) * D + col,
+                    in);
+  }
+  dtx::cp_async_commit();
+
+  // The q block, folded once: x * round(qscale), rounded to bf16 (zero
+  // past T), as the f32 kernel and the JAX wrapper fold it.
+  const float qc = __bfloat162float(__float2bfloat16_rn(qscale));
+  for (int i = tid; i < kDqBlockQ * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, col = (i % kChunks) * 8, row = q0 + r;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (row < t) raw = *reinterpret_cast<const uint4*>(q + base + static_cast<size_t>(row) * D + col);
+    *reinterpret_cast<uint4*>(qs + r * S + col) = dtx::fold8(raw, qc);
+  }
+
+  const int wrow = warp * 16;        // the warp's first row in the block
+  const int row_a = q0 + wrow + g;   // row of c0, c1; row_a + 8 holds c2, c3
+  const int warp_last = q0 + wrow + 15;
+  const bool warp_live = q0 + wrow < t;
+  float lse2[2], dlt[2];             // rows row_a and row_a + 8 (0 past T)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    const bool in = row < t;
+    lse2[r] = in ? lse[row_base + row] * static_cast<float>(kLog2eD) : 0.f;
+    dlt[r] = in ? delta[row_base + row] : 0.f;
+  }
+  float acc[kQTiles][4];
+#pragma unroll
+  for (int n = 0; n < kQTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < k_end; ++j) {
+    if (j + 1 < k_end) {
+      load_kv(j + 1, (j + 1) & 1);
+      dtx::cp_async_commit();
+      dtx::cp_async_wait<1>();
+    } else {
+      dtx::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j (and on the first, do and the folded q) landed
+    const int k0 = j * kDqBlockK;
+    if (warp_live && !(causal && k0 > warp_last)) {
+      const bf16* kt = ks + (j & 1) * kDqBlockK * S;
+      const bf16* vt = vs + (j & 1) * kDqBlockK * S;
+
+      // s = q.k^T (base-2 logits) and dp = do.v^T, 16 rows x 64 keys a
+      // warp; q and do enter as A through ldmatrix at each k-step.
+      float s[kSTiles][4], dp[kSTiles][4];
+#pragma unroll
+      for (int n = 0; n < kSTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kDepth; ++kk) {
+        uint32_t aq[4], ado[4];
+        const int arow = wrow + lane % 8 + 8 * ((lane / 8) % 2);
+        dtx::ldsm_x4(aq, qs + arow * S + kk * 16 + 8 * (lane / 16));
+        dtx::ldsm_x4(ado, dos + arow * S + kk * 16 + 8 * (lane / 16));
+#pragma unroll
+        for (int np = 0; np < kSTiles / 2; ++np) {
+          const int brow = np * 16 + lane % 8 + 8 * (lane / 16);
+          const int bcol = kk * 16 + 8 * ((lane / 8) % 2);
+          uint32_t b[4];
+          dtx::ldsm_x4(b, kt + brow * S + bcol);
+          dtx::mma_bf16(s[2 * np], aq, b[0], b[1]);
+          dtx::mma_bf16(s[2 * np + 1], aq, b[2], b[3]);
+          dtx::ldsm_x4(b, vt + brow * S + bcol);
+          dtx::mma_bf16(dp[2 * np], ado, b[0], b[1]);
+          dtx::mma_bf16(dp[2 * np + 1], ado, b[2], b[3]);
+        }
+      }
+      // ds = p * (dp - delta) into s, f32.  Only tiles that straddle this
+      // warp's diagonal and a ragged last tile carry masked scores.
+      const bool masked = (causal && k0 + kDqBlockK - 1 > q0 + wrow) || (k0 + kDqBlockK > t);
+#pragma unroll
+      for (int n = 0; n < kSTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + n * 8 + 2 * c + (e & 1);
+          const int row = row_a + 8 * (e / 2);
+          float x = s[n][e];
+          if (masked && (kpos >= t || (causal && kpos > row))) x = kNegInf;
+          float p = exp2f(x - lse2[e / 2]);
+          if (masked && !(x > 0.5f * kNegInf)) p = 0.f;
+          s[n][e] = p * (dp[n][e] - dlt[e / 2]);
+        }
+      // dq += ds.k: ds rounded to bf16 (k's precision) in registers, k
+      // through ldmatrix.trans.
+#pragma unroll
+      for (int kk = 0; kk < kDqBlockK / 16; ++kk) {
+        const uint32_t a[4] = {
+            dtx::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+            dtx::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            dtx::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            dtx::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
+        };
+#pragma unroll
+        for (int np = 0; np < kQTiles / 2; ++np) {
+          uint32_t b[4];
+          dtx::ldsm_x4_trans(b, kt + (kk * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * S + np * 16 +
+                                    8 * (lane / 16));
+          dtx::mma_bf16(acc[2 * np], a, b[0], b[1]);
+          dtx::mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage j & 1 before it refills
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= t) continue;
+    bf16* out = dq + base + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int n = 0; n < kQTiles; ++n)
+      *reinterpret_cast<uint32_t*>(out + n * 8 + 2 * c) =
+          dtx::pack_bf16(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int causal,
+                    float qscale) {
+  static_assert(D % 32 == 0, "head dim must be 32, 64 or 128");
+  constexpr int S = tc_stride<D>();
+  // q columns of s^T and dp^T held at once: 16 at D = 128, where dk and dv
+  // already take 128 registers a thread, 32 below.
+  constexpr int kQChunk = D == 128 ? 16 : 32;
+  constexpr int kChunks = D / 8;          // 16-byte chunks a row
+  constexpr int kDepth = D / 16;          // k-steps of s^T and dp^T
+  constexpr int kDTiles = D / 8;          // 16x8 tiles of dk, dv a warp
+  constexpr int kSTiles = kQChunk / 8;    // 16x8 tiles of s^T a chunk
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kDkvGroupK][S]
+  bf16* vs = ks + kDkvGroupK * S;                // [kDkvGroupK][S]
+  bf16* qs = vs + kDkvGroupK * S;                // [2][kDkvBlockQ][S], folded
+  bf16* dos = qs + 2 * kDkvBlockQ * S;           // [2][kDkvBlockQ][S]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * kDkvBlockQ * S);  // [2][kDkvBlockQ]
+  float* delta_s = lse_s + 2 * kDkvBlockQ;                            // [2][kDkvBlockQ]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kDkvGroupK;  // causal: early groups see the most q tiles
+  const size_t base = static_cast<size_t>(bh) * t * D;
+  const size_t row_base = static_cast<size_t>(bh) * t;
+  const float qc = __bfloat162float(__float2bfloat16_rn(qscale));
+  const float log2e = static_cast<float>(kLog2eD);
+  const float inv_log2e = static_cast<float>(1.0 / kLog2eD);
+  const int nq = (t + kDkvBlockQ - 1) / kDkvBlockQ;
+  const int q_begin = causal ? k0 / kDkvBlockQ : 0;  // start at the diagonal
+
+  // q, do, lse, delta of q tile qi into ring stage `stage`.
+  auto load_q = [&](int qi, int stage) {
+    const int q0 = qi * kDkvBlockQ;
+    for (int i = tid; i < kDkvBlockQ * kChunks; i += kTcThreads) {
+      const int r = i / kChunks, col = (i % kChunks) * 8, row = q0 + r;
+      const bool in = row < t;
+      const size_t off = base + static_cast<size_t>(in ? row : 0) * D + col;
+      const int at = (stage * kDkvBlockQ + r) * S + col;
+      dtx::cp_async16(qs + at, q + off, in);
+      dtx::cp_async16(dos + at, dout + off, in);
+    }
+    if (tid < 2 * kDkvBlockQ) {
+      const int r = tid % kDkvBlockQ, row = q0 + r;
+      const bool in = row < t;
+      const float* src = (tid < kDkvBlockQ ? lse : delta) + row_base + (in ? row : 0);
+      float* to = (tid < kDkvBlockQ ? lse_s : delta_s) + stage * kDkvBlockQ + r;
+      dtx::cp_async4(to, src, in);
+    }
+  };
+  // The q chunks this thread copied, folded in place once they have landed.
+  auto fold_q = [&](int stage) {
+    for (int i = tid; i < kDkvBlockQ * kChunks; i += kTcThreads) {
+      const int r = i / kChunks, col = (i % kChunks) * 8;
+      uint4* p = reinterpret_cast<uint4*>(qs + (stage * kDkvBlockQ + r) * S + col);
+      *p = dtx::fold8(*p, qc);
+    }
+  };
+
+  for (int i = tid; i < kDkvGroupK * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, col = (i % kChunks) * 8, row = k0 + r;
+    const bool in = row < t;
+    const size_t off = base + static_cast<size_t>(in ? row : 0) * D + col;
+    dtx::cp_async16(ks + r * S + col, k + off, in);
+    dtx::cp_async16(vs + r * S + col, v + off, in);
+  }
+  load_q(q_begin, 0);
+  dtx::cp_async_commit();
+
+  float dk_acc[kDTiles][4], dv_acc[kDTiles][4];
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  const int key0 = k0 + warp * 16;  // this warp's first key
+
+  for (int qi = q_begin; qi < nq; ++qi) {
+    const int stage = (qi - q_begin) & 1;
+    if (qi + 1 < nq) {
+      load_q(qi + 1, stage ^ 1);
+      dtx::cp_async_commit();
+      dtx::cp_async_wait<1>();
+    } else {
+      dtx::cp_async_wait<0>();
+    }
+    fold_q(stage);
+    __syncthreads();  // the tile (and on the first visit k, v) landed, folded
+
+    const int q0 = qi * kDkvBlockQ;
+    const bf16* qt = qs + stage * kDkvBlockQ * S;
+    const bf16* dot = dos + stage * kDkvBlockQ * S;
+    const float* lse_t = lse_s + stage * kDkvBlockQ;
+    const float* delta_t = delta_s + stage * kDkvBlockQ;
+    // A warp whose keys all lie past T or above the tile's last query
+    // contributes exactly 0; only tiles that straddle the diagonal or a
+    // ragged edge carry masked scores.
+    const bool dead = key0 >= t || (causal && key0 > q0 + kDkvBlockQ - 1);
+    const bool masked = (causal && key0 + 15 > q0) || q0 + kDkvBlockQ > t || key0 + 16 > t;
+    if (!dead) {
+#pragma unroll 1
+      for (int qc0 = 0; qc0 < kDkvBlockQ; qc0 += kQChunk) {
+        // s^T = k.q^T and dp^T = v.do^T: keys key0 + g (+8), q columns
+        // qc0 + 8n + 2c (+1).
+        float st[kSTiles][4], dpt[kSTiles][4];
+#pragma unroll
+        for (int n = 0; n < kSTiles; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kDepth; ++kk) {
+          uint32_t ak[4], av[4];
+          const int arow = warp * 16 + lane % 8 + 8 * ((lane / 8) % 2);
+          dtx::ldsm_x4(ak, ks + arow * S + kk * 16 + 8 * (lane / 16));
+          dtx::ldsm_x4(av, vs + arow * S + kk * 16 + 8 * (lane / 16));
+#pragma unroll
+          for (int np = 0; np < kSTiles / 2; ++np) {
+            const int brow = qc0 + np * 16 + lane % 8 + 8 * (lane / 16);
+            const int bcol = kk * 16 + 8 * ((lane / 8) % 2);
+            uint32_t b[4];
+            dtx::ldsm_x4(b, qt + brow * S + bcol);
+            dtx::mma_bf16(st[2 * np], ak, b[0], b[1]);
+            dtx::mma_bf16(st[2 * np + 1], ak, b[2], b[3]);
+            dtx::ldsm_x4(b, dot + brow * S + bcol);
+            dtx::mma_bf16(dpt[2 * np], av, b[0], b[1]);
+            dtx::mma_bf16(dpt[2 * np + 1], av, b[2], b[3]);
+          }
+        }
+        // p (f32) into st, ds = p * (dp - delta) (f32) into dpt.
+#pragma unroll
+        for (int n = 0; n < kSTiles; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = key0 + g + 8 * (e / 2);
+            const int qq = qc0 + n * 8 + 2 * c + (e & 1);
+            const int qpos = q0 + qq;
+            float x = st[n][e];
+            if (masked && (qpos >= t || key >= t || (causal && key > qpos))) x = kNegInf;
+            float p = exp2f(x - lse_t[qq] * log2e);
+            if (masked && !(x > 0.5f * kNegInf)) p = 0.f;
+            st[n][e] = p;
+            dpt[n][e] = p * (dpt[n][e] - delta_t[qq]);
+          }
+        // dv += p^T.do and dk += ds^T.q, p (do's precision) and ds (q's)
+        // rounded to bf16 in registers.
+#pragma unroll
+        for (int kk = 0; kk < kQChunk / 16; ++kk) {
+          const uint32_t ap[4] = {
+              dtx::pack_bf16(st[2 * kk][0], st[2 * kk][1]),
+              dtx::pack_bf16(st[2 * kk][2], st[2 * kk][3]),
+              dtx::pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+              dtx::pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]),
+          };
+          const uint32_t ad[4] = {
+              dtx::pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
+              dtx::pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
+              dtx::pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
+              dtx::pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]),
+          };
+          const int brow = qc0 + kk * 16 + lane % 8 + 8 * ((lane / 8) % 2);
+#pragma unroll
+          for (int np = 0; np < kDTiles / 2; ++np) {
+            const int bcol = np * 16 + 8 * (lane / 16);
+            uint32_t b[4];
+            dtx::ldsm_x4_trans(b, dot + brow * S + bcol);
+            dtx::mma_bf16(dv_acc[2 * np], ap, b[0], b[1]);
+            dtx::mma_bf16(dv_acc[2 * np + 1], ap, b[2], b[3]);
+            dtx::ldsm_x4_trans(b, qt + brow * S + bcol);
+            dtx::mma_bf16(dk_acc[2 * np], ad, b[0], b[1]);
+            dtx::mma_bf16(dk_acc[2 * np + 1], ad, b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with the stage before it refills
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + g + 8 * r;
+    if (key >= t) continue;
+    const size_t off = base + static_cast<size_t>(key) * D + 2 * c;
+#pragma unroll
+    for (int n = 0; n < kDTiles; ++n) {
+      *reinterpret_cast<uint32_t*>(dk + off + n * 8) =
+          dtx::pack_bf16(dk_acc[n][2 * r] * inv_log2e, dk_acc[n][2 * r + 1] * inv_log2e);
+      *reinterpret_cast<uint32_t*>(dv + off + n * 8) =
+          dtx::pack_bf16(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch and dispatch
+// ---------------------------------------------------------------------------
+
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -384,12 +814,6 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
   if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
-}
-
-// (1/sqrt(D)) * log2(e) in double, as the JAX wrapper computes it.
-template <int D>
-float qscale_of() {
-  return static_cast<float>((1.0 / std::sqrt(static_cast<double>(D))) * kLog2eD);
 }
 
 struct Args {
@@ -406,12 +830,12 @@ cudaError_t launch_dq(const Args& a) {
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.bh, (a.t + kBlock - 1) / kBlock);
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const Tin*>(a.q), static_cast<const Tin*>(a.k),
       static_cast<const Tin*>(a.v), static_cast<const Tin*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<Tout*>(a.out0), a.t, a.causal, qscale_of<D>(), scale);
+      static_cast<Tout*>(a.out0), a.t, a.causal, dtx::fold_scale<D>(),
+      static_cast<float>(dtx::rsqrt_d<D>()));
   return cudaGetLastError();
 }
 
@@ -427,10 +851,56 @@ cudaError_t launch_dkv(const Args& a) {
       static_cast<const Tin*>(a.v), static_cast<const Tin*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<Tout*>(a.out0), static_cast<Tout*>(a.out1), a.t, a.causal,
-      qscale_of<D>());
+      dtx::fold_scale<D>());
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dq_tc(const Args& a) {
+  const size_t smem = dq_tc_smem_bytes<D>();
+  auto kernel = flash_dq_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.bh, (a.t + kDqBlockQ - 1) / kDqBlockQ);
+  kernel<<<grid, kTcThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.out0), a.t, a.causal, dtx::fold_scale<D>(),
+      static_cast<float>(dtx::rsqrt_d<D>()));
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_tc(const Args& a) {
+  const size_t smem = dkv_tc_smem_bytes<D>();
+  auto kernel = flash_dkv_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.bh, (a.t + kDkvGroupK - 1) / kDkvGroupK);
+  kernel<<<grid, kTcThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.t, a.causal,
+      dtx::fold_scale<D>());
+  return cudaGetLastError();
+}
+
+// The tensor-core kernel at head dim d.
+template <bool kDq>
+cudaError_t launch_tc_d(const Args& a, int d) {
+  switch (d) {
+    case 32: return kDq ? launch_dq_tc<32>(a) : launch_dkv_tc<32>(a);
+    case 64: return kDq ? launch_dq_tc<64>(a) : launch_dkv_tc<64>(a);
+    case 128: return kDq ? launch_dq_tc<128>(a) : launch_dkv_tc<128>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The CUDA-core kernel at head dim d.
 template <bool kDq, typename Tin, typename Tout>
 cudaError_t launch_d(const Args& a, int d) {
   switch (d) {
@@ -444,9 +914,8 @@ cudaError_t launch_d(const Args& a, int d) {
 template <bool kDq>
 int dispatch(const Args& a, int d, int in_dtype, int out_dtype) {
   if (a.bh < 1 || a.t < 1) return cudaErrorInvalidValue;
+  if (dtx::tc_route(in_dtype, out_dtype)) return launch_tc_d<kDq>(a, d);
   if (in_dtype == 0 && out_dtype == 0) return launch_d<kDq, float, float>(a, d);
-  if (in_dtype == 1 && out_dtype == 1)
-    return launch_d<kDq, __nv_bfloat16, __nv_bfloat16>(a, d);
   if (in_dtype == 1 && out_dtype == 0) return launch_d<kDq, __nv_bfloat16, float>(a, d);
   if (in_dtype == 0 && out_dtype == 1) return launch_d<kDq, float, __nv_bfloat16>(a, d);
   return cudaErrorInvalidValue;
@@ -454,9 +923,31 @@ int dispatch(const Args& a, int d, int in_dtype, int out_dtype) {
 
 }  // namespace
 
+// The kernel a launch with these dtype codes (0 = float32, 1 = bfloat16)
+// takes: 1, the tensor-core kernel (bf16 in and out), or 0, the CUDA-core
+// one.  tiles gets that kernel's {q rows, k rows} tile: for dq the q rows a
+// block owns and the k rows a streamed tile, for dk/dv the q rows a
+// streamed tile and the k rows a block owns.  The wrappers count
+// tensor-core launches by it; the checks hold the plain versions' tiles to
+// it.
+extern "C" int dtx_flash_dq_route(int in_dtype, int out_dtype, int* tiles) {
+  const int tc = dtx::tc_route(in_dtype, out_dtype);
+  tiles[0] = tc ? kDqBlockQ : kBlock;
+  tiles[1] = tc ? kDqBlockK : kBlock;
+  return tc;
+}
+
+extern "C" int dtx_flash_dkv_route(int in_dtype, int out_dtype, int* tiles) {
+  const int tc = dtx::tc_route(in_dtype, out_dtype);
+  tiles[0] = tc ? kDkvBlockQ : kBlock;
+  tiles[1] = tc ? kDkvGroupK : kBlock;
+  return tc;
+}
+
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and do share in_dtype).
-// Each returns the launch's cudaError_t (0 = success); the caller raises
-// on anything else.
+// bf16 operands must be 16-byte aligned (the wrappers check).  Each
+// returns the launch's cudaError_t (0 = success); the caller raises on
+// anything else.
 extern "C" int dtx_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int bh, int t,
                             int d, int in_dtype, int out_dtype, int causal,

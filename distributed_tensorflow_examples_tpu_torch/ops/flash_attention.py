@@ -43,12 +43,14 @@ pair otherwise.  nq and nk come from the JAX block sizes (``block_q``/
 to the largest divisor of T by :func:`_pick_block`); they only decide the
 dispatch.  The Hopper kernels tile by their own sizes whatever the blocks
 say: the forward 128-row q blocks and 64-row k tiles (``FWD_BLOCK_Q``,
-``FWD_BLOCK_K``), the split pair 64-row tiles (``BLOCK``), the fused
-backward 128-row k groups and 64-row q tiles (``FUSED_GROUP_K``,
-``FUSED_BLOCK_Q``); each plain version walks its kernel's tiles in its
-kernel's order.  bf16 in and out runs the forward and the fused backward
-on the tensor cores; f32 in or out runs CUDA-core kernels with 64-row
-tiles, which sum in another order (f32 rounding apart, the same result).
+``FWD_BLOCK_K``), dq 128-row q blocks and 64-row k tiles (``DQ_BLOCK_Q``,
+``DQ_BLOCK_K``), dk/dv 128-row k groups and 64-row q tiles
+(``DKV_GROUP_K``, ``DKV_BLOCK_Q``), the fused backward 128-row k groups
+and 64-row q tiles (``FUSED_GROUP_K``, ``FUSED_BLOCK_Q``); each plain
+version walks its kernel's tiles in its kernel's order.  bf16 in and out
+runs every flash kernel on the tensor cores; f32 in or out runs CUDA-core
+kernels with 64-row tiles (``BLOCK``), which sum in another order (f32
+rounding apart, the same result).
 Where the reference segments q past its VMEM cap
 (``fused_bwd_segmented``), the port runs one fused call: its dq lives in
 device memory and has no cap, and the results agree (the tests hold them).
@@ -70,8 +72,8 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
-#: Rows of one q tile and of one k/v tile of the split backward (dq, dk/dv),
-#: in the kernels and the plain versions.
+#: Rows of one q tile and of one k/v tile of the CUDA-core kernels (any f32
+#: side), which sum in another order than the plain versions' tiles.
 BLOCK = 64
 #: The forward's q block (8 warps of 16 rows) and k/v tile, in the kernel
 #: and the plain version: the online softmax rescales at every k tile.
@@ -82,6 +84,11 @@ FWD_BLOCK_K = 64
 #: streamed q tile, in the kernel and the plain version.
 FUSED_GROUP_K = 128
 FUSED_BLOCK_Q = 64
+#: The split backward on the tensor cores (bf16 in and out), in the kernels
+#: and the plain versions: dq's q block (8 warps of 16 rows) and streamed
+#: k/v tile; dk/dv's k group (8 warps of 16 keys) and streamed q tile.
+DQ_BLOCK_Q, DQ_BLOCK_K = 128, 64
+DKV_GROUP_K, DKV_BLOCK_Q = 128, 64
 #: Head dims the kernel is instantiated for.
 HEAD_DIMS = (32, 64, 128)
 
@@ -144,14 +151,19 @@ def _raise_on(name: str, err: int, q, out_dtype) -> None:
         )
 
 
+#: The library a kernel lives in, where its name differs from the kernel's.
+_LIBRARY = {"flash_dq": "flash_bwd", "flash_dkv": "flash_bwd"}
+
+
 @functools.cache
 def kernel_route(name: str, in_dtype, out_dtype) -> tuple[bool, tuple[int, int]]:
-    """What the built library ``name`` (``"flash_fwd"`` or
-    ``"flash_fused_bwd"``) launches for these dtypes, as the library
+    """What the built library of kernel ``name`` (``"flash_fwd"``,
+    ``"flash_dq"``, ``"flash_dkv"`` or ``"flash_fused_bwd"``; the split
+    pair lives in ``flash_bwd``) launches for these dtypes, as the library
     itself decides: whether it takes the tensor-core kernel, and that
     kernel's (q rows, k rows) tile.  Builds the library if needed."""
     tiles = (ctypes.c_int * 2)()
-    fn = getattr(_build.load(name), f"dtx_{name}_route")
+    fn = getattr(_build.load(_LIBRARY.get(name, name)), f"dtx_{name}_route")
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     tc = fn(_DTYPE_CODES[in_dtype], _DTYPE_CODES[out_dtype], tiles)
@@ -280,7 +292,7 @@ def dq_call(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on("flash_dq", err, q, out_dtype)
-    LAUNCHES["flash_dq"] += 1
+    _count_launch("flash_dq", q.dtype, out_dtype)
     return dq
 
 
@@ -307,7 +319,7 @@ def dkv_call(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
             int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on("flash_dkv", err, q, out_dtype)
-    LAUNCHES["flash_dkv"] += 1
+    _count_launch("flash_dkv", q.dtype, out_dtype)
     return dk, dv
 
 
@@ -336,52 +348,69 @@ def _probs(qs, kf, lse2, q0, q1, k0, k1, causal):
 
 
 def dq_plain(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
-    """The dq kernel's algorithm in plain PyTorch, tile by tile: for each
-    ``BLOCK``-row q tile, a loop over k tiles that stops at the diagonal
-    when causal."""
+    """The dq kernel's algorithm in plain PyTorch, tile by tile on the
+    tensor-core kernel's ``DQ_BLOCK_Q``-row q blocks and ``DQ_BLOCK_K``-row
+    k tiles (:func:`_dq_walk`)."""
     _check_bwd(q, k, v, do, lse, delta, out_dtype)
+    dq = _dq_walk(q, k, v, do, lse, delta, causal, DQ_BLOCK_Q, DQ_BLOCK_K)
+    return dq.to(out_dtype or q.dtype)
+
+
+def _dq_walk(q, k, v, do, lse, delta, causal, block_q, block_k):
+    """dq in f32: for each ``block_q``-row q block, a loop over
+    ``block_k``-row k tiles that stops at the block's last row when
+    causal.  (The tensor-core kernel's warps also skip the k tiles above
+    their own 16 rows; there p = 0, so ds = 0.)"""
     bh, t, d = q.shape
     f32 = torch.float32
     qs, kf, vf, dof, lse2 = _bwd_operands(q, k, v, do, lse)
-    dq = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
-    for q0 in range(0, t, BLOCK):
-        q1 = min(q0 + BLOCK, t)
+    dq = torch.empty(q.shape, dtype=f32, device=q.device)
+    for q0 in range(0, t, block_q):
+        q1 = min(q0 + block_q, t)
         acc = torch.zeros((bh, q1 - q0, d), dtype=f32, device=q.device)
         k_stop = q1 if causal else t  # causal: no tile above the diagonal
-        for k0 in range(0, k_stop, BLOCK):
-            k1 = min(k0 + BLOCK, t)
+        for k0 in range(0, k_stop, block_k):
+            k1 = min(k0 + block_k, t)
             p = _probs(qs, kf, lse2, q0, q1, k0, k1, causal)
             dp = dof[:, q0:q1] @ vf[:, k0:k1].transpose(1, 2)
             ds = p * (dp - delta[:, q0:q1])
             acc = acc + ds.to(k.dtype).to(f32) @ kf[:, k0:k1]
-        dq[:, q0:q1] = (acc * (1.0 / math.sqrt(d))).to(dq.dtype)
+        dq[:, q0:q1] = acc * (1.0 / math.sqrt(d))
     return dq
 
 
 def dkv_plain(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
-    """The dk/dv kernel's algorithm in plain PyTorch, tile by tile: for
-    each ``BLOCK``-row k tile, a loop over q tiles that starts at the
-    diagonal when causal."""
+    """The dk/dv kernel's algorithm in plain PyTorch, tile by tile on the
+    tensor-core kernel's ``DKV_GROUP_K``-row k groups and
+    ``DKV_BLOCK_Q``-row q tiles (:func:`_dkv_walk`)."""
     _check_bwd(q, k, v, do, lse, delta, out_dtype)
+    dk, dv = _dkv_walk(q, k, v, do, lse, delta, causal, DKV_BLOCK_Q, DKV_GROUP_K)
+    return dk.to(out_dtype or k.dtype), dv.to(out_dtype or v.dtype)
+
+
+def _dkv_walk(q, k, v, do, lse, delta, causal, block_q, group_k):
+    """dk and dv in f32: for each ``group_k``-row k group, a loop over
+    ``block_q``-row q tiles that starts at the group's diagonal when
+    causal."""
     bh, t, d = q.shape
     f32 = torch.float32
     qs, kf, vf, dof, lse2 = _bwd_operands(q, k, v, do, lse)
-    dk = torch.empty(k.shape, dtype=out_dtype or k.dtype, device=q.device)
-    dv = torch.empty(v.shape, dtype=out_dtype or v.dtype, device=q.device)
-    for k0 in range(0, t, BLOCK):
-        k1 = min(k0 + BLOCK, t)
+    dk = torch.empty(k.shape, dtype=f32, device=q.device)
+    dv = torch.empty(v.shape, dtype=f32, device=q.device)
+    for k0 in range(0, t, group_k):
+        k1 = min(k0 + group_k, t)
         dk_acc = torch.zeros((bh, k1 - k0, d), dtype=f32, device=q.device)
         dv_acc = torch.zeros((bh, k1 - k0, d), dtype=f32, device=q.device)
         q_start = k0 if causal else 0  # causal: no tile above the diagonal
-        for q0 in range(q_start, t, BLOCK):
-            q1 = min(q0 + BLOCK, t)
+        for q0 in range(q_start, t, block_q):
+            q1 = min(q0 + block_q, t)
             p = _probs(qs, kf, lse2, q0, q1, k0, k1, causal)
             dv_acc = dv_acc + p.to(do.dtype).to(f32).transpose(1, 2) @ dof[:, q0:q1]
             dp = dof[:, q0:q1] @ vf[:, k0:k1].transpose(1, 2)
             ds = p * (dp - delta[:, q0:q1])
             dk_acc = dk_acc + ds.to(q.dtype).to(f32).transpose(1, 2) @ qs[:, q0:q1]
-        dk[:, k0:k1] = (dk_acc * (1.0 / LOG2E)).to(dk.dtype)
-        dv[:, k0:k1] = dv_acc.to(dv.dtype)
+        dk[:, k0:k1] = dk_acc * (1.0 / LOG2E)
+        dv[:, k0:k1] = dv_acc
     return dk, dv
 
 

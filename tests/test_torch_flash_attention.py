@@ -187,8 +187,9 @@ def test_kernel_sources_tile_as_their_plain_versions():
     """The tiles the CUDA sources are written for are the ones the plain
     versions walk (on the card, ``chip_smoke.py`` also asks the built
     libraries): the forward's tensor-core 128-row q block and 64-row k
-    tile, the fused backward's 128-key group and 64-row q tile, and the
-    64-row tiles of the CUDA-core kernels and the split pair."""
+    tile, dq's 128-row q block and 64-row k tile, dk/dv's 128-key group
+    and 64-row q tile, the fused backward's 128-key group and 64-row q
+    tile, and the 64-row tiles of the CUDA-core kernels."""
     fwd, fused = _constexprs("flash_fwd.cu"), _constexprs("flash_fused_bwd.cu")
     split = _constexprs("flash_bwd.cu")
     assert (fwd["kTcBlockQ"], fwd["kTcBlockK"]) == (torch_flash.FWD_BLOCK_Q,
@@ -197,6 +198,10 @@ def test_kernel_sources_tile_as_their_plain_versions():
                                                    torch_flash.FUSED_GROUP_K)
     assert fwd["kBlockQ"] == fwd["kBlockK"] == fused["kBlock"] == torch_flash.BLOCK
     assert split["kBlock"] == torch_flash.BLOCK
+    assert (split["kDqBlockQ"], split["kDqBlockK"]) == (torch_flash.DQ_BLOCK_Q,
+                                                         torch_flash.DQ_BLOCK_K)
+    assert (split["kDkvBlockQ"], split["kDkvGroupK"]) == (torch_flash.DKV_BLOCK_Q,
+                                                           torch_flash.DKV_GROUP_K)
 
 
 @pytest.mark.parametrize("tensor_core", [True, False])
@@ -207,8 +212,34 @@ def test_launch_counts_record_the_route_the_library_took(monkeypatch, tensor_cor
     monkeypatch.setattr(torch_flash, "kernel_route",
                         lambda name, i, o: (tensor_core, (128, 64)))
     torch_ops.reset_launches()
-    torch_flash._count_launch("flash_fwd", torch.bfloat16, torch.bfloat16)
-    assert torch_ops.LAUNCHES["flash_fwd"] == 1
-    assert torch_ops.TENSOR_CORE_LAUNCHES["flash_fwd"] == int(tensor_core)
+    names = ("flash_fwd", "flash_dq", "flash_dkv", "flash_fused_bwd")
+    for name in names:
+        torch_flash._count_launch(name, torch.bfloat16, torch.bfloat16)
+    for name in names:
+        assert torch_ops.LAUNCHES[name] == 1
+        assert torch_ops.TENSOR_CORE_LAUNCHES[name] == int(tensor_core)
     torch_ops.reset_launches()
     assert not torch_ops.LAUNCHES and not torch_ops.TENSOR_CORE_LAUNCHES
+
+
+def test_kernel_route_asks_the_library_that_holds_the_kernel(monkeypatch):
+    """The split pair's routes live in library ``flash_bwd``
+    (``dtx_flash_dq_route``, ``dtx_flash_dkv_route``); the others in the
+    library of their own name.  A stand-in library answers here."""
+    asked = []
+
+    class Library:
+        def __getattr__(self, fn_name):
+            def route(i, o, tiles):
+                tiles[0], tiles[1] = 64, 128
+                return int(i == o == 1)
+            return route
+
+    monkeypatch.setattr(torch_flash._build, "load", lambda lib: asked.append(lib) or Library())
+    route = torch_flash.kernel_route.__wrapped__  # the cache would keep the stand-in's answer
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert route("flash_dq", bf16, bf16) == (True, (64, 128))
+    assert route("flash_dkv", bf16, f32) == (False, (64, 128))
+    assert route("flash_fwd", bf16, bf16)[0] and route("flash_fused_bwd", f32, f32) == (
+        False, (64, 128))
+    assert asked == ["flash_bwd", "flash_bwd", "flash_fwd", "flash_fused_bwd"]

@@ -174,6 +174,27 @@ def test_fused_backward_env(monkeypatch):
     assert q.grad is not None
 
 
+@pytest.mark.parametrize("d,causal", [(32, True), (64, False)])
+def test_tensor_core_tiles_and_block_tiles_agree(d, causal):
+    """The plain bf16 walk on the tensor-core tiles (dq: 128-row q blocks,
+    64-row k tiles; dk/dv: 128-key groups, 64-row q tiles), which the plain
+    versions take, against the ``BLOCK`` walk of the CUDA-core kernels
+    (any f32 side), at T 200: it crosses a
+    128-row tile and ends on a ragged one.  They visit the same key tiles
+    per row in the same order (the larger tiles add only fully masked,
+    exactly zero, contributions), so they agree to f32 rounding."""
+    q, k, v, do = _torch(_arrays((2, 200, d), seed=d + causal), "bfloat16")
+    o, lse = torch_flash.fwd_plain(q, k, v, causal=causal)
+    args = (q, k, v, do, lse, torch_flash.compute_delta(do, o), causal)
+    blk = torch_flash.BLOCK
+    tc = (torch_flash._dq_walk(*args, torch_flash.DQ_BLOCK_Q, torch_flash.DQ_BLOCK_K),
+          *torch_flash._dkv_walk(*args, torch_flash.DKV_BLOCK_Q, torch_flash.DKV_GROUP_K))
+    plain = (torch_flash._dq_walk(*args, blk, blk), *torch_flash._dkv_walk(*args, blk, blk))
+    for got, want in zip(tc, plain):
+        assert got.dtype == torch.float32
+        _close(got, want, 1e-6)
+
+
 def test_bad_backward_inputs_raise():
     q = torch.zeros(2, 64, 32)
     lse = torch.zeros(2, 64, 1)
