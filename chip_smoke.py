@@ -45,17 +45,33 @@ it fails:
    of the reference's cases): fused against split and dense gradients, and
    bitwise determinism; the run fails unless ``parity_ok``.
 3. Serve end to end at full width: the flagship transformer (vocab 32000,
-   dim 1024, 12 layers, 8 heads, T 2048, bf16), random weights from
-   ``numpy.random.default_rng(0)`` at the JAX init's scales, published to
-   a model registry, served by the port's registry-pinned replica
-   (``host_serve_task``, ``attention="auto"``, ``max_batch=2``) and asked
-   for one-row predicts by the port's ``ServeClient``, two of them
-   concurrently.  Every answer must be finite logits [1, 2048, 32000] with
-   the published step and version stamps; the flash forward must have run
-   12 times per apply, every time on its tensor-core kernel
-   (``TENSOR_CORE_LAUNCHES``, as in phases 4 and 6); one answer must match an ``attention="xla"`` apply
-   of the same weights on the card.  One padded apply is timed (flash and
-   xla attention) and profiled once: device busy against the host's time.
+   dim 1024, 12 layers, 8 heads, T 2048, bf16), random weights drawn on
+   the card by the JAX init's own keys and initialisers (``init_numpy``:
+   the JAX package's weights for seed 0), published to a model registry,
+   served by the port's registry-pinned replica (``host_serve_task``,
+   ``attention="auto"``, ``max_batch=2``, and the KV-cache decode path:
+   ``decode_slots=4``, ``decode_max_len=2048``).  Predict first: one-row
+   predicts from the port's ``ServeClient``, two of them concurrently.
+   Every answer must be finite logits [1, 2048, 32000] with the published
+   step and version stamps; the flash forward must have run 12 times per
+   apply, every time on its tensor-core kernel (``TENSOR_CORE_LAUNCHES``,
+   as in phases 4 and 6); one answer must match an ``attention="xla"``
+   apply of the same weights on the card.  One padded apply is timed
+   (flash and xla attention) and profiled once: device busy against the
+   host's time.  Then decode on the same replica: five sessions, each a
+   16-token prompt from the synthetic corpus and 64 greedy tokens, first
+   each alone, then all five at once (four slots, one queued), then four
+   at once, from clients in a process of their own (``decode_clients``);
+   every session's tokens must equal its solo run byte for byte,
+   and no flash kernel may launch during decode.  One session is decoded
+   again by the same step function on the card, position by position:
+   its tokens must equal the served ones, its logits at every position
+   must lie within ``TOL_LOGITS`` of the replica's flash-forward predict of
+   the same tokens, and the greedy tokens must agree wherever the top-2
+   margin exceeds that tolerance.  Printed: the init's seconds, the KV
+   cache's bytes, ms per engine step with 1 and 4 active sessions, decode
+   tokens/s, the client's time to first token, and one engine step under
+   ``torch.profiler``.
 4. Train end to end at full width: the same flagship, batch 8 x T 2048,
    through the port's training job (``examples.transformer_lm``'s
    ``run_training``: ``Experiment`` over the synthetic ``text_corpus``,
@@ -139,6 +155,12 @@ TOL_LSE = 1e-3
 #: at |logit| in [2, 4).  (A CPU run of the same comparison at dim 1024,
 #: T 1024 differed by at most 0.025.)
 TOL_LOGITS = 0.125
+#: Phase 3's decode: sessions of a 16-token prompt and 64 new tokens, on a
+#: replica of 4 slots of the flagship's 2048 positions.
+DECODE_SESSIONS = 5
+DECODE_PROMPT = 16
+DECODE_NEW = 64
+DECODE_SLOTS = 4
 #: Backward kernels vs plain versions, relative to the largest entry of the
 #: plain output: bf16 outputs two bf16 steps (2^-8 relative each; p and ds
 #: also round to bf16 inside the products, and a value on the other side
@@ -808,9 +830,43 @@ def time_bn(bn, card: str) -> dict:
     return result
 
 
-def serve_end_to_end(card: str) -> dict:
-    """Publish, serve, ask and check (the module docstring's phase 3);
-    returns the kernel launch counts of the main path's run."""
+class StepClock:
+    """The replica's decode step, wrapped: the time (``time.monotonic``,
+    which every process of the host shares) at which each call starts and
+    the seconds it takes to the device's end (the engine copies the
+    logits to the host right after, so the wait moves nothing)."""
+
+    def __init__(self, step_fn):
+        self.step_fn = step_fn
+        self.starts: list[float] = []
+        self.seconds: list[float] = []
+
+    def __call__(self, params, cache, tokens, pos):
+        t0 = time.monotonic()
+        out = self.step_fn(params, cache, tokens, pos)
+        torch.cuda.synchronize()
+        self.starts.append(t0)
+        self.seconds.append(time.monotonic() - t0)
+        return out
+
+    def window(self, lo: int, hi: int) -> tuple[list[float], list[float]]:
+        """For steps ``lo`` to ``hi``: ms from one step's start to the next
+        (the engine's whole step, its bookkeeping included) and ms of the
+        step function alone."""
+        t = self.starts[lo:hi]
+        return ([(b - a) * 1e3 for a, b in zip(t, t[1:])],
+                [x * 1e3 for x in self.seconds[lo:hi]])
+
+    def between(self, t0: float, t1: float) -> tuple[int, int]:
+        """The steps that started in [t0, t1]."""
+        idx = [i for i, t in enumerate(self.starts) if t0 <= t <= t1]
+        return (idx[0], idx[-1] + 1) if idx else (0, 0)
+
+
+def serve_end_to_end(card: str) -> tuple[dict, dict]:
+    """Publish, serve, ask, decode and check (the module docstring's phase
+    3); returns the kernel launch counts (and tensor-core launch counts) of
+    the served predicts, the decode cross-check's included."""
     from distributed_tensorflow_examples_tpu_torch import bridge
     from distributed_tensorflow_examples_tpu_torch.models import transformer
     from distributed_tensorflow_examples_tpu_torch.serve import (
@@ -821,9 +877,11 @@ def serve_end_to_end(card: str) -> dict:
         vocab_size=32000, dim=1024, n_layers=12, n_heads=8,
         max_seq_len=2048, attention="auto",
     )
-    t = cfg.max_seq_len
     t0 = time.perf_counter()
-    flat = bridge.flat_params_of(transformer.init_numpy(cfg, SEED))
+    init = transformer.init_numpy(cfg, SEED)
+    init_s = time.perf_counter() - t0
+    flat = bridge.flat_params_of(init)
+    del init
     registry_dir = ROOT / "build" / "smoke_registry"
     shutil.rmtree(registry_dir, ignore_errors=True)
     step = 4242
@@ -831,19 +889,24 @@ def serve_end_to_end(card: str) -> dict:
         "transformer_lm", flat, step=step, source=f"chip_smoke seed={SEED}"
     )
     log(
-        f"  weights: {flat.size} params ({flat.nbytes / 1e9:.3f} GB f32), "
-        f"published as transformer_lm/v{version} in {time.perf_counter() - t0:.1f} s"
+        f"  weights: {flat.size} params ({flat.nbytes / 1e9:.3f} GB f32) drawn by the "
+        f"JAX init's keys on the card in {init_s:.3f} s, published as "
+        f"transformer_lm/v{version} in {time.perf_counter() - t0:.1f} s"
     )
 
     ready = threading.Event()
     holder: dict = {}
     failure: list = []
+    init_cache_fn, step_fn = transformer.serve_decode_fns(cfg)
+    clock = StepClock(step_fn)
 
     def host():
         try:
             host_serve_task(
                 param_shapes=transformer.param_shapes(cfg),
                 predict_fn=lambda p, b: transformer.apply(cfg, p, b["x"]),
+                decode_fns=(init_cache_fn, clock), decode_slots=DECODE_SLOTS,
+                decode_max_len=cfg.max_seq_len,
                 port=0, device="cuda", max_batch=2,
                 registry_dir=str(registry_dir), model_name="transformer_lm",
                 model_version=version,
@@ -858,7 +921,8 @@ def serve_end_to_end(card: str) -> dict:
     try:
         if not ready.wait(600) or failure:
             raise SystemExit(f"replica did not come up: {failure!r}")
-        launches = _ask_and_check(cfg, card, holder["server"], flat, step, version)
+        launches, tc = _ask_and_check(cfg, card, holder["server"], flat, step, version)
+        cross, cross_tc = _decode_and_check(cfg, card, holder["server"], flat, clock)
     finally:
         if "server" in holder:
             holder["server"].shutdown_requested.set()
@@ -866,12 +930,202 @@ def serve_end_to_end(card: str) -> dict:
         shutil.rmtree(registry_dir, ignore_errors=True)
     if server_thread.is_alive() or failure:
         raise SystemExit(f"serve task did not shut down cleanly: {failure!r}")
-    return launches
+    return ({k: launches.get(k, 0) + cross.get(k, 0) for k in {*launches, *cross}},
+            {k: tc.get(k, 0) + cross_tc.get(k, 0) for k in {*tc, *cross_tc}})
 
 
-def profile_apply(apply) -> tuple[float, float, float]:
+def _decode_session(client, prompt, record: dict) -> None:
+    """One greedy session polled to its end, as ``ServeClient.generate``
+    polls it, with its open and end times and the seconds from the open
+    to the first token."""
+    t0 = time.monotonic()
+    sid = client.decode_open(prompt, DECODE_NEW)
+    tokens: list[int] = []
+    try:
+        while True:
+            got, done, _step = client.decode_next(sid, cursor=len(tokens))
+            if got.size and not tokens:
+                record["ttft_s"] = time.monotonic() - t0
+            tokens.extend(int(t) for t in got)
+            if done:
+                break
+            time.sleep(0.005)  # ServeClient.generate's poll
+    finally:
+        client.decode_close(sid)
+    record.update(tokens=tokens, t_open=t0, t_end=time.monotonic())
+
+
+def decode_clients(port: int, together: bool, prompts: list) -> None:
+    """The decode sessions' clients, run in a process of their own (see
+    :func:`_client_process`): each prompt as a session, one after another
+    or all at once (one client and thread each); prints one JSON line of
+    the session records and the wall seconds."""
+    sys.path.insert(0, str(ROOT))
+    from distributed_tensorflow_examples_tpu_torch.serve import ServeClient
+
+    prompts = [np.asarray(p, np.int32) for p in prompts]
+    records: list = [{} for _ in prompts]
+    clients = [ServeClient("127.0.0.1", port, op_timeout_s=300.0)
+               for _ in (prompts if together else prompts[:1])]
+    t0 = time.monotonic()
+    if together:
+        threads = [threading.Thread(target=_decode_session, args=(c, p, r))
+                   for c, p, r in zip(clients, prompts, records)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+    else:
+        for p, r in zip(prompts, records):
+            _decode_session(clients[0], p, r)
+    wall = time.monotonic() - t0
+    for c in clients:
+        c.close()
+    print(json.dumps({"wall_s": wall, "sessions": records}))
+
+
+def _client_process(port: int, together: bool, prompts: list) -> tuple[list, float]:
+    """:func:`decode_clients` in a child process, so that the clients'
+    polling does not hold this process's interpreter lock, which the
+    replica's decode step needs for each of its launches (as a remote
+    client would not); returns the session records and the wall seconds."""
+    code = (f"import chip_smoke; chip_smoke.decode_clients({port}, {together}, "
+            f"{json.dumps([p.tolist() for p in prompts])})")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        raise SystemExit(f"decode clients failed:\n{out.stderr[-4000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    records = got["sessions"]
+    if not all("tokens" in r and "ttft_s" in r for r in records):
+        raise SystemExit("a decode session did not finish")
+    for r in records:
+        r["tokens"] = np.asarray(r["tokens"], np.int32)
+    return records, got["wall_s"]
+
+
+def _decode_and_check(cfg, card: str, server, flat, clock: StepClock) -> tuple[dict, dict]:
+    """Decode on the replica that served the predicts, and check (the
+    module docstring's phase 3); returns the launches of the cross-check's
+    served predict."""
+    from distributed_tensorflow_examples_tpu_torch import bridge, ops
+    from distributed_tensorflow_examples_tpu_torch.data import datasets
+    from distributed_tensorflow_examples_tpu_torch.models import transformer
+    from distributed_tensorflow_examples_tpu_torch.serve import ServeClient
+
+    ids, _vocab, _src = datasets.text_corpus(
+        None, vocab_size=cfg.vocab_size, synth_tokens=DECODE_SESSIONS * DECODE_PROMPT,
+        seed=SEED,
+    )
+    prompts = [np.asarray(ids[i * DECODE_PROMPT:(i + 1) * DECODE_PROMPT], np.int32)
+               for i in range(DECODE_SESSIONS)]
+    client = ServeClient("127.0.0.1", server.port, op_timeout_s=300.0)
+    steps0 = client.stats()["decode_steps"]
+    before = _launch_counts(ops)
+    # Each session alone (one active slot of four), all five at once (four
+    # slots, the fifth queued), then four at once.
+    solo_records, _ = _client_process(server.port, False, prompts)
+    conc, conc_wall = _client_process(server.port, True, prompts)
+    since4 = len(clock.starts)
+    four, four_wall = _client_process(server.port, True, prompts[:DECODE_SLOTS])
+    decode_launches, _ = _launches_since(ops, before)
+    steps = client.stats()["decode_steps"] - steps0
+    solo = [r["tokens"] for r in solo_records]
+    solo_ms, solo_fn_ms = [], []
+    for r in solo_records:
+        ms, fn_ms = clock.window(*clock.between(r["t_open"], r["t_end"]))
+        solo_ms += ms
+        solo_fn_ms += fn_ms
+    four_ms, four_fn_ms = clock.window(since4, len(clock.starts))
+
+    for i, want in enumerate(solo):
+        if want.shape != (DECODE_NEW,) or not ((0 <= want) & (want < cfg.vocab_size)).all():
+            raise SystemExit(f"session {i}: tokens {want.shape} out of the vocabulary")
+        for name, runs in (("five at once", conc), ("four at once", four)):
+            if i < len(runs) and not np.array_equal(runs[i]["tokens"], want):
+                raise SystemExit(f"session {i} {name} differs from its solo run")
+    flash_in_decode = sum(decode_launches.get(k, 0) for k in FLASH_FAMILIES)
+    log(f"  decode: {DECODE_SESSIONS} sessions of {DECODE_PROMPT} prompt + {DECODE_NEW} "
+        f"tokens alone, five and four at once ({steps} engine steps): every session's "
+        f"tokens equal its solo run; flash launches during decode {flash_in_decode}")
+    if flash_in_decode:
+        raise SystemExit("a flash kernel launched during decode")
+
+    # The same session by the same step function, position by position,
+    # against the replica's flash-forward predict of the same tokens.
+    _total, unflatten = bridge.flat_param_spec(transformer.param_shapes(cfg))
+    params = unflatten(flat, "cuda")
+    init_cache_fn, step_fn = transformer.serve_decode_fns(cfg)
+    seq = np.concatenate([prompts[0], solo[0]])
+    n = len(seq) - 1
+    with torch.inference_mode():
+        cache = init_cache_fn(DECODE_SLOTS, cfg.max_seq_len, "cuda")
+        kv_bytes = sum(t.numel() * t.element_size() for c in cache.values() for t in c.values())
+        tokens = torch.zeros(DECODE_SLOTS, dtype=torch.int32, device="cuda")
+        pos = torch.zeros(DECODE_SLOTS, dtype=torch.int32, device="cuda")
+        rows = []
+        for p in range(n):
+            tokens[0], pos[0] = int(seq[p]), p
+            logits, cache = step_fn(params, cache, tokens, pos)
+            rows.append(logits[0].float())
+        dec = torch.stack(rows).cpu()  # [n, V]: logits at positions 0..n-1
+        device_ms = time_ms(lambda: step_fn(params, cache, tokens, pos), iters=20)
+        busy_ms, wall_ms, flash_ms, kernels = profile_apply(
+            lambda: step_fn(params, cache, tokens, pos))
+    greedy = np.argmax(dec[DECODE_PROMPT - 1:].numpy(), axis=-1)
+    if not np.array_equal(greedy, solo[0]):
+        raise SystemExit("the step function's greedy tokens differ from the served session's")
+    x = np.zeros((1, cfg.max_seq_len), np.int32)
+    x[0, :len(seq)] = seq  # causal: the padding reads nothing back
+    before_x = _launch_counts(ops)
+    _step, out = client.predict({"x": x})
+    cross, cross_tc = _launches_since(ops, before_x)
+    client.close()
+    full = out["output"][0, :n].float()
+    err = (dec - full).abs().max().item()
+    top2 = dec.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > TOL_LOGITS
+    agree = (dec.argmax(-1) == full.argmax(-1))
+    log(f"  decode logits vs the replica's flash predict over {n} positions: max abs "
+        f"{err:.4e} (tol {TOL_LOGITS:g}); greedy agrees at {int(agree[sure].sum())} of "
+        f"{int(sure.sum())} positions with a top-2 margin over the tolerance "
+        f"({int(agree.sum())} of {n} in all)")
+    if not err <= TOL_LOGITS or not bool(agree[sure].all()):
+        raise SystemExit("decode logits disagree with the flash forward")
+    if cross.get("flash_fwd", 0) != cfg.n_layers:
+        raise SystemExit(f"the cross-check predict launched flash_fwd "
+                         f"{cross.get('flash_fwd', 0)} times")
+    require_tensor_cores("serve (decode cross-check)", cross, cross_tc)
+
+    conc_ttft = [r["ttft_s"] for r in conc]
+    ttft = [r["ttft_s"] for r in solo_records]
+    tok_s = DECODE_SESSIONS * DECODE_NEW / conc_wall
+    four_tok_s = DECODE_SLOTS * DECODE_NEW / four_wall
+    log(f"  KV cache: {DECODE_SLOTS} slots x {cfg.max_seq_len} positions x {cfg.n_layers} "
+        f"layers x k, v bf16 = {kv_bytes} bytes")
+    log(f"  engine step (clients in a process of their own), start to start, median: "
+        f"{float(np.median(solo_ms)):.3f} ms with 1 "
+        f"active slot, {float(np.median(four_ms)):.3f} ms with 4; of it the step function "
+        f"to the device's end {float(np.median(solo_fn_ms)):.3f} and "
+        f"{float(np.median(four_fn_ms)):.3f} ms; {device_ms:.3f} ms a step by CUDA events "
+        f"over 20 back-to-back steps from the main thread")
+    log(f"  decode tokens/s: {tok_s:.0f} for five sessions at once ({conc_wall:.3f} s), "
+        f"{four_tok_s:.0f} for four ({four_wall:.3f} s)")
+    log(f"  time to first token (client, open to first token, {DECODE_PROMPT}-token prompt): "
+        f"p50 {float(np.median(conc_ttft)) * 1e3:.1f} ms with five at once, "
+        f"{float(np.median(ttft)) * 1e3:.1f} ms alone")
+    log(f"  profiled engine step: host {wall_ms:.3f} ms to the synchronize, device busy "
+        f"{busy_ms:.3f} ms (busy share {busy_ms / wall_ms:.1%}, idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.1%}) in {kernels} kernel launches; "
+        f"flash_fwd {flash_ms:.3f} ms [{card}]")
+    del params, cache
+    return cross, cross_tc
+
+
+def profile_apply(apply) -> tuple[float, float, float, int]:
     """One inference call (after a warm-up) under torch.profiler: (device
-    busy ms, host ms to the synchronize, ms in the flash forward)."""
+    busy ms, host ms to the synchronize, ms in the flash forward, kernel
+    launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -887,7 +1141,7 @@ def profile_apply(apply) -> tuple[float, float, float]:
             and e.device_type == DeviceType.CUDA and e.key not in CUPTI_MARKERS]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     flash_ms = sum(e.self_device_time_total for e in rows if "flash_fwd" in e.key) / 1e3
-    return busy_ms, wall_ms, flash_ms
+    return busy_ms, wall_ms, flash_ms, sum(e.count for e in rows)
 
 
 def _ask_and_check(cfg, card: str, server, flat, step: int, version: int) -> dict:
@@ -971,7 +1225,8 @@ def _ask_and_check(cfg, card: str, server, flat, step: int, version: int) -> dic
         t_copy = time.perf_counter()
         logits[:1].cpu()  # what the replica copies for a lone request
         d2h_ms = (time.perf_counter() - t_copy) * 1e3
-    busy_ms, wall_ms, flash_ms = profile_apply(lambda: transformer.apply(cfg, params, padded))
+    busy_ms, wall_ms, flash_ms, _kernels = profile_apply(
+        lambda: transformer.apply(cfg, params, padded))
     del params, logits
     log(
         f"  one padded apply [2, {t}] on the device: {apply_ms:.2f} ms with the "

@@ -14,7 +14,9 @@ when given::
         --log_dir=/tmp/lm --registry_dir=/models
 
 ``--job_name=serve`` hosts one registry-pinned replica of a published
-version (the row-wise logits predict path)::
+version: stepped KV-cache decode sessions (streamed tokens over
+DECODE_OPEN/NEXT/CLOSE, at most ``--seq_len`` positions each) beside the
+row-wise logits predict path::
 
     python -m distributed_tensorflow_examples_tpu_torch.examples.transformer_lm \\
         --job_name=serve --registry_dir=/models --serve_model_version=1 \\
@@ -24,10 +26,11 @@ version (the row-wise logits predict path)::
 Both run on the card unless ``--device=cpu``.  The reference's TF-1
 cluster flags are accepted and mapped (``utils/flags.py``):
 ``--job_name=ps`` prints and exits 0, ``--ps_hosts`` is logged and
-ignored, ``--worker_hosts`` logged.  Sampling after training
-(``--sample_tokens``) waits for the port's decode slice (A2); pipeline
-stages, mixture-of-experts blocks and a mesh beyond one device wait for
-its model-parallel and multi-device items (A8, A5).
+ignored, ``--worker_hosts`` logged.  ``--sample_tokens=N`` greedily
+decodes N tokens after training from the corpus's first 16 tokens and
+logs them.  Pipeline stages, mixture-of-experts blocks and a mesh beyond
+one device wait for the port's model-parallel and multi-device items (A8,
+A5).
 """
 
 from __future__ import annotations
@@ -36,12 +39,18 @@ import argparse
 import logging
 import sys
 
+import numpy as np
+
 from ..data import datasets
 from ..models import transformer
 from ..serve import ModelRegistry, host_serve_task
 from ..train import Experiment, optim
 from ..train.checkpoint import flat_params_of
 from ..utils import flags
+
+
+#: The corpus tokens ``--sample_tokens`` decodes from.
+PROMPT_LEN = 16
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,7 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("--loss_chunks", type=int, default=0,
         help=">1 chunks the LM head + cross-entropy over the sequence.")
     add("--sample_tokens", type=int, default=0,
-        help=">0 greedy-decodes after training (waits for the decode slice).")
+        help=">0 greedy-decodes this many tokens after training.")
     add("--pipeline_stages", type=int, default=1,
         help=">1 waits for the model-parallel slice.")
     add("--moe_experts", type=int, default=0,
@@ -127,6 +136,8 @@ def _serve(args) -> None:
     host_serve_task(
         param_shapes=transformer.param_shapes(cfg),
         predict_fn=lambda p, b: transformer.apply(cfg, p, b["x"]),
+        decode_fns=transformer.serve_decode_fns(cfg),
+        decode_max_len=args.seq_len,
         port=serve_port(args.serve_hosts, args.task_index),
         device=args.device,
         max_batch=args.max_batch,
@@ -157,13 +168,15 @@ def run_training(args, *, extra_hooks=()) -> Experiment:
     """The training job: corpus -> Experiment -> run -> publish -> FINAL
     line.  Returns the finished Experiment (``exp.published_version``
     when ``--registry_dir`` was given)."""
-    if args.sample_tokens > 0:
-        raise NotImplementedError(
-            "--sample_tokens waits for the port's decode slice (A2: the "
-            "KV-cache path)"
-        )
     cfg = config_from_args(args)
     transformer.param_shapes(cfg)  # pipeline stages / MoE raise here (A8)
+    if args.sample_tokens > 0 and PROMPT_LEN + args.sample_tokens > args.seq_len:
+        # Refused before training: generate() would raise after the whole
+        # run and lose the FINAL line.
+        raise SystemExit(
+            f"--sample_tokens={args.sample_tokens} + {PROMPT_LEN} prompt "
+            f"tokens exceeds --seq_len={args.seq_len}"
+        )
     ids, _vocab, source = datasets.text_corpus(
         args.data_dir,
         vocab_size=args.vocab_size,
@@ -180,6 +193,13 @@ def run_training(args, *, extra_hooks=()) -> Experiment:
         extra_hooks=extra_hooks,
     )
     exp.run(datasets.lm_batches(ids, batch_size=args.batch_size, seq_len=args.seq_len))
+    if args.sample_tokens > 0:
+        # KV-cache greedy decode from a corpus prompt.
+        out = transformer.generate(
+            cfg, exp.state.params, np.asarray(ids[:PROMPT_LEN], np.int32)[None],
+            max_new_tokens=args.sample_tokens,
+        )
+        logging.info("sampled token ids: %s", out[0, PROMPT_LEN:].tolist())
     if args.registry_dir:
         exp.published_version = _publish_to_registry(args, exp)
     m = exp.session.last_metrics

@@ -1,54 +1,99 @@
 """Functional layers over plain dicts of tensors.
 
 The port of the pieces of ``distributed_tensorflow_examples_tpu/
-models/layers.py`` the transformer and ResNet need: initialisers (numpy, at
-the JAX scales), dense, conv2d, batchnorm, embedding, the training loss and
-accuracy.  Parameters keep the JAX layouts — dense kernels [in, out], conv
-kernels HWIO, activations NHWC — so a tree or a flat registry vector
-crosses between the two packages without a transpose.
+models/layers.py`` the transformer and ResNet need: initialisers (the
+JAX draws, from the same keys), dense, conv2d, batchnorm, embedding, the
+training loss and accuracy.  Parameters keep the JAX layouts — dense
+kernels [in, out], conv kernels HWIO, activations NHWC — so a tree or a
+flat registry vector crosses between the two packages without a
+transpose.
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops import bn as bn_ops
+from ..utils import threefry
 
 # ----------------------------------------------------------------------------
-# Initialisers (numpy ``Generator`` draws; JAX draws other numbers from its
-# own keys, so what matches is the distribution and the tree)
+# Initialisers: the JAX package's, drawn from the same threefry keys
+# (``utils/threefry.py``), so a key gives the JAX initial values (uniform
+# draws bit for bit, normal draws within a few float32 ulps).  Each scale is
+# computed in float32, as ``jnp.sqrt`` of a Python float is; each draw is a
+# float32 tensor on ``device``.
 # ----------------------------------------------------------------------------
 
 
-def glorot_uniform(rng: np.random.Generator, shape):
+def _sqrt32(x: float) -> torch.Tensor:
+    """``jnp.sqrt(x)`` for a Python float: the float32 square root of
+    float32(x), as a 0-d float32 tensor (on the CPU; it broadcasts)."""
+    return torch.tensor(np.sqrt(np.float32(x)), dtype=torch.float32)
+
+
+def glorot_uniform(key, shape, *, device="cpu"):
     """U[-l, l], l = sqrt(6 / (fan_in + fan_out)) over the last two dims."""
-    limit = math.sqrt(6.0 / (shape[-2] + shape[-1]))
-    return rng.uniform(-limit, limit, shape).astype(np.float32)
+    limit = _sqrt32(6.0 / (shape[-2] + shape[-1])).item()
+    return threefry.uniform(key, shape, -limit, limit, device)
 
 
-def he_normal_conv(rng: np.random.Generator, shape):
+def he_normal_conv(key, shape, *, device="cpu"):
     """He init for HWIO conv kernels (fan_in = h*w*cin)."""
-    std = math.sqrt(2.0 / (shape[0] * shape[1] * shape[2]))
-    return (std * rng.standard_normal(shape)).astype(np.float32)
+    std = _sqrt32(2.0 / (shape[0] * shape[1] * shape[2]))
+    return threefry.normal(key, shape, device) * std.to(device)
 
 
-def dense_init(rng, in_dim: int, out_dim: int, *, use_bias: bool = True):
-    """Glorot-uniform kernel [in, out] (the JAX default), zero bias."""
-    p = {"kernel": glorot_uniform(rng, (in_dim, out_dim))}
+def he_normal(key, shape, in_axis=-2, *, device="cpu"):
+    """He (fan-in) init for dense kernels."""
+    std = _sqrt32(2.0 / shape[in_axis])
+    return threefry.normal(key, shape, device) * std.to(device)
+
+
+def uniform_embedding(key, shape, scale=None, *, device="cpu"):
+    """word2vec-style U[-1/dim, 1/dim] embedding init."""
+    scale = scale if scale is not None else 1.0 / shape[-1]
+    return threefry.uniform(key, shape, -scale, scale, device)
+
+
+def dense_init(key, in_dim: int, out_dim: int, *, use_bias: bool = True,
+               init: str = "glorot", device="cpu"):
+    """Kernel [in, out] from the first of ``split(key)``: glorot-uniform
+    (the default) or "he" (fan-in normal); zero bias."""
+    kr, _ = threefry.split(key)
+    if init == "he":
+        kernel = he_normal(kr, (in_dim, out_dim), device=device)
+    elif init == "glorot":
+        kernel = glorot_uniform(kr, (in_dim, out_dim), device=device)
+    else:
+        raise ValueError(f"unknown dense init {init!r}")
+    p = {"kernel": kernel}
     if use_bias:
         p["bias"] = np.zeros((out_dim,), np.float32)
     return p
 
 
-def conv_init(rng, kh: int, kw: int, cin: int, cout: int, *, use_bias: bool = True):
-    p = {"kernel": he_normal_conv(rng, (kh, kw, cin, cout))}
+def conv_init(key, kh: int, kw: int, cin: int, cout: int, *, use_bias: bool = True,
+              device="cpu"):
+    p = {"kernel": he_normal_conv(key, (kh, kw, cin, cout), device=device)}
     if use_bias:
         p["bias"] = np.zeros((cout,), np.float32)
     return p
+
+
+def embedding_init(key, vocab: int, dim: int, *, device="cpu"):
+    return {"table": uniform_embedding(key, (vocab, dim), device=device)}
+
+
+def as_numpy(tree):
+    """A tree of tensors and numpy arrays as float32 numpy arrays on the
+    host (the form ``init_numpy`` hands to ``bridge``)."""
+    if isinstance(tree, dict):
+        return {k: as_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree, np.float32)
 
 
 def batchnorm_init(c: int, *, ghost_slices: int = 0):

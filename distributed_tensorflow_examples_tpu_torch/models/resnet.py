@@ -21,10 +21,11 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import device as device_lib
+from ..utils import threefry
 from . import layers
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float64": torch.float64}
@@ -54,47 +55,58 @@ class Config:
             ) from None
 
 
-def _bottleneck_init(rng, cin: int, mid: int, *, downsample: bool, ghost: int = 0):
-    """One bottleneck: 1x1 reduce -> 3x3 -> 1x1 expand (+ projection)."""
+def _bottleneck_init(key, cin: int, mid: int, *, downsample: bool, ghost: int = 0,
+                     device="cpu"):
+    """One bottleneck: 1x1 reduce -> 3x3 -> 1x1 expand (+ projection),
+    each conv from its own of ``split(key, 4)``."""
     cout = 4 * mid
+    ks = threefry.split(key, 4)
     p, s = {}, {}
-    p["conv1"] = layers.conv_init(rng, 1, 1, cin, mid, use_bias=False)
+    p["conv1"] = layers.conv_init(ks[0], 1, 1, cin, mid, use_bias=False, device=device)
     p["bn1"], s["bn1"] = layers.batchnorm_init(mid, ghost_slices=ghost)
-    p["conv2"] = layers.conv_init(rng, 3, 3, mid, mid, use_bias=False)
+    p["conv2"] = layers.conv_init(ks[1], 3, 3, mid, mid, use_bias=False, device=device)
     p["bn2"], s["bn2"] = layers.batchnorm_init(mid, ghost_slices=ghost)
-    p["conv3"] = layers.conv_init(rng, 1, 1, mid, cout, use_bias=False)
+    p["conv3"] = layers.conv_init(ks[2], 1, 1, mid, cout, use_bias=False, device=device)
     p["bn3"], s["bn3"] = layers.batchnorm_init(cout, ghost_slices=ghost)
     if downsample or cin != cout:
-        p["proj"] = layers.conv_init(rng, 1, 1, cin, cout, use_bias=False)
+        p["proj"] = layers.conv_init(ks[3], 1, 1, cin, cout, use_bias=False, device=device)
         p["bn_proj"], s["bn_proj"] = layers.batchnorm_init(cout, ghost_slices=ghost)
     return p, s
 
 
-def init_numpy(cfg: Config, seed: int, *, in_channels: int = 3):
-    """``(params, model_state)`` as numpy float32 trees with the JAX
-    ``init``'s structure and scales (He-normal convs, glorot-uniform head,
-    unit BN scales, zero biases, running mean 0 and var 1), drawn from
-    ``numpy.random.default_rng(seed)``."""
-    rng = np.random.default_rng(seed)
+def init_numpy(cfg: Config, seed: int, *, in_channels: int = 3, device=None):
+    """The JAX ``init(cfg, jax.random.key(seed))`` as ``(params,
+    model_state)`` trees of float32 numpy arrays: the same keys
+    (``split(key(seed), 2 + blocks)``: the stem, one per bottleneck, the
+    head) and initialisers (He-normal convs within a few float32 ulps of
+    JAX's, the glorot-uniform head bit for bit, unit BN scales, zero
+    biases, running mean 0 and var 1).  Drawn on ``device``
+    (``utils.device.for_drawing``: the card when there is one)."""
+    dev = device_lib.for_drawing(device)
+    rngs = threefry.split(threefry.key(seed), 2 + sum(cfg.stage_sizes))
     params: dict = {}
     state: dict = {}
-    params["stem"] = layers.conv_init(rng, 7, 7, in_channels, cfg.width, use_bias=False)
+    params["stem"] = layers.conv_init(
+        rngs[0], 7, 7, in_channels, cfg.width, use_bias=False, device=dev
+    )
     params["bn_stem"], state["bn_stem"] = layers.batchnorm_init(
         cfg.width, ghost_slices=cfg.bn_ghost_slices
     )
     cin = cfg.width
+    k = 1
     for stage, n_blocks in enumerate(cfg.stage_sizes):
         mid = cfg.width * (2 ** stage)
         for block in range(n_blocks):
             down = stage > 0 and block == 0
-            key = f"stage{stage}/block{block}"
-            params[key], state[key] = _bottleneck_init(
-                rng, cin, mid, downsample=down or cin != 4 * mid,
-                ghost=cfg.bn_ghost_slices,
+            name = f"stage{stage}/block{block}"
+            params[name], state[name] = _bottleneck_init(
+                rngs[k], cin, mid, downsample=down or cin != 4 * mid,
+                ghost=cfg.bn_ghost_slices, device=dev,
             )
             cin = 4 * mid
-    params["head"] = layers.dense_init(rng, cin, cfg.num_classes)
-    return params, state
+            k += 1
+    params["head"] = layers.dense_init(rngs[-1], cin, cfg.num_classes, device=dev)
+    return layers.as_numpy(params), layers.as_numpy(state)
 
 
 def _bottleneck_apply(cfg: Config, p, s, x, *, stride: int, train: bool, mesh=None):

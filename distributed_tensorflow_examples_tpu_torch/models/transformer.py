@@ -16,8 +16,11 @@ optionally over ``loss_chunks`` sequence chunks whose logits are
 recomputed in the backward, and with ``remat`` every block is
 recomputed in the backward (``torch.utils.checkpoint`` in the role of
 ``jax.checkpoint``; a recomputed block launches its flash forward again).
+KV-cache decode (:func:`decode_step`, the per-row-position
+:func:`decode_step_batch` a serving replica steps, :func:`generate`) keeps
+its attention in plain PyTorch, as the reference keeps it outside Pallas.
 A mesh, pipeline stages and mixture-of-experts blocks come with the port's
-model-parallel slice; KV-cache decode with its decode slice.
+model-parallel slice.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import attention as attn_ops
 from ..ops import flash_attention as flash_ops
+from ..utils import device as device_lib
+from ..utils import threefry
 from . import layers
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -112,36 +117,40 @@ def param_shapes(cfg: Config) -> dict:
     return shapes
 
 
-def init_numpy(cfg: Config, seed: int) -> dict:
-    """Random float32 weights at the JAX init's scales, drawn from
-    ``numpy.random.default_rng(seed)``: glorot-uniform kernels,
-    U[-1/dim, 1/dim] embedding, 0.02-normal positions, unit LayerNorm
-    scales and zero biases.  (JAX draws other numbers from its own keys;
-    what matches is the distribution and the tree.)"""
-    rng = np.random.default_rng(seed)
+def init_numpy(cfg: Config, seed: int, *, device=None) -> dict:
+    """The JAX ``init(cfg, jax.random.key(seed))`` as a tree of float32
+    numpy arrays: the same keys (``split(key(seed), 4n + 3)``: the
+    embedding, the 0.02-normal positions, the head, then four per block
+    for qkv, proj, mlp_in and mlp_out), the same initialisers
+    (``layers``), so uniform leaves equal JAX's bit for bit and the normal
+    positions within a few float32 ulps.  Drawn on ``device``
+    (``utils.device.for_drawing``: the card when there is one)."""
+    _check_supported(cfg)
+    dev = device_lib.for_drawing(device)
+    d, h = cfg.dim, cfg.dim * cfg.mlp_ratio
+    rngs = threefry.split(threefry.key(seed), 4 * cfg.n_layers + 3)
 
-    def leaf(path: str, shape):
-        name = path.rsplit("/", 1)[-1]
-        if path == "emb/table":
-            s = 1.0 / shape[-1]
-            return rng.uniform(-s, s, shape).astype(np.float32)
-        if path == "pos/table":
-            return (0.02 * rng.standard_normal(shape)).astype(np.float32)
-        if name == "kernel":
-            lim = math.sqrt(6.0 / (shape[0] + shape[1]))
-            return rng.uniform(-lim, lim, shape).astype(np.float32)
-        if name == "scale":
-            return np.ones(shape, np.float32)
-        return np.zeros(shape, np.float32)  # biases
+    def ln():
+        return {"scale": np.ones((d,), np.float32), "bias": np.zeros((d,), np.float32)}
 
-    def walk(node, prefix):
-        return {
-            k: walk(v, f"{prefix}{k}/") if isinstance(v, dict)
-            else leaf(prefix + k, v)
-            for k, v in node.items()
+    pos = threefry.normal(rngs[1], (cfg.max_seq_len, d), dev)
+    params: dict = {
+        "emb": layers.embedding_init(rngs[0], cfg.vocab_size, d, device=dev),
+        "pos": {"table": pos * torch.tensor(0.02, dtype=torch.float32, device=dev)},
+        "ln_f": ln(),
+        "head": layers.dense_init(rngs[2], d, cfg.vocab_size, use_bias=False, device=dev),
+    }
+    for i in range(cfg.n_layers):
+        r = rngs[3 + 4 * i : 3 + 4 * (i + 1)]
+        params[f"block_{i}"] = {
+            "ln1": ln(),
+            "qkv": layers.dense_init(r[0], d, 3 * d, use_bias=False, device=dev),
+            "proj": layers.dense_init(r[1], d, d, use_bias=False, device=dev),
+            "ln2": ln(),
+            "mlp_in": layers.dense_init(r[2], d, h, device=dev),
+            "mlp_out": layers.dense_init(r[3], h, d, device=dev),
         }
-
-    return walk(param_shapes(cfg), "")
+    return layers.as_numpy(params)
 
 
 def _layernorm(p, x, eps=1e-5):
@@ -215,6 +224,156 @@ def apply(cfg: Config, params, x, *, mesh=None):
         )
     h = _trunk(cfg, params, x)
     return layers.dense(params["head"], h, dtype=cfg.dtype)
+
+
+# ----------------------------------------------------------------------------
+# KV-cache decode (the reference computes its attention outside Pallas, so
+# it stays plain PyTorch here too)
+# ----------------------------------------------------------------------------
+
+
+def init_cache(cfg: Config, batch: int, max_len: int, *, device="cpu") -> dict:
+    """Per-layer K/V cache [B, H, max_len, hd] of zeros in the compute
+    dtype, on ``device`` (the params' device)."""
+    shape = (batch, cfg.n_heads, max_len, cfg.head_dim)
+    return {
+        f"block_{i}": {
+            "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        }
+        for i in range(cfg.n_layers)
+    }
+
+
+def _block_decode(cfg: Config, p, h, layer_cache, pos, visible):
+    """One block for ONE new token per row: h [B, 1, D].  ``pos`` is one
+    position shared by every row (an int: the reference's
+    ``_block_decode``) or a [B] tensor of a position per row (its
+    ``_block_decode_batch``: the sequence-slot serving shape); ``visible``
+    the cache positions each row may read (``_visible``).
+
+    The rows' k and v are written into ``layer_cache`` in place at their
+    positions (the values the reference's ``dynamic_update_slice`` and
+    one-hot ``where`` write), and the causal mask bounds each row at its
+    own position, so a row reads only cache entries its session wrote:
+    a freed slot needs no reset, and a row's numbers do not depend on the
+    other rows.  Scores come from the compute-dtype operands in float32
+    (a product of two bf16 values is exact there, as under the
+    reference's ``preferred_element_type=f32``), then the mask, the
+    float32 softmax, and the probabilities cast to the compute dtype for
+    the product with v."""
+    B = h.shape[0]
+    y = _layernorm(p["ln1"], h)
+    qkv = layers.dense(p["qkv"], y, dtype=cfg.dtype)
+    qkv = qkv.reshape(B, 1, cfg.n_heads, 3, cfg.head_dim)
+    q, k, v = [qkv[:, :, :, j].movedim(2, 1) for j in range(3)]  # [B,H,1,hd]
+    ck, cv = layer_cache["k"], layer_cache["v"]
+    if isinstance(pos, int):
+        ck[:, :, pos] = k[:, :, 0]
+        cv[:, :, pos] = v[:, :, 0]
+    else:
+        rows = torch.arange(B, device=h.device)
+        ck[rows, :, pos] = k[:, :, 0]
+        cv[rows, :, pos] = v[:, :, 0]
+    s = torch.matmul(q.float(), ck.float().transpose(-1, -2)) / math.sqrt(cfg.head_dim)
+    s = s.masked_fill(~visible, float("-inf"))
+    w = torch.softmax(s, dim=-1).to(cfg.dtype)
+    o = torch.matmul(w, cv)
+    o = o.movedim(1, 2).reshape(B, 1, cfg.dim)
+    h = h + layers.dense(p["proj"], o, dtype=cfg.dtype)
+    return _mlp_tail(cfg, p, h)
+
+
+def _visible(cache_len: int, pos, device) -> torch.Tensor:
+    """The causal mask of one decode step: cache position t is visible to
+    a row at ``pos`` when t <= pos; [T] for a shared int position,
+    [B, 1, 1, T] for a position per row."""
+    t_idx = torch.arange(cache_len, device=device)
+    if isinstance(pos, int):
+        return t_idx <= pos
+    return (t_idx[None, :] <= pos[:, None])[:, None, None, :]
+
+
+def _decode(cfg: Config, params, cache, h, pos):
+    visible = _visible(cache["block_0"]["k"].shape[2], pos, h.device)
+    for i in range(cfg.n_layers):
+        h = _block_decode(cfg, params[f"block_{i}"], h, cache[f"block_{i}"], pos, visible)
+    h = _layernorm(params["ln_f"], h)
+    return layers.dense(params["head"], h, dtype=cfg.dtype)[:, 0], cache
+
+
+def decode_step(cfg: Config, params, cache, token, pos):
+    """token [B] at the one position ``pos`` -> (logits [B, V] in the
+    compute dtype, cache), the cache updated in place."""
+    _check_supported(cfg)
+    pos = int(pos)
+    h = layers.embedding_lookup(params["emb"], token[:, None], dtype=cfg.dtype)
+    h = h + params["pos"]["table"][pos : pos + 1].to(cfg.dtype)[None]
+    return _decode(cfg, params, cache, h, pos)
+
+
+def decode_step_batch(cfg: Config, params, cache, token, pos):
+    """token [B], pos [B] (a position PER ROW) -> (logits [B, V], cache):
+    the sequence-slot step, in which row b advances its own session at
+    ``pos[b]``.  Row for row the same numbers as :func:`decode_step`."""
+    _check_supported(cfg)
+    pos = pos.long()
+    h = layers.embedding_lookup(params["emb"], token[:, None], dtype=cfg.dtype)
+    h = h + params["pos"]["table"][pos].to(cfg.dtype)[:, None]
+    return _decode(cfg, params, cache, h, pos)
+
+
+def serve_decode_fns(cfg: Config):
+    """The ``(init_cache_fn, step_fn)`` pair a serving replica's decode
+    engine takes (``serve.ModelReplicaServer(decode_fns=...)``):
+    ``init_cache_fn(slots, max_len, device)`` and the per-row-position
+    step ``step_fn(params, cache, tokens, pos)``."""
+    _check_supported(cfg)
+
+    def init_cache_fn(slots: int, max_len: int, device):
+        return init_cache(cfg, slots, max_len, device=device)
+
+    def step_fn(params, cache, tokens, pos):
+        return decode_step_batch(cfg, params, cache, tokens, pos)
+
+    return init_cache_fn, step_fn
+
+
+def generate(cfg: Config, params, prompt, *, max_new_tokens: int,
+             temperature: float = 0.0, rng=None) -> torch.Tensor:
+    """Autoregressive generation: prompt [B, Tp] -> int32 [B, Tp +
+    max_new_tokens] on the params' device.
+
+    One :func:`decode_step` per position over a cache of exactly that
+    length: prompt positions are teacher-forced, then greedy (temperature
+    0, the first index on a tie) or ``threefry.categorical`` over the
+    float32 logits / temperature.  The key (``rng``, a threefry key,
+    ``threefry.key(0)`` by default) is split once per position, prompt
+    positions included, as the reference's scan does, so the same key
+    samples the same tokens in both packages."""
+    device = params["emb"]["table"].device
+    prompt = torch.as_tensor(prompt, device=device).to(torch.int32)
+    B, Tp = prompt.shape
+    total = Tp + max_new_tokens
+    if total > cfg.max_seq_len:
+        raise ValueError(f"{total} tokens > max_seq_len={cfg.max_seq_len}")
+    rng = threefry.key(0) if rng is None else rng
+    with torch.inference_mode():
+        cache = init_cache(cfg, B, total, device=device)
+        tok = prompt[:, 0]
+        out = [tok]
+        for pos in range(total - 1):
+            logits, cache = decode_step(cfg, params, cache, tok, pos)
+            rng, sub = threefry.split(rng)
+            if pos + 1 < Tp:
+                tok = prompt[:, pos + 1]  # teacher-force the prompt
+            elif temperature > 0:
+                tok = threefry.categorical(sub, logits.float() / temperature)
+            else:
+                tok = torch.argmax(logits, dim=-1)
+            tok = tok.to(torch.int32)
+            out.append(tok)
+        return torch.stack(out, dim=1)
 
 
 def _chunked_ce(cfg: Config, head_p, h, y):

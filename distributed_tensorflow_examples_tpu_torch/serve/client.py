@@ -20,10 +20,10 @@ rotation when its ejection expires — the "zero failed client requests"
 contract the fault tests pin.
 
 The port's copy of ``distributed_tensorflow_examples_tpu/serve/client.py``
-(same wire, so either package's client talks to either package's replica).
-``ServeClient.generate`` waits for the port's decode slice; the DECODE_*
-ops stay, so a predict-only replica's ``NO_DECODER`` answer maps to its
-typed error.
+(same wire, so either package's client talks to either package's replica),
+with the stepped decode ops (``decode_open``/``next``/``close``) and
+:meth:`ServeClient.generate` over them; a predict-only replica's
+``NO_DECODER`` answer maps to its typed error.
 
 r18 (graceful degradation): both layers run the shared retry discipline
 (``parallel/retry.py``).  A replica's RETRY_LATER shed answer carries its
@@ -404,6 +404,34 @@ class ServeClient:
     def decode_close(self, session: int) -> None:
         """Release a session server-side (idempotent)."""
         self.call(SRV_DECODE_CLOSE, a=int(session))
+
+    def generate(
+        self, prompt, max_new_tokens: int, *, poll_s: float = 0.005,
+        deadline_s: float = 120.0,
+    ) -> np.ndarray:
+        """The whole stream: open, poll the token stream to completion,
+        close; returns the generated int32 tokens (the continuation only,
+        not the prompt)."""
+        sid = self.decode_open(prompt, max_new_tokens)
+        tokens: list[int] = []
+        try:
+            t_end = time.monotonic() + deadline_s
+            while True:
+                got, done, _step = self.decode_next(sid, cursor=len(tokens))
+                tokens.extend(int(t) for t in got)
+                if done:
+                    return np.asarray(tokens, np.int32)
+                if time.monotonic() >= t_end:
+                    raise ServeDeadlineError(
+                        f"decode session {sid} incomplete after "
+                        f"{deadline_s:.0f}s ({len(tokens)} tokens)"
+                    )
+                time.sleep(poll_s)
+        finally:
+            try:
+                self.decode_close(sid)
+            except ServeError:
+                pass  # best-effort release; the idle sweep is the backstop
 
     def stats(self) -> dict:
         status, raw = self.call(SRV_STATS)

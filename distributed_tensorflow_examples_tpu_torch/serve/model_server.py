@@ -16,12 +16,16 @@ service tag, byte-identical to the JAX replica, so either package's
   status is the served ``model_step`` and its batch carries the registry
   version (``wire.SRV_VERSION_FIELD``), exactly as the JAX replica stamps
   them;
-- STATS and SHUTDOWN answer as in JAX; with no decode path, DECODE_OPEN
-  answers ``NO_DECODER``.
+- ``decode_fns=(init_cache_fn, step_fn)`` adds the stepped KV-cache
+  decode path, as in JAX: greedy sessions behind
+  :class:`serve.batcher.SlotBatcher` (one step advances every active
+  slot of a fixed-width batch), streamed over DECODE_OPEN/NEXT/CLOSE;
+  sessions nobody polls for ``session_idle_s`` are cancelled by the
+  refresher.  Without it DECODE_OPEN answers ``NO_DECODER``;
+- STATS and SHUTDOWN answer as in JAX.
 
 Hot-tracking a parameter server (``ps_addrs``), membership leases and
-reshard following wait for the port's PS-plane slice, and the KV-cache
-decode path (``decode_fns``) for its decode slice: each raises
+reshard following wait for the port's PS-plane slice: each raises
 ``NotImplementedError`` until then.
 """
 
@@ -82,6 +86,106 @@ def _to_host(x):
     return x if x.dtype == torch.bfloat16 else x.numpy()
 
 
+class _DecodeEngine:
+    """Stepped KV-cache decode behind the sequence-slot batcher: the twin
+    of the JAX replica's engine.
+
+    The model supplies ``init_cache_fn(slots, max_len, device)`` (a
+    per-slot cache) and ``step_fn(params, cache, tokens[S], pos[S]) ->
+    (logits [S, V], cache)``, one apply that advances EVERY slot one
+    position.  The engine owns the host-side slot state (each slot's
+    current token and position), prompt teacher-forcing and greedy
+    selection (``np.argmax`` over the step's logits: the first index on a
+    tie), so a session's tokens do not depend on its neighbours: the slot
+    array's shape is fixed (a free slot computes an inert row), a row's
+    numbers depend only on its own slot, and the attention mask confines
+    each session to the cache positions it wrote itself, so a freed slot
+    needs no cache reset.  The step runs on the batcher's thread under
+    ``torch.inference_mode()``, on the replica's device."""
+
+    def __init__(
+        self, model_getter, init_cache_fn, step_fn, *, slots: int,
+        max_len: int, max_sessions: int, device,
+    ):
+        self._get_model = model_getter  # () -> (step, params)
+        self.device = device
+        with torch.inference_mode():
+            self._cache = init_cache_fn(slots, max_len, device)
+        self._step = step_fn
+        self.slots = int(slots)
+        self.max_len = int(max_len)
+        self._tokens = np.zeros((self.slots,), np.int32)
+        self._pos = np.zeros((self.slots,), np.int32)
+        self.batcher = batcher_lib.SlotBatcher(
+            self._run_step, slots=self.slots, max_sessions=max_sessions,
+        )
+
+    def open(self, prompt: np.ndarray, max_new_tokens: int):
+        """Admit one greedy decode session; returns its StreamTicket.
+        Raises ValueError on a prompt/budget the cache cannot hold, and
+        ``batcher.Overloaded`` past the session bound."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        n = int(max_new_tokens)
+        if prompt.size < 1:
+            raise ValueError("decode needs a non-empty prompt")
+        if n < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {n}")
+        if prompt.size + n > self.max_len:
+            raise ValueError(
+                f"{prompt.size} prompt + {n} new tokens exceeds the "
+                f"replica's decode_max_len={self.max_len}"
+            )
+        return self.batcher.open(
+            {"prompt": prompt, "n": n, "emitted": 0, "seated": False}
+        )
+
+    def _run_step(self, slots):
+        _step, params = self._get_model()
+        for i, t in enumerate(slots):
+            if t is not None and not t.state["seated"]:
+                # A freshly seated session starts its slot at position 0
+                # feeding its first prompt token; the cache needs no reset.
+                t.state["seated"] = True
+                self._tokens[i] = t.state["prompt"][0]
+                self._pos[i] = 0
+        # A free slot keeps its last session's token and position (an
+        # inert row); one that ended on the cache's last position steps
+        # there again instead of past the end.
+        pos = np.minimum(self._pos, self.max_len - 1)
+        with torch.inference_mode():
+            logits, self._cache = self._step(
+                params, self._cache,
+                torch.from_numpy(self._tokens).to(self.device),
+                torch.from_numpy(pos).to(self.device),
+            )
+            out = logits.float().cpu().numpy()
+        results: list = [None] * len(slots)
+        for i, t in enumerate(slots):
+            if t is None:
+                continue
+            st = t.state
+            p = int(self._pos[i])
+            if p + 1 < len(st["prompt"]):
+                nxt = int(st["prompt"][p + 1])  # teacher-force the prompt
+                emits: list[int] = []
+            else:
+                nxt = int(np.argmax(out[i]))  # greedy continuation
+                emits = [nxt]
+                st["emitted"] += 1
+            self._tokens[i] = nxt
+            self._pos[i] = p + 1
+            results[i] = (emits, st["emitted"] >= st["n"])
+        return results
+
+    def stats(self) -> dict:
+        s = self.batcher.stats()
+        s["max_len"] = self.max_len
+        return s
+
+    def stop(self) -> None:
+        self.batcher.stop()
+
+
 class ModelReplicaServer:
     """One registry-pinned serving replica.
 
@@ -94,6 +198,11 @@ class ModelReplicaServer:
     ``ps_addrs``      must be empty in this slice (hot-tracking raises).
     ``device``        ``None`` = ``cuda`` (raises without a card); tests
                       pass ``"cpu"``.
+    ``decode_fns``    ``(init_cache_fn, step_fn)``
+                      (``models.transformer.serve_decode_fns(cfg)``): the
+                      decode path, with ``decode_slots`` slots of
+                      ``decode_max_len`` positions and at most
+                      ``decode_max_sessions`` sessions active or queued.
     """
 
     def __init__(
@@ -106,7 +215,9 @@ class ModelReplicaServer:
         handler_workers: int = 8, queue_deadline_ms: float = 0.0,
         registry_dir: str | None = None, model_name: str = "default",
         model_version: int | None = None, pin_ttl_s: float = 30.0,
-        decode_fns: tuple | None = None,
+        decode_fns: tuple | None = None, decode_slots: int = 4,
+        decode_max_len: int = 512, decode_max_sessions: int = 64,
+        session_idle_s: float = 60.0,
         tenant: str = tenancy.DEFAULT_TENANT,
         tenant_quotas: dict | None = None,
     ):
@@ -122,10 +233,6 @@ class ModelReplicaServer:
         if follow_reshard:
             raise NotImplementedError(
                 "reshard following waits for the port's PS-plane slice"
-            )
-        if decode_fns is not None:
-            raise NotImplementedError(
-                "KV-cache decode serving waits for the port's decode slice"
             )
         self.model_version = int(model_version or 0)
         if not registry_dir or self.model_version <= 0:
@@ -176,6 +283,22 @@ class ModelReplicaServer:
             self._run_batch, max_batch=max_batch, max_wait_ms=max_wait_ms,
             queue_depth=queue_depth,
         )
+        # Decode sessions: ids are handed to clients as the DECODE_OPEN
+        # status; the table maps them to stream tickets, and the refresher
+        # sweeps sessions nobody polled for ``session_idle_s``.
+        self._engine = (
+            _DecodeEngine(
+                lambda: self._model, decode_fns[0], decode_fns[1],
+                slots=decode_slots, max_len=decode_max_len,
+                max_sessions=decode_max_sessions, device=self.device,
+            )
+            if decode_fns is not None
+            else None
+        )
+        self._session_idle_s = float(session_idle_s)
+        self._sessions: dict[int, list] = {}  # sid -> [ticket, last_poll]
+        self._next_sid = 1
+        self._decode_opens = 0
         self._stop = threading.Event()
         self.shutdown_requested = threading.Event()
         self._core = server_core.ServerCore(
@@ -230,6 +353,8 @@ class ModelReplicaServer:
         self._core.stop()
         self._refresher.join(timeout=5.0)
         self._batcher.stop()
+        if self._engine is not None:
+            self._engine.stop()
         # Release the registry pin LAST: GC must not reclaim the served
         # version while in-flight work could still touch it.
         try:
@@ -254,9 +379,26 @@ class ModelReplicaServer:
                 f"{self._ticket_deadline_s:.0f}s (batch thread wedged?)"
             ))
 
+    def _sweep_idle_sessions(self) -> None:
+        """Cancel decode sessions nobody polled for ``session_idle_s``: an
+        abandoned client must not hold a slot or its emissions forever.
+        DECODE_CLOSE is the polite path; this is the backstop."""
+        if self._engine is None:
+            return
+        now = time.monotonic()
+        with self._lock:
+            stale = [
+                sid for sid, (_t, last) in self._sessions.items()
+                if now - last > self._session_idle_s
+            ]
+            tickets = [self._sessions.pop(sid)[0] for sid in stale]
+        for t in tickets:
+            t.cancel()
+
     def _refresh_loop(self) -> None:
         while not self._stop.is_set():
             self._sweep_stuck_tickets()
+            self._sweep_idle_sessions()
             now = time.monotonic()
             if now >= self._next_pin_renew:
                 self._next_pin_renew = now + self._pin_ttl_s / 3
@@ -342,8 +484,12 @@ class ModelReplicaServer:
                 "applies": self._applies,
                 "overloads": self._overloads,
                 "refresh_errors": self._refresh_errors,
+                "decode_sessions_open": len(self._sessions),
+                "decode_opens": self._decode_opens,
             }
         s.update({f"batcher_{k}": v for k, v in b.items()})
+        if self._engine is not None:
+            s.update({f"decode_{k}": v for k, v in self._engine.stats().items()})
         s.update(self.latency.percentile_scalars("serve"))
         s["registry"] = telemetry.snapshot()
         s["flight_events"] = len(telemetry.RECORDER)
@@ -360,11 +506,11 @@ class ModelReplicaServer:
                 return ERR, None
             return self._handle_predict(conn, inputs, t0)
         if op == SRV_DECODE_OPEN:
-            return NO_DECODER, None
+            return self._handle_decode_open(a, payload)
         if op == SRV_DECODE_NEXT:
-            return BAD_SESSION, None  # no decode session can exist
+            return self._handle_decode_next(a, b)
         if op == SRV_DECODE_CLOSE:
-            return 0, None  # idempotent, as in JAX
+            return self._handle_decode_close(a)
         if op == SRV_STATS:
             return 0, [json.dumps(self.stats()).encode()]
         if op == SRV_SHUTDOWN:
@@ -377,6 +523,57 @@ class ModelReplicaServer:
         out = dict(out)
         out[wire.SRV_VERSION_FIELD] = np.int64(self.model_version)
         return out
+
+    # -- decode sessions ----------------------------------------------------
+
+    def _handle_decode_open(self, max_new_tokens: int, payload):
+        if self._engine is None:
+            return NO_DECODER, None
+        try:
+            prompt = np.asarray(wire.decode_batch_bytes(payload)["prompt"])
+        except (ValueError, TypeError, KeyError):
+            return ERR, None
+        try:
+            ticket = self._engine.open(prompt, max_new_tokens)
+        except ValueError:
+            return ERR, None
+        except batcher_lib.Overloaded:
+            with self._lock:
+                self._overloads += 1
+            return wire.retry_later_status(self._retry_after_ms), None
+        with self._lock:
+            sid = self._next_sid
+            self._next_sid += 1
+            self._sessions[sid] = [ticket, time.monotonic()]
+            self._decode_opens += 1
+        return sid, None
+
+    def _handle_decode_next(self, sid: int, cursor: int):
+        with self._lock:
+            entry = self._sessions.get(sid)
+            if entry is not None:
+                entry[1] = time.monotonic()
+        if entry is None:
+            return BAD_SESSION, None
+        try:
+            tokens, done = entry[0].snapshot(cursor)
+        except Exception:  # noqa: BLE001 — a failed step answers loudly
+            log.error("decode session %d failed server-side", sid, exc_info=True)
+            with self._lock:
+                self._sessions.pop(sid, None)
+            return ERR, None
+        out = self._stamp({
+            "tokens": np.asarray(tokens, np.int32),
+            "done": np.asarray([1 if done else 0], np.uint8),
+        })
+        return self.model_step, wire.encode_batch(out)
+
+    def _handle_decode_close(self, sid: int):
+        with self._lock:
+            entry = self._sessions.pop(sid, None)
+        if entry is not None:
+            entry[0].cancel()
+        return 0, None  # idempotent: closing an unknown session is a no-op
 
     def _handle_predict(self, conn, inputs: dict, t0: float):
         if not inputs:
@@ -449,6 +646,7 @@ def host_serve_task(
     membership: bool = False, queue_deadline_ms: float = 0.0,
     registry_dir: str | None = None, model_name: str = "default",
     model_version: int | None = None, decode_fns: tuple | None = None,
+    decode_slots: int = 4, decode_max_len: int = 512,
     tenant: str = tenancy.DEFAULT_TENANT, tenant_quotas: dict | None = None,
     on_ready=None,
 ) -> int:
@@ -466,6 +664,7 @@ def host_serve_task(
         membership=membership, queue_deadline_ms=queue_deadline_ms,
         registry_dir=registry_dir, model_name=model_name,
         model_version=model_version, decode_fns=decode_fns,
+        decode_slots=decode_slots, decode_max_len=decode_max_len,
         tenant=tenant, tenant_quotas=tenant_quotas,
     )
     faults.arm_process_faults(

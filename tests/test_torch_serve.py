@@ -166,7 +166,6 @@ def test_decode_open_answers_no_decoder(published):
         dict(ps_addrs=[("127.0.0.1", 1)]),
         dict(membership=True),
         dict(follow_reshard=True),
-        dict(decode_fns=(None, None)),
     ],
 )
 def test_later_slice_features_raise_not_implemented(published, kw):

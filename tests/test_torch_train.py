@@ -387,7 +387,6 @@ def test_cli_trains_prints_final_and_publishes(tmp_path, capsys):
 @pytest.mark.parametrize(
     "extra,match",
     [
-        (["--sample_tokens=4"], "A2"),
         (["--pipeline_stages=2"], "model-parallel"),
         (["--moe_experts=4"], "model-parallel"),
         (["--mesh=data=2"], "A5"),
