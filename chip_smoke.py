@@ -113,6 +113,20 @@ it fails:
    have taken its tensor-core kernel.  Last, one step under
    ``torch.profiler``.
 
+7. Train the four remaining reference workloads on the card through
+   their CLIs' ``run_training`` at the CLIs' default widths and batch
+   (MNIST MLP 784-128-128-10 at batch 128; CIFAR-10 CNN, 5x5 convs 64/64
+   and dense 384/192 at batch 128; word2vec, vocab 10000, dim 128, 64
+   sampled, NCE, at batch 256; PTB LSTM, vocab 10000, width 200, 2
+   layers, 64 x 20), ``WORKLOAD_STEPS`` steps each on their synthetic
+   data at ``--seed=0``.  Each must print its FINAL line, log only finite
+   losses, launch none of the port's hand kernels (the JAX package
+   computes these models with no Pallas kernel), and start where the same
+   CLI's first step on the CPU starts (``TOL_WORKLOAD_START``);
+   word2vec's step-1 negatives drawn on the card must equal the CPU's.
+   Printed: the median step's ms and examples/s, and one step under
+   ``torch.profiler``: kernel launches, device-busy ms and the idle share.
+
 Phase 4 still runs the split kernels: at T 2048 the blocks give
 nq = nk = 2, under the fused regime.  No path is cut in depth.
 
@@ -226,6 +240,20 @@ TOL_RESNET_VS_F64 = 1.5
 #: there too; measured on an H100: 0.79).  A broken forward is off by far
 #: more, or not finite.
 TOL_RESNET_START = 1.0
+#: Phase 7: the four reference workloads through their CLIs at the CLI's
+#: default widths and batch, ``WORKLOAD_STEPS`` steps each (the median step
+#: is over steps 2 on, the profiled step left out).
+WORKLOAD_STEPS = 200
+WORKLOADS = ("mnist_mlp", "cifar10_cnn", "word2vec", "ptb_lstm")
+#: Step 1's loss on the card against the same CLI's step 1 on the CPU, same
+#: seed.  The bf16 workloads (MLP, CNN, LSTM) round their bf16 products and
+#: activations apart on the two (cuBLAS/cuDNN and oneDNN sum in other
+#: orders; one bf16 step is 2^-8 relative): on an H100 (700 W) the gaps
+#: were 2.4e-7 (MLP), 1.6e-5 (CNN) and 9.5e-7 (LSTM) at cross-entropies of
+#: 2.3-9.2.  word2vec is float32 (TF32 off): 7e-8 relative (loss 221.2).  A
+#: wrong weight, batch, key or dtype moves the loss by O(0.1).
+TOL_WORKLOAD_START = {"mnist_mlp": 1e-3, "cifar10_cnn": 1e-3, "ptb_lstm": 1e-3}
+TOL_WORKLOAD_START_REL = {"word2vec": 1e-6}
 #: Device rows of a profile that are the profiler's own markers, not work.
 CUPTI_MARKERS = ("Command Buffer Full", "Activity Buffer Request")
 #: The port's flash kernels in an LM step's profile, by kernel name.
@@ -1817,6 +1845,175 @@ def resnet_end_to_end(card: str) -> dict:
     return launches
 
 
+def step_recorder(profile_step: int | None = None):
+    """A training hook that records (step, ms, loss, profiled) for every
+    step, reading the loss (which waits for the step's device work), and
+    runs step ``profile_step`` under ``torch.profiler`` (``.prof``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_tensorflow_examples_tpu_torch.train import hooks
+
+    class StepRecorder(hooks.Hook):
+        def __init__(self):
+            self.steps: list = []
+            self.prof = None
+
+        def begin(self, loop):
+            torch.cuda.synchronize()
+            self._t = time.perf_counter()
+
+        def before_step(self, loop):
+            if loop.step + 1 == profile_step:
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self._t = time.perf_counter()
+
+        def after_step(self, loop, metrics):
+            loss = float(metrics["loss"])
+            profiled = loop.step == profile_step
+            if profiled:
+                torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.steps.append((loop.step, (now - self._t) * 1e3, loss, profiled))
+            if profiled:
+                self.prof.__exit__(None, None, None)
+                now = time.perf_counter()
+            self._t = now
+
+    return StepRecorder()
+
+
+def _host_rows(prof, top: int = 6) -> str:
+    """The profile's CPU ops with the most self time on the host."""
+    from torch.autograd import DeviceType
+
+    rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:top]
+    return ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.2f} ms ({e.count})" for e in rows)
+
+
+def _device_rows(prof) -> tuple[float, int, int]:
+    """(busy ms, kernel launches, memcpy/memset operations) of a profile's
+    device rows, the profiler's own markers left out."""
+    from torch.autograd import DeviceType
+
+    busy_us, kernels, copies = 0.0, 0, 0
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0 or e.device_type != DeviceType.CUDA \
+                or e.key in CUPTI_MARKERS:
+            continue
+        busy_us += e.self_device_time_total
+        if e.key.lower().startswith(("memcpy", "memset")):
+            copies += e.count
+        else:
+            kernels += e.count
+    return busy_us / 1e3, kernels, copies
+
+
+def _first_step_loss(cli, argv: list, device: str) -> float:
+    """Step 1's loss of ``cli`` at ``argv`` on ``device`` (one step; its
+    FINAL line and logs are swallowed)."""
+    import contextlib
+    import io
+
+    rec = step_recorder()
+    args = cli.build_parser().parse_args([*argv, f"--device={device}", "--train_steps=1"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.run_training(args, extra_hooks=[rec])
+    return rec.steps[0][2]
+
+
+def workloads_end_to_end(card: str) -> dict:
+    """Train the four reference workloads on the card through their CLIs
+    (the module docstring's phase 7); returns each one's measurements."""
+    import contextlib
+    import io
+    import re
+
+    from distributed_tensorflow_examples_tpu_torch import ops
+    from distributed_tensorflow_examples_tpu_torch.examples import (
+        cifar10_cnn, mnist_mlp, ptb_lstm, word2vec as w2v_cli,
+    )
+    from distributed_tensorflow_examples_tpu_torch.models import word2vec
+    from distributed_tensorflow_examples_tpu_torch.utils import threefry
+
+    clis = {"mnist_mlp": mnist_mlp, "cifar10_cnn": cifar10_cnn, "word2vec": w2v_cli,
+            "ptb_lstm": ptb_lstm}
+    metric = {"mnist_mlp": "test_accuracy", "cifar10_cnn": "test_accuracy",
+              "word2vec": "eval_loss", "ptb_lstm": "valid_perplexity"}
+    results = {}
+    for name in WORKLOADS:
+        cli = clis[name]
+        argv = [f"--seed={SEED}"]
+        args = cli.build_parser().parse_args(
+            [*argv, "--device=cuda", f"--train_steps={WORKLOAD_STEPS}", "--log_every_steps=100"])
+        rec = step_recorder(profile_step=WORKLOAD_STEPS // 2)
+        ops.reset_launches()  # every count to 0 just before the main path
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            exp = cli.run_training(args, extra_hooks=[rec])
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)  # read just after the main path
+        final = [l for l in out.getvalue().splitlines() if l.startswith("FINAL ")]
+        pattern = (rf"^FINAL step={WORKLOAD_STEPS} steps_per_sec=\S+ "
+                   rf"examples_per_sec_per_chip=\S+ {metric[name]}=([0-9.]+)$")
+        match = re.match(pattern, final[0]) if final else None
+        if not match:
+            raise SystemExit(f"{name}: no FINAL line of the CLI's form: {final}")
+        losses = [loss for _s, _ms, loss, _p in rec.steps]
+        if len(losses) != WORKLOAD_STEPS or not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"{name}: a logged loss is not finite (or steps are missing)")
+        if sum(launches.values()):
+            raise SystemExit(f"{name}: the path launched a hand kernel: {launches}")
+        cpu_first = _first_step_loss(cli, argv, "cpu")
+        gap = abs(losses[0] - cpu_first)
+        if name in TOL_WORKLOAD_START_REL:
+            tol, ok = TOL_WORKLOAD_START_REL[name], gap <= TOL_WORKLOAD_START_REL[name] * abs(cpu_first)
+        else:
+            tol, ok = TOL_WORKLOAD_START[name], gap <= TOL_WORKLOAD_START[name]
+        if not ok:
+            raise SystemExit(f"{name}: step 1's loss on the card {losses[0]:.6f} is not within "
+                             f"{tol:g} of the CPU's {cpu_first:.6f}")
+        if name == "word2vec":
+            key = threefry.fold_in(threefry.key(SEED), 0)
+            on_card = word2vec.log_uniform_sample(key, args.num_sampled, args.vocab_size, "cuda")
+            on_cpu = word2vec.log_uniform_sample(key, args.num_sampled, args.vocab_size, "cpu")
+            if not torch.equal(on_card.cpu(), on_cpu):
+                raise SystemExit("word2vec: step 1's sampled ids on the card differ from the CPU's")
+        step_ms = float(np.median([ms for _s, ms, _l, p in rec.steps[1:] if not p]))
+        profiled_ms = next(ms for _s, ms, _l, p in rec.steps if p)
+        busy_ms, kernels, copies = _device_rows(rec.prof)
+        per_step = args.batch_size * (args.seq_len if name == "ptb_lstm" else 1)
+        results[name] = {
+            "step_ms": step_ms, "examples_per_s": args.batch_size / (step_ms / 1e3),
+            "kernel_launches": kernels, "copies": copies, "busy_ms": busy_ms,
+            "profiled_ms": profiled_ms,
+            "idle_share": max(0.0, 1 - busy_ms / step_ms),
+            "loss_first": losses[0], "loss_last": losses[-1], "cpu_first": cpu_first,
+            "final": float(match.group(1)),
+        }
+        r = results[name]
+        log(f"  {name}: {final[0]}")
+        log(f"    {WORKLOAD_STEPS} steps + eval in {wall:.1f} s; loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, all finite; step 1 on the card {losses[0]:.6f} vs the CPU's "
+            f"{cpu_first:.6f} (|d| {gap:.2e}, tol {tol:g}"
+            + (" relative" if name in TOL_WORKLOAD_START_REL else "") + ")"
+            + ("; step 1's sampled ids equal the CPU's" if name == "word2vec" else "")
+            + "; no hand kernel launched")
+        log(f"    e2e: step {step_ms:.3f} ms (median of steps 2-{WORKLOAD_STEPS}, host clock to "
+            f"the loss read), {r['examples_per_s']:.0f} examples/s"
+            + (f" ({per_step / (step_ms / 1e3):.0f} tokens/s)" if name == "ptb_lstm" else "")
+            + f"; profiled step {WORKLOAD_STEPS // 2}: {kernels} kernel launches + {copies} "
+            f"copies/sets, device busy {busy_ms:.3f} ms, idle share {r['idle_share']:.1%} of "
+            f"the median step ({max(0.0, 1 - busy_ms / profiled_ms):.1%} of the profiled "
+            f"step's {profiled_ms:.3f} ms) [{card}]")
+        log(f"    host, profiled step, most self time: {_host_rows(rec.prof)}")
+        del exp
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
@@ -1914,6 +2111,12 @@ def main() -> int:
 
     log(f"phase 6: train the flagship at T {LONG_T} end to end through the fused backward")
     long_launches, long_tc = train_long_end_to_end(card, fused["ms"], long_fwd["ms"])
+
+    log("phase 7: train the four reference workloads (MNIST MLP, CIFAR-10 CNN, word2vec, "
+        "PTB LSTM) through their CLIs")
+    workloads = workloads_end_to_end(card)
+    log("  workloads: " + json.dumps({k: {m: round(v, 6) for m, v in r.items()}
+                                      for k, r in workloads.items()}))
 
     csrc = "distributed_tensorflow_examples_tpu_torch/ops/csrc"
     tpu = "distributed_tensorflow_examples_tpu/ops/flash_attention.py"

@@ -1,18 +1,29 @@
-"""Datasets: a copy of the image (ImageNet-shaped synthetic) and
-text-corpus parts of ``distributed_tensorflow_examples_tpu/data/datasets.py``.
+"""Datasets: a copy of ``distributed_tensorflow_examples_tpu/data/datasets.py``.
 
 Pure numpy, bit for bit the JAX package's (the same arrays, ids and
 batches from the same seed, the draws in the same order), so both packages
-train on identical streams.  The synthetic images are class-conditional
-Gaussian blobs; with no corpus file under ``data_dir`` the token stream is
-the deterministic synthetic one: Zipf-distributed tokens with bigram
-structure, so next-token loss has a learnable signal.
+train on identical streams.  Each loader reads the standard file under
+``data_dir`` when it is there, else makes a deterministic synthetic set
+of the same shapes (the returned ``source`` says which):
+
+- MNIST: ``mnist.npz`` (keras layout: x_train/y_train/x_test/y_test);
+- CIFAR-10: ``cifar10.npz`` (the same layout) or the python pickle
+  batches under ``cifar-10-batches-py/``;
+- PTB: ``ptb.train.txt`` / ``ptb.valid.txt`` (word level, ``<eos>`` per
+  line);
+- word2vec corpus: ``text8`` or ``corpus.txt`` (whitespace tokens);
+- ImageNet: synthetic only, at ResNet-50's shapes.
+
+The synthetic images are class-conditional Gaussian blobs; the synthetic
+token stream is Zipf-distributed with bigram structure, so skip-gram
+co-occurrence and next-token loss both have a learnable signal.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import pickle
 from typing import Iterator
 
 import numpy as np
@@ -38,6 +49,77 @@ def _synth_image_splits(rng: np.random.Generator, n_train, n_test, h, w, c, num_
         return x, y
 
     return draw(n_train), draw(n_test)
+
+
+def mnist(data_dir: str | None = None, *, seed: int = 0) -> ArrayDataset:
+    """MNIST: images [n, 28, 28, 1] float32 in [0, 1], labels int32;
+    synthetic 8192/1024 splits without ``mnist.npz``."""
+    path = os.path.join(data_dir or "", "mnist.npz")
+    if data_dir and os.path.exists(path):
+        with np.load(path) as d:
+            xt = (d["x_train"].astype(np.float32) / 255.0).reshape(-1, 28, 28, 1)
+            xe = (d["x_test"].astype(np.float32) / 255.0).reshape(-1, 28, 28, 1)
+            return ArrayDataset(
+                {"image": xt, "label": d["y_train"].astype(np.int32)},
+                {"image": xe, "label": d["y_test"].astype(np.int32)},
+                f"file:{path}",
+                num_classes=10,
+            )
+    rng = np.random.default_rng(seed)
+    (xt, yt), (xe, ye) = _synth_image_splits(rng, 8192, 1024, 28, 28, 1, 10)
+    return ArrayDataset(
+        {"image": xt, "label": yt}, {"image": xe, "label": ye}, "synthetic", 10
+    )
+
+
+def cifar10(data_dir: str | None = None, *, seed: int = 0) -> ArrayDataset:
+    """CIFAR-10: images [n, 32, 32, 3] float32 NHWC in [0, 1], labels
+    int32; synthetic 8192/1024 splits without a file."""
+    if data_dir:
+        npz = os.path.join(data_dir, "cifar10.npz")
+        if os.path.exists(npz):
+            with np.load(npz) as d:
+                return ArrayDataset(
+                    {
+                        "image": d["x_train"].astype(np.float32) / 255.0,
+                        "label": d["y_train"].reshape(-1).astype(np.int32),
+                    },
+                    {
+                        "image": d["x_test"].astype(np.float32) / 255.0,
+                        "label": d["y_test"].reshape(-1).astype(np.int32),
+                    },
+                    f"file:{npz}",
+                    10,
+                )
+        batches = os.path.join(data_dir, "cifar-10-batches-py")
+        if os.path.isdir(batches):
+            xs, ys = [], []
+            for i in range(1, 6):
+                with open(os.path.join(batches, f"data_batch_{i}"), "rb") as f:
+                    d = pickle.load(f, encoding="bytes")
+                xs.append(d[b"data"])
+                ys.append(d[b"labels"])
+            x = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+            with open(os.path.join(batches, "test_batch"), "rb") as f:
+                d = pickle.load(f, encoding="bytes")
+            xe = d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+            return ArrayDataset(
+                {
+                    "image": x.astype(np.float32) / 255.0,
+                    "label": np.concatenate(ys).astype(np.int32),
+                },
+                {
+                    "image": xe.astype(np.float32) / 255.0,
+                    "label": np.asarray(d[b"labels"], np.int32),
+                },
+                f"file:{batches}",
+                10,
+            )
+    rng = np.random.default_rng(seed)
+    (xt, yt), (xe, ye) = _synth_image_splits(rng, 8192, 1024, 32, 32, 3, 10)
+    return ArrayDataset(
+        {"image": xt, "label": yt}, {"image": xe, "label": ye}, "synthetic", 10
+    )
 
 
 def imagenet_synthetic(
@@ -107,6 +189,28 @@ def text_corpus(
     return ids, vocab, "synthetic"
 
 
+def ptb(data_dir: str | None = None, *, vocab_size: int = 10000, seed: int = 0):
+    """PTB word-level LM streams (W5): ``(train_ids, valid_ids, vocab,
+    source)``; the vocabulary comes from the train file, and without it the
+    streams are synthetic (120,000 train and 12,000 valid tokens)."""
+    if data_dir:
+        tr = os.path.join(data_dir, "ptb.train.txt")
+        va = os.path.join(data_dir, "ptb.valid.txt")
+        if os.path.exists(tr):
+            with open(tr) as f:
+                train_words = f.read().replace("\n", " <eos> ").split()
+            valid_words = []
+            if os.path.exists(va):
+                with open(va) as f:
+                    valid_words = f.read().replace("\n", " <eos> ").split()
+            ids, vocab = _tokenize_corpus(train_words, vocab_size)
+            vids = np.asarray([vocab.get(w, 0) for w in valid_words], np.int32)
+            return ids, vids, vocab, f"file:{tr}"
+    ids = _synthetic_token_stream(120_000, vocab_size, seed)
+    vids = _synthetic_token_stream(12_000, vocab_size, seed + 1)
+    return ids, vids, {f"tok{i}": i for i in range(vocab_size)}, "synthetic"
+
+
 def lm_batches(
     ids: np.ndarray, *, batch_size: int, seq_len: int
 ) -> Iterator[dict[str, np.ndarray]]:
@@ -129,3 +233,26 @@ def lm_batches(
         y = data[:, pos + 1 : pos + seq_len + 1]
         pos += seq_len
         yield {"x": x.astype(np.int32), "y": y.astype(np.int32)}
+
+
+def skipgram_batches(
+    ids: np.ndarray,
+    *,
+    batch_size: int,
+    window: int = 5,
+    seed: int = 0,
+) -> Iterator[dict[str, np.ndarray]]:
+    """Skip-gram (center, context) pairs for word2vec (W4), forever:
+    ``{"center": [B], "context": [B]}`` int32, each context within
+    ``window`` tokens of its center on either side."""
+    rng = np.random.default_rng(seed)
+    n = len(ids)
+    while True:
+        centers = rng.integers(window, n - window, size=batch_size)
+        offsets = rng.integers(1, window + 1, size=batch_size)
+        signs = rng.choice([-1, 1], size=batch_size)
+        contexts = centers + offsets * signs
+        yield {
+            "center": ids[centers].astype(np.int32),
+            "context": ids[contexts].astype(np.int32),
+        }

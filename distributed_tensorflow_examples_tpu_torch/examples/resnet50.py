@@ -23,7 +23,6 @@ one device wait for the port's items A8, A10 and A5.
 from __future__ import annotations
 
 import argparse
-import logging
 import sys
 
 from ..data import datasets, streams
@@ -35,20 +34,8 @@ from ..utils import flags
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add = p.add_argument
-    add("--job_name", default="", help="'' or 'worker' trains; 'ps' exits 0 (no PS needed).")
-    # Training (the JAX package's define_training_flags names and defaults).
-    add("--batch_size", type=int, default=256, help="GLOBAL batch size.")
-    add("--train_steps", type=int, default=1000, help="Stop after this many steps.")
-    add("--data_dir", default=None, help="Dataset directory (synthetic if absent).")
-    add("--log_dir", default=None, help="Checkpoints + metrics directory.")
-    add("--learning_rate", type=float, default=0.01, help="Base learning rate.")
-    add("--seed", type=int, default=0, help="Global RNG seed.")
-    add("--log_every_steps", type=int, default=100, help="Metric logging cadence.")
-    add("--checkpoint_every_steps", type=int, default=1000, help="Save cadence.")
-    add("--unroll", type=int, default=1, help="Steps per step call.")
-    add("--grad_accum", type=int, default=1,
-        help="Gradient-accumulation microbatches per step.")
-    add("--mesh", default="", help='Mesh spec; only "" or "data=1" (one device).')
+    flags.add_job_name_flag(p)
+    flags.add_training_flags(p, default_batch_size=256, default_steps=1000)
     # The example's own.
     add("--image_size", type=int, default=224, help="Input image resolution.")
     add("--num_classes", type=int, default=1000, help="Label classes.")
@@ -56,7 +43,6 @@ def build_parser() -> argparse.ArgumentParser:
     add("--synthetic_examples", type=int, default=2048, help="Synthetic train-set size.")
     add("--bn_ghost_slices", type=int, default=0,
         help=">0 scopes BN statistics to slice-local groups (waits for A8).")
-    add("--device", default=None, help="torch device; default cuda (no silent CPU).")
     flags.add_legacy_cluster_flags(p)
     return p
 
@@ -119,16 +105,7 @@ def run_training(args, *, loss_fn_factory=None, extra_hooks=()) -> Experiment:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
-    if flags.resolve_legacy_cluster(args)["is_legacy_ps_process"]:
-        print("job_name=ps: parameter servers are not needed by the port's sync "
-              "training; exiting 0.")
-        return 0
-    if args.job_name not in ("", "worker"):
-        raise SystemExit(f"--job_name={args.job_name}: '' or 'worker' trains; 'ps' exits 0")
-    run_training(args)
-    return 0
+    return flags.train_main(build_parser(), run_training, argv)
 
 
 if __name__ == "__main__":

@@ -59,19 +59,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("--job_name", default="",
         help="'' or 'worker' trains (the default); 'serve' hosts a replica; "
              "'ps' exits 0 (no PS needed).")
-    # Training (the JAX package's define_training_flags names and defaults).
-    add("--batch_size", type=int, default=8, help="GLOBAL batch size.")
-    add("--train_steps", type=int, default=500, help="Stop after this many steps.")
-    add("--data_dir", default=None, help="Corpus directory (synthetic if absent).")
-    add("--log_dir", default=None, help="Checkpoints + metrics directory.")
-    add("--learning_rate", type=float, default=0.01, help="Base learning rate.")
-    add("--seed", type=int, default=0, help="Global RNG seed.")
-    add("--log_every_steps", type=int, default=100, help="Metric logging cadence.")
-    add("--checkpoint_every_steps", type=int, default=1000, help="Save cadence.")
-    add("--unroll", type=int, default=1, help="Steps per step call.")
-    add("--grad_accum", type=int, default=1,
-        help="Gradient-accumulation microbatches per step.")
-    add("--mesh", default="", help='Mesh spec; only "" or "data=1" (one device).')
+    flags.add_training_flags(p, default_batch_size=8, default_steps=500)
     add("--clip_norm", type=float, default=1.0, help="Global-norm gradient clip.")
     add("--remat", type=flags.parse_bool, nargs="?", const=True, default=False,
         help="Rematerialise blocks in backward.")
@@ -99,7 +87,6 @@ def build_parser() -> argparse.ArgumentParser:
         help="Comma-separated host:port list; this task binds the port of "
              "entry --task_index.")
     add("--max_batch", type=int, default=32, help="Rows of one padded apply.")
-    add("--device", default=None, help="torch device; default cuda (no silent CPU).")
     flags.add_legacy_cluster_flags(p)
     return p
 
@@ -210,9 +197,7 @@ def run_training(args, *, extra_hooks=()) -> Experiment:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
-    if flags.resolve_legacy_cluster(args)["is_legacy_ps_process"]:
-        print("job_name=ps: parameter servers are not needed by the port's sync "
-              "training; exiting 0.")
+    if flags.exits_as_ps_task(args):
         return 0
     if args.job_name == "serve":
         _serve(args)

@@ -1,3 +1,3 @@
 """Models of the port (plain functions over dicts of tensors)."""
 
-from . import layers, resnet, transformer  # noqa: F401
+from . import cnn, layers, lstm, mlp, resnet, transformer, word2vec  # noqa: F401

@@ -1,9 +1,8 @@
 """Functional layers over plain dicts of tensors.
 
-The port of the pieces of ``distributed_tensorflow_examples_tpu/
-models/layers.py`` the transformer and ResNet need: initialisers (the
-JAX draws, from the same keys), dense, conv2d, batchnorm, embedding, the
-training loss and accuracy.  Parameters keep the JAX layouts — dense
+The port of ``distributed_tensorflow_examples_tpu/models/layers.py``:
+initialisers (the JAX draws, from the same keys), dense, conv2d,
+batchnorm, embedding, the LSTM cell, the training loss and accuracy.  Parameters keep the JAX layouts — dense
 kernels [in, out], conv kernels HWIO, activations NHWC — so a tree or a
 flat registry vector crosses between the two packages without a
 transpose.
@@ -25,6 +24,17 @@ from ..utils import threefry
 # computed in float32, as ``jnp.sqrt`` of a Python float is; each draw is a
 # float32 tensor on ``device``.
 # ----------------------------------------------------------------------------
+
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float64": torch.float64}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``compute_dtype`` string."""
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(f"compute_dtype {name!r} not in {sorted(_DTYPES)}") from None
 
 
 def _sqrt32(x: float) -> torch.Tensor:
@@ -84,6 +94,16 @@ def conv_init(key, kh: int, kw: int, cin: int, cout: int, *, use_bias: bool = Tr
 
 def embedding_init(key, vocab: int, dim: int, *, device="cpu"):
     return {"table": uniform_embedding(key, (vocab, dim), device=device)}
+
+
+def lstm_cell_init(key, in_dim: int, hidden: int, *, device="cpu"):
+    """Kernel [in + hidden, 4 * hidden] glorot-uniform from the first of
+    ``split(key)``; zero bias."""
+    kr, _ = threefry.split(key)
+    return {
+        "kernel": glorot_uniform(kr, (in_dim + hidden, 4 * hidden), device=device),
+        "bias": np.zeros((4 * hidden,), np.float32),
+    }
 
 
 def as_numpy(tree):
@@ -225,6 +245,30 @@ def batchnorm(
     if relu:
         y = torch.relu(y)
     return y, new_stats
+
+
+# ----------------------------------------------------------------------------
+# LSTM cell (the legacy BasicLSTMCell)
+# ----------------------------------------------------------------------------
+
+
+def lstm_cell(params, carry, x, *, forget_bias=1.0, dtype=None):
+    """One LSTM step: ``carry = (c, h)`` -> ``((new_c, new_h), new_h)``,
+    gate order i, g, f, o.  With ``dtype`` the product of ``[x, h]`` and
+    the kernel, and the bias add, run in it and ``z`` returns to float32
+    before the gates; without, the product runs in float32.  The carry
+    stays float32."""
+    c, h = carry
+    k = params["kernel"]
+    if dtype is not None:
+        z = torch.matmul(torch.cat([x.to(dtype), h.to(dtype)], dim=-1), k.to(dtype))
+        z = (z + params["bias"].to(dtype)).to(torch.float32)
+    else:
+        z = torch.matmul(torch.cat([x, h], dim=-1).to(torch.float32), k) + params["bias"]
+    i, g, f, o = z.chunk(4, dim=-1)
+    new_c = torch.sigmoid(f + forget_bias) * c + torch.sigmoid(i) * torch.tanh(g)
+    new_h = torch.sigmoid(o) * torch.tanh(new_c)
+    return (new_c, new_h), new_h
 
 
 # ----------------------------------------------------------------------------

@@ -28,9 +28,6 @@ from ..utils import device as device_lib
 from ..utils import threefry
 from . import layers
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float64": torch.float64}
-
-
 @dataclasses.dataclass(frozen=True)
 class Config:
     """The JAX ``Config``: the same fields and defaults."""
@@ -47,12 +44,7 @@ class Config:
 
     @property
     def dtype(self) -> torch.dtype:
-        try:
-            return _DTYPES[self.compute_dtype]
-        except KeyError:
-            raise ValueError(
-                f"compute_dtype {self.compute_dtype!r} not in {sorted(_DTYPES)}"
-            ) from None
+        return layers.compute_dtype(self.compute_dtype)
 
 
 def _bottleneck_init(key, cin: int, mid: int, *, downsample: bool, ghost: int = 0,

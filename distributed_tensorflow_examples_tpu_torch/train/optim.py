@@ -22,8 +22,11 @@ parameter tensors, which the train step updates in place.
 Nesterov) scaled by the learning rate, which is ``torch.optim.SGD`` with
 the rate of update k set from the schedule before the update.  k is the
 train step's count of updates so far, not a counter of the optimizer's own,
-so a resumed run reads the right rate.  :func:`piecewise_constant_schedule`
-is optax's, in float32 as optax computes it.
+so a resumed run reads the right rate.  With ``clip_norm`` it is
+``optax.chain(clip_by_global_norm(clip_norm), sgd(...))`` (the PTB
+LSTM's optimizer), the clip the one :class:`ClippedAdamW` takes.
+:func:`piecewise_constant_schedule` is optax's, in float32 as optax
+computes it.
 
 Both run fused (one kernel for every leaf) and share ``init(params) ->
 opt_state`` and ``update(opt_state, params, step)``.
@@ -102,11 +105,13 @@ def piecewise_constant_schedule(init_value: float, boundaries_and_scales=None):
 
 class SGD:
     """``optax.sgd(learning_rate, momentum)``: ``learning_rate`` a float or
-    a ``schedule(count)``."""
+    a ``schedule(count)``; ``clip_norm`` chains a global-norm clip before
+    it."""
 
-    def __init__(self, learning_rate, momentum: float = 0.0):
+    def __init__(self, learning_rate, momentum: float = 0.0, clip_norm: float | None = None):
         self.schedule = learning_rate if callable(learning_rate) else (lambda _count: learning_rate)
         self.momentum = momentum
+        self.clip_norm = clip_norm
 
     def init(self, params) -> torch.optim.SGD:
         return torch.optim.SGD(
@@ -117,7 +122,9 @@ class SGD:
     @torch.no_grad()
     def update(self, opt_state: torch.optim.SGD, params, step: int) -> None:
         """Update number ``step`` (0 for the first) at ``schedule(step)``."""
-        _grads_or_zeros(params)
+        ps = _grads_or_zeros(params)
+        if self.clip_norm is not None:
+            clip_by_global_norm_([p.grad for p in ps], self.clip_norm)
         lr = self.schedule(int(step))
         for group in opt_state.param_groups:
             group["lr"] = lr

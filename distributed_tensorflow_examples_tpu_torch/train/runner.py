@@ -7,7 +7,8 @@ plus the host-to-device infeed, the full-split ``evaluate`` and the
 ``FINAL`` line the scrapers read.  A mesh beyond one device (``--mesh``
 other than empty or ``data=1``) waits for the port's multi-device items
 (A5 data parallel, A8 model parallel): ``parallel.mesh.build_mesh``
-raises.
+raises; so do ``--zero_opt`` (A8) and ``--profile`` (A12), through
+``utils.flags.check_training_flags``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import Any, Callable, Iterable
 from ..data import pipeline as pipeline_lib
 from ..parallel.mesh import MeshSpec, build_mesh
 from ..utils import device as device_lib
+from ..utils import flags as flags_lib
+from ..utils import threefry
 from ..utils.metrics import MetricsWriter
 from . import hooks as hooks_lib
 from .checkpoint import CheckpointManager
@@ -53,6 +56,7 @@ class Experiment:
         loss_fn_factory: Callable | None = None,
     ):
         self.flags = flags
+        flags_lib.check_training_flags(flags)
         self.device = device_lib.resolve(device or getattr(flags, "device", None))
         self.mesh = (
             mesh if mesh is not None
@@ -119,12 +123,13 @@ class Experiment:
         """Full-split eval of numpy ``arrays``: metrics averaged over the
         complete batches of ``batch_size`` (default ``--batch_size``; the
         ragged tail is left out).  ``eval_fn(params, model_state, batch) ->
-        metrics``; by default the loss's own metrics."""
+        metrics``; by default the loss's own metrics, under the JAX
+        ``evaluate``'s key, ``key(0)``."""
         if eval_fn is None:
             loss_fn = self._loss_fn
 
             def eval_fn(params, mstate, batch):
-                return loss_fn(params, mstate, batch, None)[1][1]
+                return loss_fn(params, mstate, batch, threefry.key(0))[1][1]
 
         step = build_eval_step(eval_fn)
         n = len(next(iter(arrays.values())))

@@ -28,7 +28,7 @@ class TrainState:
     params: Any  # nested dict of f32 leaf tensors (requires_grad)
     opt_state: Any  # the optimizer's ``init(params)``; holds ``params``
     model_state: Any  # mutable non-trainable state (e.g. batchnorm stats)
-    seed: int  # per-step randomness source, folded with the step
+    seed: int  # the run's key is threefry.key(seed); each step folds in its number
 
 
 def leaves(tree) -> list:

@@ -15,10 +15,14 @@ returns the next one.
   last step's metrics are reported.
 
 ``loss_fn(params, model_state, batch, rng) -> (loss, (model_state,
-metrics))`` as in the JAX package; ``rng`` is ``(seed, step)`` (and
-``(seed, step, microbatch)`` under accumulation), the per-step
-randomness source a loss that draws noise folds into a
-``torch.Generator``.
+metrics))`` as in the JAX package, and ``rng`` the JAX step's key
+(``utils/threefry.py``, two uint32 words): ``fold_in(key(seed), step)``
+for the step, as the JAX step's ``fold_in(state.rng, state.step)``;
+under accumulation the JAX chain, ``rng, sub = split(rng)`` per
+microbatch with ``sub`` handed to the loss; under unroll each sub-step
+folds in its own step number.  A loss that draws noise (word2vec's
+negatives, the LSTM's dropout) draws it from this key with
+``threefry``, so it gets the JAX package's numbers.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Callable
 
 import torch
 
+from ..utils import threefry
 from .state import TrainState, leaves
 
 
@@ -47,10 +52,9 @@ def build_train_step(
     def one_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         params = state.params
         _zero_grads(params)
+        rng = threefry.fold_in(threefry.key(state.seed), state.step)
         if grad_accum == 1:
-            loss, (model_state, metrics) = loss_fn(
-                params, state.model_state, batch, (state.seed, state.step)
-            )
+            loss, (model_state, metrics) = loss_fn(params, state.model_state, batch, rng)
             loss.backward()
         else:
             for key, x in batch.items():
@@ -63,9 +67,8 @@ def build_train_step(
             model_state, per_micro = state.model_state, []
             for i in range(grad_accum):
                 mb = {k: parts[i] for k, parts in micro.items()}
-                loss, (model_state, m) = loss_fn(
-                    params, model_state, mb, (state.seed, state.step, i)
-                )
+                rng, sub = threefry.split(rng)
+                loss, (model_state, m) = loss_fn(params, model_state, mb, sub)
                 loss.backward()
                 per_micro.append(m)
             for p in leaves(params):

@@ -14,22 +14,26 @@ sampled tokens as the JAX package:
 - :func:`uniform` keeps 23 of those bits as the mantissa of a float in
   [1, 2), subtracts 1 and scales, as ``jax.random.uniform`` does in
   float32; :func:`normal` is ``sqrt(2) * erfinv(uniform(nextafter(-1, 0),
-  1))`` with XLA's float32 ``erf_inv`` (Giles' polynomial); :func:`gumbel`
-  and :func:`categorical` are ``jax.random``'s (Gumbel-max over
-  ``uniform(tiny, 1)``).
+  1))`` with XLA's float32 ``erf_inv`` (Giles' polynomial);
+  :func:`truncated_normal` is the same ``erf_inv`` over ``uniform``
+  between the bounds' ``erf``; :func:`bernoulli` is ``uniform < p``;
+  :func:`gumbel` and :func:`categorical` are ``jax.random``'s
+  (Gumbel-max over ``uniform(tiny, 1)``);
+- :func:`fold_in` is the word pair ``threefry2x32(key, (0, data))``.
 
-Bits and uniform draws are bitwise JAX's (on its CPU backend, which
-rounds ``uniform``'s multiply-add once, as a fused multiply-add; so does
-:func:`uniform`).  ``normal`` evaluates the same polynomial, its
-multiply-adds rounded once as well, with torch's ``log1p`` and ``sqrt``,
-so a draw may differ from JAX's by a few float32 ulps
-(``tests/test_torch_threefry.py`` states the bound); ``gumbel`` likewise
-through ``torch.log``.
+Keys, bits, uniform and Bernoulli draws are bitwise JAX's (on its CPU
+backend, which rounds ``uniform``'s multiply-add once, as a fused
+multiply-add; so does :func:`uniform`).  ``normal`` evaluates the same
+polynomial, its multiply-adds rounded once as well, with torch's
+``log1p`` and ``sqrt``, so a draw may differ from JAX's by a few float32
+ulps (``tests/test_torch_threefry.py`` states the bound), and so may
+``truncated_normal``; ``gumbel`` likewise through ``torch.log``.
 
 The arithmetic runs on torch tensors on the device the caller names, in
 int64 with every 32-bit word kept in [0, 2^32): the additions carry into
 the high bits, and the mask after each round's xor drops them.  A large
-draw runs in chunks, so its temporaries stay bounded.
+draw runs in chunks, so its temporaries stay bounded.  Keys
+(:func:`split`, :func:`fold_in`) are derived in Python integers.
 """
 
 from __future__ import annotations
@@ -88,12 +92,32 @@ def threefry2x32(k, x0: torch.Tensor, x1: torch.Tensor) -> tuple[torch.Tensor, t
     return x0, x1
 
 
+def _hash_pair(k, x0: int, x1: int) -> tuple[int, int]:
+    """:func:`threefry2x32` of one counter pair, in Python integers (a
+    key derivation costs microseconds this way, not hundreds of tensor
+    operations)."""
+    k0, k1 = _as_key(k)
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
 def split(k, num: int = 2) -> list[tuple[int, int]]:
     """``jax.random.split(k, num)`` (partitionable): key ``i`` is the word
     pair ``threefry2x32(k, (0, i))``."""
-    lo = torch.arange(num, dtype=torch.int64)
-    a, b = threefry2x32(k, torch.zeros_like(lo), lo)
-    return list(zip((int(v) for v in a), (int(v) for v in b)))
+    return [_hash_pair(k, 0, i) for i in range(num)]
+
+
+def fold_in(k, data: int) -> tuple[int, int]:
+    """``jax.random.fold_in(k, data)``: the word pair ``threefry2x32(k,
+    (0, data))``, ``data`` taken as a uint32 as JAX does."""
+    return _hash_pair(k, 0, int(data) & _M32)
 
 
 def _draw(k, shape, device, finish) -> torch.Tensor:
@@ -124,19 +148,20 @@ def _f32(x, device) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=device)
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` of float32 tensors rounded once, as XLA contracts it
-    into a fused multiply-add: the float32 product is exact in float64,
-    and the float64 sum is exact too wherever the three share a scale, as
-    in the draws here."""
-    return (a.double() * b.double() + c.double()).float()
+def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` of float32 values (``b`` and ``c`` tensors or Python
+    floats holding float32 values) rounded once, as XLA contracts it into
+    a fused multiply-add: the float32 product is exact in float64, and the
+    float64 sum is exact too wherever the three share a scale, as in the
+    draws here."""
+    return (a.double() * b + c).float()
 
 
 def _uniform_of(bits: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """The float32 uniform draws in [lo, hi) (0-d float32 tensors on the
     draw's device) of int64 32-bit words ``bits``."""
     one_two = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return torch.maximum(lo, _fma(one_two - 1.0, hi - lo, lo))
+    return torch.maximum(lo, fma32(one_two - 1.0, hi - lo, lo))
 
 
 def _uniform_draw(k, shape, minval, maxval, device, then=lambda u: u) -> torch.Tensor:
@@ -175,7 +200,7 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     coef = [torch.where(lt, a, b) for a, b in zip(_ERFINV_W_LT_5, _ERFINV_W_GE_5)]
     p = coef[0]
     for c in coef[1:]:
-        p = _fma(p, w, c)
+        p = fma32(p, w, c)
     return torch.where(x.abs() == 1, x * torch.finfo(torch.float32).max, p * x)
 
 
@@ -185,6 +210,29 @@ def normal(k, shape, device="cpu") -> torch.Tensor:
     lo = np.nextafter(np.float32(-1), np.float32(0))
     sqrt2 = _f32(np.sqrt(2), device)
     return _uniform_draw(k, shape, lo, 1.0, device, lambda u: erfinv(u) * sqrt2)
+
+
+def truncated_normal(k, lower, upper, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.truncated_normal(k, lower, upper, shape, float32)``:
+    ``sqrt(2) * erfinv(u)`` for ``u = uniform(k, shape, erf(lower /
+    sqrt(2)), erf(upper / sqrt(2)))``, clipped to the open interval
+    (``nextafter`` of each bound towards the other).  The two ``erf``
+    values are float32 scalars, as JAX computes them."""
+    sqrt2 = np.float32(np.sqrt(2))
+    lower, upper = np.float32(lower), np.float32(upper)
+    a, b = (torch.erf(torch.tensor(x / sqrt2, dtype=torch.float32)).item()
+            for x in (lower, upper))
+    lo = float(np.nextafter(lower, np.float32(np.inf)))
+    hi = float(np.nextafter(upper, np.float32(-np.inf)))
+    sqrt2_t = _f32(sqrt2, device)
+    return _uniform_draw(k, shape, a, b, device,
+                         lambda u: torch.clamp(erfinv(u) * sqrt2_t, lo, hi))
+
+
+def bernoulli(k, p: float, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.bernoulli(k, p, shape)``: ``uniform(k, shape) < p`` in
+    float32, as a bool tensor."""
+    return uniform(k, shape, device=device) < _f32(p, device)
 
 
 def gumbel(k, shape, device="cpu") -> torch.Tensor:

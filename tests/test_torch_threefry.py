@@ -2,9 +2,11 @@
 
 ``utils/threefry.py`` copies ``jax.random``'s default generator in its
 partitionable mode.  Held to JAX here: the key of a seed, the random bits,
-``split`` and ``uniform`` bit for bit; ``normal`` within ``NORMAL_ULPS``
-float32 ulps (XLA evaluates the same erf_inv polynomial and its log1p in
-its own order: seen 3); ``gumbel`` within ``GUMBEL_ATOL`` (torch's log
+``split``, ``fold_in``, ``uniform`` and ``bernoulli`` bit for bit;
+``normal`` and ``truncated_normal`` within ``NORMAL_ULPS`` float32 ulps
+(XLA evaluates the same erf_inv polynomial and its log1p in its own
+order: seen 3 for each; the truncated draw's bounds ``erf(+-2/sqrt(2))``
+are JAX's to the bit); ``gumbel`` within ``GUMBEL_ATOL`` (torch's log
 against XLA's: seen 4.8e-7 at |g| up to 15) and ``categorical`` equal.
 Then the port's transformer and ResNet ``init_numpy(cfg, seed)`` against
 the JAX ``init(cfg, jax.random.key(seed))`` leaf by leaf (uniform leaves
@@ -143,3 +145,29 @@ def test_experiments_start_from_the_same_weights_at_one_seed():
     _same_tree(got, jparams, normal_paths=lambda p: p == "pos/table")
     texp.writer.close()
     jexp.writer.close()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_and_bernoulli_are_jax_bit_for_bit(seed):
+    jkey, key = jax.random.key(seed), threefry.key(seed)
+    fold = jax.jit(jax.random.fold_in)  # as the train step folds its int32 step
+    for data in (0, 1, 7, 12345, 2**31 - 1):
+        want = tuple(int(w) for w in np.asarray(jax.random.key_data(fold(jkey, data))))
+        assert threefry.fold_in(key, data) == want
+    top = tuple(int(w) for w in np.asarray(jax.random.key_data(jax.random.fold_in(jkey, 2**32 - 1))))
+    assert threefry.fold_in(key, 2**32 - 1) == top
+    for p in (0.1, 0.5, 0.9):
+        np.testing.assert_array_equal(threefry.bernoulli(key, p, (40, 50)).numpy(),
+                                      np.asarray(jax.random.bernoulli(jkey, p, (40, 50))))
+
+
+@pytest.mark.parametrize("seed", [0, 2**31 + 7])
+@pytest.mark.parametrize("bounds", [(-2.0, 2.0), (-1.0, 3.0), (0.5, 1.5)])
+def test_truncated_normal_follows_jax(seed, bounds):
+    lo, hi = bounds
+    shape = (300, 117)
+    want = np.asarray(jax.jit(lambda k: jax.random.truncated_normal(k, lo, hi, shape))(
+        jax.random.key(seed)))
+    got = threefry.truncated_normal(threefry.key(seed), lo, hi, shape).numpy()
+    assert _ulps(got, want) <= NORMAL_ULPS
+    assert got.min() > lo and got.max() < hi

@@ -24,6 +24,7 @@ import dataclasses
 import functools
 import itertools
 import re
+import types
 
 import jax
 import numpy as np
@@ -31,6 +32,7 @@ import optax
 import pytest
 import torch
 
+from distributed_tensorflow_examples_tpu import train as jax_train
 from distributed_tensorflow_examples_tpu.data import datasets as jax_datasets
 from distributed_tensorflow_examples_tpu.models import transformer as jax_tf
 from distributed_tensorflow_examples_tpu.train import state as jax_state
@@ -47,6 +49,7 @@ from distributed_tensorflow_examples_tpu_torch.serve import ModelRegistry
 from distributed_tensorflow_examples_tpu_torch.train import (
     Experiment, checkpoint, hooks, loop, optim, preemption, state, step,
 )
+from distributed_tensorflow_examples_tpu_torch.utils import threefry
 
 # One intra-op thread: these tiny tests share the machine with the
 # timing-sensitive server and fault tests of the other xdist workers.
@@ -432,3 +435,69 @@ def test_pipeline_stacks_and_prefetches():
     got = list(pipeline.prefetch_to_device(itertools.islice(stacked, 2), "cpu"))
     assert len(got) == 2 and tuple(got[0]["x"].shape) == (2, 2, 8)
     assert got[0]["x"].dtype == torch.int32
+
+
+def _noisy_losses():
+    """A loss that draws ``uniform(rng, (4,))``, in each package: the
+    loss, and the draw's first value as a metric."""
+
+    def jloss(params, mstate, batch, rng):
+        u = jax.random.uniform(rng, (4,))
+        loss = jax.numpy.sum(params["w"] * u) * jax.numpy.mean(batch["x"])
+        return loss, (mstate, {"loss": loss, "u0": u[0]})
+
+    def tloss(params, mstate, batch, rng):
+        u = threefry.uniform(rng, (4,))
+        loss = (params["w"] * u).sum() * batch["x"].mean()
+        return loss, (mstate, {"loss": loss.detach(), "u0": u[0]})
+
+    return jloss, tloss
+
+
+@pytest.mark.parametrize("grad_accum,unroll", [(1, 1), (2, 1), (1, 2)])
+def test_the_step_hands_the_loss_the_jax_key(grad_accum, unroll):
+    """The C4 repair: a loss that draws noise from ``rng`` sees the JAX
+    step's key (``fold_in(key(seed), step)``; under accumulation the
+    ``split`` chain; under unroll each sub-step's own fold), so the
+    per-step losses, draws and parameters agree."""
+    jloss, tloss = _noisy_losses()
+    rng = np.random.default_rng(0)
+    w0 = rng.standard_normal(4).astype(np.float32)
+    batches = [{"x": rng.standard_normal((4, 3)).astype(np.float32)} for _ in range(4)]
+    if unroll > 1:
+        batches = [{"x": np.stack([batches[i]["x"], batches[i + 1]["x"]])} for i in (0, 2)]
+    jopt = optax.sgd(0.1)
+    js = jax_state.create_state(lambda r: {"w": jax.numpy.asarray(w0)}, jopt, jax.random.key(5))
+    jstep = jax_step.build_train_step(jloss, jopt, grad_accum=grad_accum, unroll=unroll)
+    ts = state.create_state(lambda seed: {"w": w0}, optim.SGD(0.1), 5, "cpu")
+    tstep = step.build_train_step(tloss, optim.SGD(0.1), grad_accum=grad_accum, unroll=unroll)
+    for b in batches:
+        js, jm = jstep(js, b)
+        ts, tm = tstep(ts, _torch_batch(b))
+        assert float(tm["u0"]) == float(jm["u0"])
+        assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-6, abs=1e-6)
+    np.testing.assert_allclose(ts.params["w"].detach().numpy(), np.asarray(js.params["w"]),
+                               rtol=0, atol=1e-6)
+
+
+def test_evaluate_hands_the_loss_the_jax_key():
+    """``Experiment.evaluate``'s default eval hands the loss ``key(0)``, as
+    the JAX ``Experiment.evaluate`` does."""
+    jloss, tloss = _noisy_losses()
+    w0 = np.arange(1, 5, dtype=np.float32)
+    x = np.random.default_rng(1).standard_normal((8, 3)).astype(np.float32)
+    flags = types.SimpleNamespace(
+        seed=3, mesh="", unroll=1, grad_accum=1, log_dir=None, train_steps=1,
+        log_every_steps=1, checkpoint_every_steps=100, batch_size=8, watchdog=False,
+        device="cpu",
+    )  # one batch of 8 rows: the JAX eval rounds its batch to the 8-device test mesh
+    jexp = jax_train.Experiment(init_fn=lambda r: {"w": jax.numpy.asarray(w0)}, loss_fn=jloss,
+                                optimizer=optax.sgd(0.1), flags=flags)
+    texp = Experiment(init_fn=lambda seed: {"w": w0}, loss_fn=tloss,
+                      optimizer=optim.SGD(0.1), flags=flags)
+    want, got = jexp.evaluate({"x": x}), texp.evaluate({"x": x})
+    assert got.keys() == want.keys() == {"loss", "u0"}
+    assert got["u0"] == want["u0"]
+    assert got["loss"] == pytest.approx(want["loss"], rel=1e-6)
+    jexp.writer.close()
+    texp.writer.close()
