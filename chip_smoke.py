@@ -127,6 +127,31 @@ it fails:
    Printed: the median step's ms and examples/s, and one step under
    ``torch.profiler``: kernel launches, device-busy ms and the idle share.
 
+8. Train W1 and W2 on the in-process PS emulation (``--worker_hosts=a:1,b:1``:
+   2 worker threads of local batch 64 sharing the card, the parameters on
+   the host, the port's native accumulator/token/gradient-queue service
+   between them) through the CLIs' ``run_training`` at their defaults,
+   ``PS_STEPS`` applied steps each: MNIST MLP ``--ps_emulation``
+   (sync_replicas, 2 gradients an apply), CIFAR-10 CNN
+   ``--sync_replicas=false --max_staleness=4`` (async, free running), and
+   the same with ``--deterministic`` twice (the fixed interleave, under
+   ``utils.determinism``).  Each must print the JAX PS FINAL line (its
+   ``mode``, ``step=200``, ``stale_dropped``), log only finite losses and
+   launch no hand kernel; every sync take must average 2 gradients; the two
+   deterministic runs must end with bitwise-equal parameters; each W1
+   worker's first gradient at step 0 and the deterministic run's first 4
+   applied losses must be within ``TOL_WORKLOAD_START`` of the CPU's
+   (the same weights and batches; the same CLI on the CPU).  Printed,
+   over applies 21-200 (``PS_WARMUP_APPLIES``): applied steps/s, examples/s
+   per chip, the time of an applied step split
+   into worker gradient, D2H flatten, native apply/push, the chief's
+   take/pop wait and the apply with its H2D publish (summed over threads),
+   the bytes an apply moves, and a second run of ``PS_PROFILE_APPLIES``
+   applies wholly under ``torch.profiler`` (started before the worker
+   threads and stopped after they are joined): launches and device-busy
+   ms an apply, idle share.
+   ``chip_smoke.ps_emulation_end_to_end(card)`` runs this phase alone.
+
 Phase 4 still runs the split kernels: at T 2048 the blocks give
 nq = nk = 2, under the fused regime.  No path is cut in depth.
 
@@ -254,6 +279,17 @@ WORKLOADS = ("mnist_mlp", "cifar10_cnn", "word2vec", "ptb_lstm")
 #: wrong weight, batch, key or dtype moves the loss by O(0.1).
 TOL_WORKLOAD_START = {"mnist_mlp": 1e-3, "cifar10_cnn": 1e-3, "ptb_lstm": 1e-3}
 TOL_WORKLOAD_START_REL = {"word2vec": 1e-6}
+#: Phase 8: the PS emulation through the MNIST and CIFAR-10 CLIs at their
+#: defaults, 2 workers (local batch 64), ``PS_STEPS`` applied steps each,
+#: then a run of ``PS_PROFILE_APPLIES`` applies under ``torch.profiler``.
+#: The card-against-CPU gates reuse ``TOL_WORKLOAD_START`` (bf16 models).
+PS_STEPS = 200
+PS_WORKERS = "a:1,b:1"
+PS_PROFILE_APPLIES = 10
+#: The first applies of a run load kernels and build cuDNN plans (~2 s in
+#: a fresh process on an H100 80GB HBM3 at 700 W); the timed window starts
+#: after them.
+PS_WARMUP_APPLIES = 20
 #: Device rows of a profile that are the profiler's own markers, not work.
 CUPTI_MARKERS = ("Command Buffer Full", "Activity Buffer Request")
 #: The port's flash kernels in an LM step's profile, by kernel name.
@@ -2014,6 +2050,258 @@ def workloads_end_to_end(card: str) -> dict:
     return results
 
 
+def ps_timed_trainer(base, profiled: bool = False):
+    """A subclass of the port's ``AsyncPSTrainer`` that times each part of
+    an applied step (worker gradient to the loss read, the gradient's
+    device-to-host flatten, the native ``apply``/``push``, the chief's
+    ``take``/``pop`` wait, the apply with its host-to-device publish) from
+    apply ``PS_WARMUP_APPLIES`` on (the first applies load kernels and
+    build cuDNN plans), notes when that window starts and when the last
+    apply ends, and records how many gradients each sync ``take``
+    averaged.  With
+    ``profiled``, the whole ``run`` (thread start to join) is under
+    ``torch.profiler``: the profiler starts and stops only while no worker
+    thread runs, since stopping it while another thread is inside an
+    operator crashed the process (on an H100, torch 2.11.0+cu128)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    class Timed(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.seconds = dict.fromkeys(("grad", "d2h", "send", "wait", "apply"), 0.0)
+            self.taken: list[int] = []
+            self.prof = None
+            self._clock = threading.Lock()
+
+        def _timed(self, key, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            with self._clock:
+                self.seconds[key] += time.perf_counter() - t0
+            return out
+
+        def _grad(self, *args):
+            return self._timed("grad", super()._grad, *args)
+
+        def _to_host(self, grads):
+            return self._timed("d2h", super()._to_host, grads)
+
+        def _send(self, *args):
+            return self._timed("send", super()._send, *args)
+
+        def _take(self, n_agg):
+            out = self._timed("wait", super()._take, n_agg)
+            if out is not None:
+                self.taken.append(self._acc.last_count)
+            return out
+
+        def _pop(self):
+            return self._timed("wait", super()._pop)
+
+        def _apply_update(self, flat):
+            self._timed("apply", super()._apply_update, flat)
+            self.t_last = time.perf_counter()
+            if self.global_step == PS_WARMUP_APPLIES:
+                with self._clock:
+                    self.seconds = dict.fromkeys(self.seconds, 0.0)
+                    self.grads_at_warm = len(self.history)
+                self.t_warm = self.t_last
+
+        def run(self, batch_fns):
+            if profiled:
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self.prof.__enter__()
+            t0 = time.perf_counter()
+            try:
+                return super().run(batch_fns)
+            finally:
+                if profiled:
+                    torch.cuda.synchronize()
+                self.run_s = time.perf_counter() - t0
+                if profiled:
+                    self.prof.__exit__(None, None, None)
+
+    return Timed
+
+
+def _ps_cli_run(cli, argv: list, timed) -> tuple:
+    """``cli.run_training`` on ``argv`` with the port's trainer swapped for
+    ``timed``; returns (trainer, FINAL line, hand-kernel launches)."""
+    import contextlib
+    import io
+
+    from distributed_tensorflow_examples_tpu_torch import ops
+    from distributed_tensorflow_examples_tpu_torch.parallel import async_ps
+
+    real = async_ps.AsyncPSTrainer
+    async_ps.AsyncPSTrainer = timed
+    out = io.StringIO()
+    try:
+        ops.reset_launches()  # every count to 0 just before the main path
+        with contextlib.redirect_stdout(out):
+            trainer = cli.run_training(cli.build_parser().parse_args(argv))
+        launches = dict(ops.LAUNCHES)  # read just after the main path
+    finally:
+        async_ps.AsyncPSTrainer = real
+    final = [l for l in out.getvalue().splitlines() if l.startswith("FINAL ")]
+    return trainer, (final[0] if final else ""), launches
+
+
+def _ps_param_hash(trainer) -> str:
+    """A hash of the trainer's final parameters, as one flat f32 vector."""
+    import hashlib
+
+    from distributed_tensorflow_examples_tpu_torch.bridge import flat_params_of
+
+    return hashlib.sha256(flat_params_of(trainer.params).tobytes()).hexdigest()[:16]
+
+
+def ps_emulation_end_to_end(card: str) -> dict:
+    """Train W1 and W2 on the in-process PS emulation through their CLIs
+    (the module docstring's phase 8); returns each run's measurements."""
+    import re
+
+    from distributed_tensorflow_examples_tpu_torch.data.pipeline import InMemoryPipeline
+    from distributed_tensorflow_examples_tpu_torch.examples import cifar10_cnn, mnist_mlp
+    from distributed_tensorflow_examples_tpu_torch.models import mlp
+    from distributed_tensorflow_examples_tpu_torch.parallel import async_ps
+
+    base = [f"--seed={SEED}", f"--worker_hosts={PS_WORKERS}", f"--train_steps={PS_STEPS}"]
+    runs = {
+        "w1_sync": (mnist_mlp, ["--ps_emulation"], "sync_replicas"),
+        "w2_async": (cifar10_cnn, ["--sync_replicas=false", "--max_staleness=4"], "async"),
+        "w2_deterministic": (cifar10_cnn, ["--sync_replicas=false", "--max_staleness=4",
+                                           "--deterministic"], "async"),
+        "w2_deterministic_again": (cifar10_cnn, ["--sync_replicas=false", "--max_staleness=4",
+                                                 "--deterministic"], "async"),
+    }
+    results, trainers = {}, {}
+    for name, (cli, argv, mode) in runs.items():
+        timed = ps_timed_trainer(async_ps.AsyncPSTrainer)
+        tr, final, launches = _ps_cli_run(cli, [*base, *argv, "--device=cuda"], timed)
+        trainers[name] = tr
+        # The profile: a second, short run of the same CLI, wholly profiled.
+        prof_tr, _f, _l = _ps_cli_run(
+            cli, [*base[:2], f"--train_steps={PS_PROFILE_APPLIES}", *argv, "--device=cuda"],
+            ps_timed_trainer(async_ps.AsyncPSTrainer, profiled=True))
+        pattern = (rf"^FINAL step={PS_STEPS} steps_per_sec=\S+ examples_per_sec_per_chip=\S+ "
+                   rf"mode={mode} stale_dropped=(\d+) first_loss=\S+ last_loss=\S+ "
+                   rf"test_accuracy=([0-9.]+)$")
+        match = re.match(pattern, final)
+        if not match:
+            raise SystemExit(f"{name}: no FINAL line of the JAX PS form: {final!r}")
+        losses = [loss for _w, _s, loss in tr.history]
+        if tr.global_step != PS_STEPS or not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"{name}: {tr.global_step} applied steps, or a loss not finite")
+        if sum(launches.values()):
+            raise SystemExit(f"{name}: the path launched a hand kernel: {launches}")
+        if mode == "sync_replicas":
+            r2a = tr.cfg.replicas_to_aggregate
+            if tr.taken != [r2a] * PS_STEPS:
+                raise SystemExit(f"{name}: a take averaged other than {r2a} gradients: "
+                                 f"{sorted(set(tr.taken))} over {len(tr.taken)} applies")
+        local_bs = cli.build_parser().parse_args([]).batch_size // tr.cfg.num_workers
+        per_apply = (tr.cfg.replicas_to_aggregate or 1) if mode == "sync_replicas" else 1
+        # The steady window: applies PS_WARMUP_APPLIES + 1 .. PS_STEPS.
+        steps = tr.global_step - PS_WARMUP_APPLIES
+        steady_s = tr.t_last - tr.t_warm
+        sps = steps / steady_s
+        grads = len(tr.history) - tr.grads_at_warm
+        busy_ms, kernels, copies = _device_rows(prof_tr.prof)
+        train = tr.source.train if cli is mnist_mlp else tr.source.ds.train
+        batch_bytes = sum(v[:local_bs].nbytes for v in train.values())
+        r = {
+            "applied_steps_per_s": sps, "examples_per_s_per_chip": sps * local_bs * per_apply,
+            "apply_wall_ms": steady_s / steps * 1e3,
+            "whole_run_applied_steps_per_s": tr.global_step / tr.run_s,
+            **{f"{k}_ms_per_apply": v / steps * 1e3 for k, v in tr.seconds.items()},
+            "gradients_per_apply": grads / steps,
+            "d2h_mb_per_apply": grads * tr.num_elems * 4 / steps / 1e6,
+            "h2d_param_mb_per_apply": tr.num_elems * 4 / 1e6,
+            "h2d_batch_mb_per_apply": grads * batch_bytes / steps / 1e6,
+            "launches_per_apply": kernels / PS_PROFILE_APPLIES,
+            "copies_per_apply": copies / PS_PROFILE_APPLIES,
+            "busy_ms_per_apply": busy_ms / PS_PROFILE_APPLIES,
+            "idle_share": max(0.0, 1 - busy_ms / (prof_tr.run_s * 1e3)),
+            "stale_dropped": int(match.group(1)), "test_accuracy": float(match.group(2)),
+            "loss_first": losses[0], "loss_last": losses[-1], "params": tr.num_elems,
+        }
+        results[name] = r
+        log(f"  {name}: {final}")
+        log(f"    {tr.global_step} applies in {tr.run_s:.2f} s "
+            f"({r['whole_run_applied_steps_per_s']:.1f} applied steps/s over the whole run); "
+            f"applies {PS_WARMUP_APPLIES + 1}-{tr.global_step}: {sps:.1f} applied steps/s, "
+            f"{r['examples_per_s_per_chip']:.0f} examples/s per chip, {r['apply_wall_ms']:.3f} ms "
+            f"an applied step, {grads} gradients ({r['gradients_per_apply']:.2f} an apply); "
+            f"{r['stale_dropped']} dropped stale; loss {losses[0]:.4f} -> {losses[-1]:.4f}, all "
+            "finite; no hand kernel launched"
+            + (f"; every take averaged {tr.cfg.replicas_to_aggregate} gradients"
+               if mode == "sync_replicas" else ""))
+        log(f"    per applied step, applies {PS_WARMUP_APPLIES + 1} on (ms, summed over threads): "
+            + ", ".join(f"{k} {v / steps * 1e3:.3f}" for k, v in tr.seconds.items())
+            + " (grad: worker forward+backward to the loss read; d2h: flatten + copy to "
+            "pinned host; send: native apply/push; wait: chief's take/pop; apply: host "
+            "update + H2D publish)")
+        log(f"    bytes per applied step: gradient D2H {r['d2h_mb_per_apply']:.3f} MB, params "
+            f"H2D {r['h2d_param_mb_per_apply']:.3f} MB, batches H2D "
+            f"{r['h2d_batch_mb_per_apply']:.3f} MB ({tr.num_elems} f32 params)")
+        log(f"    a profiled run of {PS_PROFILE_APPLIES} applies (thread start to join): "
+            f"{r['launches_per_apply']:.1f} kernel launches + {r['copies_per_apply']:.1f} "
+            f"copies/sets an apply, device busy {r['busy_ms_per_apply']:.3f} ms an apply, "
+            f"idle share {r['idle_share']:.1%} of the run's {prof_tr.run_s * 1e3:.2f} ms [{card}]")
+        log(f"    host, profiled run, the chief thread's ops with most self time: "
+            f"{_host_rows(prof_tr.prof)}")
+
+    a, b = (_ps_param_hash(trainers[k]) for k in ("w2_deterministic", "w2_deterministic_again"))
+    if a != b:
+        raise SystemExit(f"the two deterministic W2 runs end with other parameters: {a} {b}")
+    log(f"  the two deterministic W2 runs end with bitwise-equal parameters (sha256 {a})")
+
+    # The card against the CPU.  W1: each worker's first gradient at step 0
+    # (token assignment is racy, so a worker may have none there) against
+    # the loss of the same initial weights on its first batch on the CPU.
+    w1 = trainers["w1_sync"]
+    cfg = mlp.Config()
+    init = mlp.init_numpy(cfg, SEED)
+    cpu_params = {k: {n: torch.from_numpy(v) for n, v in leaf.items()} for k, leaf in init.items()}
+    compared = 0
+    for wid in range(2):
+        first = next((h for h in w1.history if h[0] == wid), None)
+        if first is None or first[1] != 0:
+            continue
+        batch = next(iter(InMemoryPipeline(w1.source.train, batch_size=64, seed=SEED + wid)))
+        cpu = float(mlp.loss_fn(cfg)(cpu_params, {}, {k: torch.from_numpy(v)
+                                                       for k, v in batch.items()}, None)[0])
+        gap = abs(first[2] - cpu)
+        if gap > TOL_WORKLOAD_START["mnist_mlp"]:
+            raise SystemExit(f"w1_sync: worker {wid}'s first loss on the card {first[2]:.6f} is "
+                             f"not within {TOL_WORKLOAD_START['mnist_mlp']:g} of the CPU's {cpu:.6f}")
+        log(f"  w1_sync: worker {wid}'s first gradient (step 0) loss {first[2]:.6f} on the card, "
+            f"{cpu:.6f} on the CPU (|d| {gap:.2e})")
+        compared += 1
+    if not compared:
+        raise SystemExit("w1_sync: no worker computed a gradient at step 0")
+    # W2 deterministic: the first 4 applied losses against the same CLI's
+    # run on the CPU.
+    det = trainers["w2_deterministic"]
+    cpu_tr, _final, _l = _ps_cli_run(
+        cifar10_cnn, [*base[:2], "--train_steps=4", "--sync_replicas=false",
+                      "--max_staleness=4", "--deterministic", "--device=cpu"],
+        async_ps.AsyncPSTrainer)
+    card4 = [h[2] for h in det.history[:4]]
+    cpu4 = [h[2] for h in cpu_tr.history[:4]]
+    gaps = [abs(x - y) for x, y in zip(card4, cpu4, strict=True)]
+    if max(gaps) > TOL_WORKLOAD_START["cifar10_cnn"]:
+        raise SystemExit(f"w2_deterministic: the first 4 applied losses on the card {card4} are not "
+                         f"within {TOL_WORKLOAD_START['cifar10_cnn']:g} of the CPU's {cpu4}")
+    log(f"  w2_deterministic: first 4 applied losses on the card {[round(x, 6) for x in card4]}, "
+        f"on the CPU {[round(x, 6) for x in cpu4]} (max |d| {max(gaps):.2e})")
+    results["w2_deterministic"]["param_sha256"] = a
+    results["w2_deterministic"]["cpu_first4_max_gap"] = max(gaps)
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
@@ -2117,6 +2405,12 @@ def main() -> int:
     workloads = workloads_end_to_end(card)
     log("  workloads: " + json.dumps({k: {m: round(v, 6) for m, v in r.items()}
                                       for k, r in workloads.items()}))
+
+    log("phase 8: the PS emulation (W1 sync-replicas, W2 async) through the MNIST and "
+        "CIFAR-10 CLIs")
+    ps = ps_emulation_end_to_end(card)
+    log("  ps_emulation: " + json.dumps({k: {m: (round(v, 6) if isinstance(v, float) else v)
+                                             for m, v in r.items()} for k, r in ps.items()}))
 
     csrc = "distributed_tensorflow_examples_tpu_torch/ops/csrc"
     tpu = "distributed_tensorflow_examples_tpu/ops/flash_attention.py"

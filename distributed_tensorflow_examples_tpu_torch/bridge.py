@@ -44,14 +44,19 @@ def flat_param_spec(template):
     """``(total_elems, unflatten)`` for a param tree ``template`` whose
     leaves are shape tuples (``models.transformer.param_shapes``), arrays
     or tensors.  ``unflatten(flat, device)`` copies the float32 vector to
-    ``device`` once and returns the tree as views into that one buffer."""
+    ``device`` once and returns the tree as views into that one buffer
+    (no copy when ``flat`` is a float32 tensor on ``device`` already: the
+    views then share its storage)."""
     paths, shapes = zip(*[(p, _shape(l)) for p, l in _items(template)])
     sizes = [int(np.prod(s)) if s else 1 for s in shapes]
     offsets = np.cumsum([0] + sizes).tolist()
     total = offsets[-1]
 
     def unflatten(flat, device="cpu"):
-        flat = torch.as_tensor(np.asarray(flat, np.float32).reshape(-1))
+        if isinstance(flat, torch.Tensor):
+            flat = flat.reshape(-1).to(torch.float32)
+        else:
+            flat = torch.as_tensor(np.asarray(flat, np.float32).reshape(-1))
         if flat.numel() != total:
             raise ValueError(
                 f"flat vector has {flat.numel()} elements, the tree needs {total}"

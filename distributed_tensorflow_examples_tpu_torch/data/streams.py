@@ -63,7 +63,17 @@ def resolve_image_source(
     return ImageSource("memory", ds)
 
 
-def train_iter(src: ImageSource, *, batch_size: int, seed: int) -> Iterator[dict[str, np.ndarray]]:
+def train_iter(
+    src: ImageSource, *, batch_size: int, seed: int, worker: int | None = None,
+    n_workers: int = 1,
+) -> Iterator[dict[str, np.ndarray]]:
     """Training batches of ``batch_size`` from an in-memory source, in the
-    JAX pipeline's order for ``seed``."""
+    JAX pipeline's order for ``seed``.  With ``worker=w`` (one of
+    ``n_workers`` PS-emulation workers) the stream is worker w's own: the
+    whole training split at seed ``seed + w``, as the JAX memory branch
+    gives it."""
+    if worker is not None:
+        if not 0 <= worker < n_workers:
+            raise ValueError(f"worker {worker} is not one of {n_workers} workers")
+        return iter(InMemoryPipeline(src.ds.train, batch_size=batch_size, seed=seed + worker))
     return iter(InMemoryPipeline(src.ds.train, batch_size=batch_size, seed=seed))

@@ -14,8 +14,10 @@ the ``FINAL ... valid_perplexity=`` line.  Runs on the card unless
         --batch_size=64 --seq_len=20 --train_steps=2000
 
 ``--job_name=ps`` prints and exits 0 and the TF-1 cluster flags are mapped
-(``utils/flags.py``); the multi-worker ring (rows split over hosts) waits
-for the port's multi-device spine (A5).
+(``utils/flags.py``); the JAX CLI has no PS branch, so ``--ps_emulation``
+and ``--sync_replicas=false`` train as usual here too, and only a
+cross-process PS task raises (A9b).  The multi-worker ring (rows split
+over hosts) waits for the port's multi-device spine (A5).
 """
 
 from __future__ import annotations

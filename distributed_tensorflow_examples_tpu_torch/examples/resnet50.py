@@ -15,7 +15,9 @@ path off.  :func:`run_training` takes the JAX ``Experiment``'s
 ``loss_fn_factory``: ``lambda mesh: resnet.loss_fn(cfg, mesh=mesh)`` sends
 every BatchNorm through the statistics kernels (``ops/bn.py``).
 ``--job_name=ps`` prints and exits 0, as the JAX CLI does, and the other
-TF-1 cluster flags are accepted and mapped (``utils/flags.py``); ghost-batch BN
+TF-1 cluster flags are accepted and mapped (``utils/flags.py``): the JAX
+CLI has no PS branch, so ``--ps_emulation`` and ``--sync_replicas=false``
+train as usual, and only a cross-process PS task raises (A9b); ghost-batch BN
 (``--bn_ghost_slices``), streamed ``--data_dir`` sources and a mesh beyond
 one device wait for the port's items A8, A10 and A5.
 """

@@ -26,7 +26,10 @@ row-wise logits predict path::
 Both run on the card unless ``--device=cpu``.  The reference's TF-1
 cluster flags are accepted and mapped (``utils/flags.py``):
 ``--job_name=ps`` prints and exits 0, ``--ps_hosts`` is logged and
-ignored, ``--worker_hosts`` logged.  ``--sample_tokens=N`` greedily
+ignored, ``--worker_hosts`` logged; the JAX CLI has no PS branch, so
+``--ps_emulation`` and ``--sync_replicas=false`` train as usual, and a
+cross-process PS task or a serve replica tracking ``--ps_hosts`` raises
+(the port's PS transport, A9b).  ``--sample_tokens=N`` greedily
 decodes N tokens after training from the corpus's first 16 tokens and
 logs them.  Pipeline stages, mixture-of-experts blocks and a mesh beyond
 one device wait for the port's model-parallel and multi-device items (A8,

@@ -13,8 +13,10 @@ line.  Runs on the card unless ``--device=cpu``::
         --batch_size=512 --train_steps=2000
 
 ``--job_name=ps`` prints and exits 0 and the TF-1 cluster flags are mapped
-(``utils/flags.py``).  The embedding sharded over a ``model`` mesh axis
-waits for the port's items A5 and A8; the PS-sharded table for A9.
+(``utils/flags.py``); the JAX CLI has no PS branch, so ``--ps_emulation``
+and ``--sync_replicas=false`` train as usual here too, and only a
+cross-process PS task raises (A9b).  The embedding sharded over a
+``model`` mesh axis waits for the port's items A5 and A8.
 """
 
 from __future__ import annotations

@@ -25,8 +25,8 @@ train step's count of updates so far, not a counter of the optimizer's own,
 so a resumed run reads the right rate.  With ``clip_norm`` it is
 ``optax.chain(clip_by_global_norm(clip_norm), sgd(...))`` (the PTB
 LSTM's optimizer), the clip the one :class:`ClippedAdamW` takes.
-:func:`piecewise_constant_schedule` is optax's, in float32 as optax
-computes it.
+:func:`piecewise_constant_schedule` and :func:`linear_schedule` are
+optax's, in float32 as optax computes them.
 
 Both run fused (one kernel for every leaf) and share ``init(params) ->
 opt_state`` and ``update(opt_state, params, step)``.
@@ -99,6 +99,25 @@ def piecewise_constant_schedule(init_value: float, boundaries_and_scales=None):
             if count >= boundary:
                 v = np.float32(scale * v)
         return float(v)
+
+    return schedule
+
+
+def linear_schedule(init_value: float, end_value: float, transition_steps: int):
+    """optax's ``linear_schedule``: ``schedule(count)`` runs from
+    ``init_value`` at count 0 to ``end_value`` at ``transition_steps`` and
+    holds it after, in float32 operation for operation as optax evaluates
+    it: ``(init - end) * (1 - clip(count) / steps) + end``."""
+    if transition_steps <= 0:  # optax: a constant schedule
+        return lambda _count: init_value
+    span = np.float32(init_value - end_value)
+    end = np.float32(end_value)
+    steps = np.float32(transition_steps)
+
+    def schedule(count: int) -> float:
+        c = np.float32(min(max(int(count), 0), transition_steps))
+        frac = np.float32(1.0) - np.float32(c / steps)
+        return float(np.float32(span * frac) + end)
 
     return schedule
 

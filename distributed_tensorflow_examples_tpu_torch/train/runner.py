@@ -8,7 +8,8 @@ plus the host-to-device infeed, the full-split ``evaluate`` and the
 other than empty or ``data=1``) waits for the port's multi-device items
 (A5 data parallel, A8 model parallel): ``parallel.mesh.build_mesh``
 raises; so do ``--zero_opt`` (A8) and ``--profile`` (A12), through
-``utils.flags.check_training_flags``.
+``utils.flags.check_training_flags``; ``--deterministic`` turns on
+``utils.determinism``, as the JAX ``Experiment`` does.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Any, Callable, Iterable
 
 from ..data import pipeline as pipeline_lib
 from ..parallel.mesh import MeshSpec, build_mesh
+from ..utils import determinism
 from ..utils import device as device_lib
 from ..utils import flags as flags_lib
 from ..utils import threefry
@@ -57,6 +59,8 @@ class Experiment:
     ):
         self.flags = flags
         flags_lib.check_training_flags(flags)
+        if getattr(flags, "deterministic", False):
+            determinism.enable()
         self.device = device_lib.resolve(device or getattr(flags, "device", None))
         self.mesh = (
             mesh if mesh is not None

@@ -3,7 +3,8 @@
 Both example CLIs of the port accept the reference's TF-1 launch flags
 (``--ps_hosts``, ``--worker_hosts``, ``--job_name``, ``--task_index``): a
 ``--job_name=ps`` task prints and exits 0, PS hosts are logged and
-ignored, and training runs.  The info dict of the port's
+ignored, and training runs, under the PS-emulation flags too (neither
+JAX CLI has a PS branch).  The info dict of the port's
 ``resolve_legacy_cluster`` is held against the reference's on the same
 flags (the reference reads them from any namespace)."""
 
@@ -71,13 +72,23 @@ def test_info_matches_the_reference(name, argv):
     [["--ps_emulation"], ["--sync_replicas=false"], ["--job_name=ps", "--ps_hosts=h:1",
                                                      "--ps_emulation=true"]],
 )
-def test_ps_emulation_waits_for_the_ps_plane(argv):
-    """Where the reference would run its PS emulation, the port raises."""
-    for cli, _args in CLIS.values():
-        with pytest.raises(NotImplementedError, match="A9"):
-            cli.main(argv)
+def test_ps_emulation_waits_for_the_ps_plane(argv, capsys):
+    """The JAX LM and ResNet CLIs have no PS branch: under
+    ``--ps_emulation`` or ``--sync_replicas=false`` they train as usual, and
+    so do the port's.  Only a cross-process PS task (a role with
+    ``--ps_hosts`` under PS emulation) or a serve replica tracking
+    ``--ps_hosts`` raises, naming the port's PS transport (A9b)."""
+    for cli, args in CLIS.values():
+        if "--ps_hosts=h:1" in argv:
+            assert jax_flags.is_cross_process_ps(cli.build_parser().parse_args(argv))
+            with pytest.raises(NotImplementedError, match="A9b"):
+                cli.main(argv)
+        else:
+            assert cli.main([*args, *argv]) == 0
+            out = capsys.readouterr().out.splitlines()
+            assert any(line.startswith("FINAL step=1 ") for line in out)
     serve = transformer_lm.build_parser().parse_args(
         ["--job_name=serve", "--serve_hosts=127.0.0.1:1", "--ps_hosts=h:1"])
     assert jax_flags.is_cross_process_ps(serve)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A9b"):
         flags.resolve_legacy_cluster(serve)

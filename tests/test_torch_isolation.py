@@ -69,3 +69,24 @@ def test_chip_smoke_imports_no_jax():
                 else [node.module or ""]
             )
             assert not [n for n in names if _forbidden(n)], node.lineno
+
+
+def test_native_loader_builds_the_ports_own_source():
+    """The port's native services compile its own ``native/accumulator.cc``
+    into ``build/native/`` at the root of the checkout."""
+    from distributed_tensorflow_examples_tpu_torch import native
+
+    assert native.SOURCE == PORT / "native" / "accumulator.cc"
+    assert native.SOURCE.is_file()
+    assert native.BUILD_DIR == ROOT / "build" / "native"
+    assert native.library_path().parent == native.BUILD_DIR
+    native.GradientAccumulator(1)  # loads, building the library if needed
+    assert native.library_path().is_file()
+
+
+def test_no_port_file_names_the_jax_native_library():
+    bad = ("distributed_tensorflow_examples_tpu/native", "libdtx_native")
+    for path in sorted(PORT.rglob("*")):
+        if path.is_file() and path.suffix in (".py", ".cc", ".cu", ".cuh", ".h"):
+            text = path.read_text()
+            assert not [b for b in bad if b in text], path.relative_to(ROOT)

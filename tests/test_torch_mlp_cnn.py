@@ -254,8 +254,12 @@ def test_cli_prints_final_and_ps_task_exits(name, capsys):
                      rf"{metric}=[0-9.]+$", out, re.M), out
     assert cli.main(["--job_name=ps", "--ps_hosts=h:1"]) == 0
     assert "parameter servers are not needed" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A9"):
-        cli.main(["--device=cpu", "--sync_replicas=false"])
+    # --sync_replicas=false runs the async PS emulation, as the JAX CLI does.
+    assert cli.main(["--device=cpu", "--sync_replicas=false", "--train_steps=2", *argv]) == 0
+    out = capsys.readouterr().out
+    assert re.search(rf"^FINAL step=2 steps_per_sec=\S+ examples_per_sec_per_chip=\S+ "
+                     rf"mode=async stale_dropped=\d+ first_loss=\S+ last_loss=\S+ "
+                     rf"{metric}=[0-9.]+$", out, re.M), out
     with pytest.raises(NotImplementedError, match="A8"):
         cli.main(["--device=cpu", "--zero_opt", *argv])
 

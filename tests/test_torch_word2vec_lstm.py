@@ -365,8 +365,10 @@ def test_cli_prints_final_and_ps_task_exits(name, capsys):
                      rf"{metric}=[0-9.]+$", out, re.M), out
     assert cli.main(["--job_name=ps", "--worker_hosts=w:1,w:2"]) == 0
     assert "parameter servers are not needed" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A9"):
-        cli.main(["--device=cpu", "--ps_emulation"])
+    # The JAX CLI has no PS branch: --ps_emulation trains as usual.
+    assert cli.main(["--device=cpu", "--train_steps=2", "--ps_emulation", *argv]) == 0
+    assert re.search(rf"^FINAL step=2 steps_per_sec=\S+ examples_per_sec_per_chip=\S+ "
+                     rf"{metric}=[0-9.]+$", capsys.readouterr().out, re.M)
     with pytest.raises(NotImplementedError, match="A12"):
         cli.main(["--device=cpu", "--profile", *argv])
     with pytest.raises(NotImplementedError, match="A5"):
