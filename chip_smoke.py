@@ -152,6 +152,41 @@ it fails:
    ms an apply, idle share.
    ``chip_smoke.ps_emulation_end_to_end(card)`` runs this phase alone.
 
+9. Synchronous data parallelism on the card: every rank a process of the
+   port's ``utils.multiprocess.MultiProcessRunner`` (``TF_CONFIG`` per
+   task, as a reference launcher gives it), the phase's functions
+   (``dp_resnet_rank``, ``dp_lstm_rank``) run in the ranks.  First the
+   ResNet step on a world of one rank with NCCL (a real communicator;
+   ``DP_NCCL_STEPS`` steps), its step ms beside phase 5's; beside its
+   start-up a probe: two ranks start NCCL on the one card (NCCL's own
+   error, printed, is why ranks that share a card take gloo;
+   ``parallel/dist.py::backend_for``).  Then ResNet-50 (W3) at full
+   width, as in phase 5 with the fused
+   statistics path, on ``DP_RANKS`` ranks sharing the card through
+   ``examples.resnet50``'s ``run_training``: global batch 256 (128 a rank),
+   ``RESNET_STEPS`` steps, ``DP_EXAMPLES`` synthetic train images.  Gates:
+   every rank's backend gloo on a CUDA device; 53 launches of each BN
+   kernel a step on each rank and none in the eval; the FINAL line from
+   the chief alone; bitwise-equal parameters and running stats on the
+   ranks at the end; step 1's loss finite and within ``TOL_RESNET_START``
+   of ln(1000) + l2 (phase 5's beside it) and falling; and one float32
+   step from the initial weights at batch 64 (32 a rank) against a 1-rank
+   step over the global batch (rank 0's rows, then rank 1's), within
+   ``TOL_RESNET_LOSS``, ``TOL_RESNET_HEAD`` and ``TOL_DP_VS_NOISE`` times
+   the float32 noise floor (the 1-rank step on the batch reversed), BN
+   scale and bias included.  Printed: step ms, global images/s, the
+   all-reduce calls and bytes of a step by kind (gradients, SyncBN
+   partials, metrics) and each rank's profiled step (device busy, idle).
+   Last, the PTB LSTM (W5) at its CLI defaults on ``DP_RANKS`` ranks (32
+   rows a rank, each a contiguous block of the stream and its own carry),
+   ``WORKLOAD_STEPS`` steps: gloo, bitwise-equal parameters, finite
+   losses, FINAL with ``valid_perplexity`` from the chief, and the first
+   update against a 1-rank step over the global rows (the clip on the
+   global gradient; float32, the clip engaged) within
+   ``TOL_DP_LSTM_UPDATE``; step ms and tokens/s.
+   ``chip_smoke.data_parallel_end_to_end(card, phase5)`` runs this phase
+   alone.
+
 Phase 4 still runs the split kernels: at T 2048 the blocks give
 nq = nk = 2, under the fused regime.  No path is cut in depth.
 
@@ -290,6 +325,42 @@ PS_PROFILE_APPLIES = 10
 #: a fresh process on an H100 80GB HBM3 at 700 W); the timed window starts
 #: after them.
 PS_WARMUP_APPLIES = 20
+#: Phase 9: data parallelism on the card.  ``DP_RANKS`` ranks share the one
+#: card (gloo); each generates the synthetic ImageNet train split itself,
+#: cut to ``DP_EXAMPLES`` images (the CLI's default is 2048; the images are
+#: not cut) so two processes do not spend the phase making 2.4 GB of data;
+#: step ``DP_PROFILE_STEP`` of each rank is profiled.  The NCCL run (a world
+#: of one) takes ``DP_NCCL_STEPS`` steps, the last profiled.
+DP_RANKS = 2
+DP_EXAMPLES = 512
+DP_PROFILE_STEP = 4
+DP_NCCL_STEPS = 6
+#: 2-rank step vs 1-rank step over the same global batch, float32 at batch
+#: 64.  The two compute the same function (in float64 everywhere, BN
+#: statistics too, they agreed on the CPU to 2e-15 in the loss and 5e-7 in
+#: the gradients, the float32 bucket's rounding), but float32 does not
+#: resolve ResNet-50's gradients at init (phase 5's note): BN statistics
+#: and weight gradients summed in another order move them by percents.  The
+#: noise floor is measured in the same run: the 1-rank step on the batch
+#: in reverse order (the same function, every batch sum in another order;
+#: on the CPU at 64 x 64, batch 8, it moved the gradients by 1.5% median,
+#: 2.3% max, and the 2-rank step by 0.8% and 1.6%).  The 2-rank step may
+#: be at most ``TOL_DP_VS_NOISE`` times that far from the 1-rank step (or
+#: phase 5's ``TOL_RESNET_GRAD``, where the floor is smaller); the loss
+#: within ``TOL_RESNET_LOSS`` and the head within ``TOL_RESNET_HEAD``, as
+#: in phase 5.  A sum where a mean belongs, local BN statistics or a
+#: dropped all-reduce move the loss or the gradients by O(1).
+TOL_DP_VS_NOISE = 2.0
+#: W5's clip check: one float32 step from the initial weights with the
+#: clip at ``DP_LSTM_CLIP`` (below the global gradient's norm, ~0.18 at the
+#: CLI's defaults, so the clip scales the step), 2 ranks against 1 rank
+#: over the global rows; relative per leaf.  The two sum the batch in
+#: another order (two partial gradients, then the all-reduce), and the
+#: smallest leaves cancel across the rows, so float32 gives ~1e-6 where
+#: bf16 gave 5% (the two ranks' bf16 gradient partials each rounded).  A
+#: clip of the local gradient, or a summed gradient, is off by O(1).
+DP_LSTM_CLIP = 0.05
+TOL_DP_LSTM_UPDATE = 1e-4
 #: Device rows of a profile that are the profiler's own markers, not work.
 CUPTI_MARKERS = ("Command Buffer Full", "Activity Buffer Request")
 #: The port's flash kernels in an LM step's profile, by kernel name.
@@ -1713,9 +1784,10 @@ def _one_step_grads(cfg, init, batch, mesh) -> tuple[float, list]:
     return out
 
 
-def resnet_end_to_end(card: str) -> dict:
+def resnet_end_to_end(card: str) -> tuple[dict, dict]:
     """Train, check, compare and profile ResNet-50 (the module docstring's
-    phase 5); returns the BN kernels' launch counts of the main path's run."""
+    phase 5); returns the BN kernels' launch counts of the main path's run,
+    and its step 1 loss and median step ms."""
     import contextlib
     import dataclasses as dc
     import io
@@ -1878,7 +1950,7 @@ def resnet_end_to_end(card: str) -> dict:
     for us, count, key in sorted(kernels, reverse=True)[:12]:
         log(f"    {us / 1e3:8.2f} ms in {count:4d} launches  {key[:110]}")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
-    return launches
+    return launches, {"first_loss": losses[0], "step_ms": step_ms}
 
 
 def step_recorder(profile_step: int | None = None):
@@ -2302,6 +2374,437 @@ def ps_emulation_end_to_end(card: str) -> dict:
     return results
 
 
+# ----------------------------------------------------------------------------
+# Phase 9: synchronous data parallelism on the card
+# ----------------------------------------------------------------------------
+
+
+def dp_step_hook(kernels=(), profile_step: int | None = None):
+    """A training hook of one rank that records, for every step, (step, ms,
+    loss, launches of each of ``kernels``, all-reduce calls and bytes by
+    tag, profiled), reading the loss (which waits for the step's device
+    work), and runs step ``profile_step`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_tensorflow_examples_tpu_torch import ops
+    from distributed_tensorflow_examples_tpu_torch.parallel import collectives
+    from distributed_tensorflow_examples_tpu_torch.train import hooks
+
+    class DPStep(hooks.Hook):
+        def __init__(self):
+            self.steps: list = []
+            self.prof = None
+
+        def _mark(self):
+            self._t = time.perf_counter()
+            self._launches = dict(ops.LAUNCHES)
+            self._traffic = dict(collectives.TRAFFIC)
+
+        def begin(self, loop):
+            torch.cuda.synchronize()
+            self._mark()
+
+        def before_step(self, loop):
+            if loop.step + 1 == profile_step:
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self._t = time.perf_counter()
+
+        def after_step(self, loop, metrics):
+            loss = float(metrics["loss"])
+            profiled = loop.step == profile_step
+            if profiled:
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - self._t) * 1e3
+            launches = {k: ops.LAUNCHES[k] - self._launches.get(k, 0) for k in kernels}
+            traffic = {k: v - self._traffic.get(k, 0) for k, v in collectives.TRAFFIC.items()
+                       if v != self._traffic.get(k, 0)}
+            self.steps.append({"step": loop.step, "ms": ms, "loss": loss,
+                               "launches": launches, "traffic": traffic,
+                               "profiled": profiled})
+            if profiled:
+                self.prof.__exit__(None, None, None)
+            self._mark()
+
+    return DPStep()
+
+
+def _profile_summary(prof, step_ms: float) -> dict:
+    """Device busy ms, kernel launches, NCCL kernels and idle share of one
+    rank's profiled step."""
+    from torch.autograd import DeviceType
+
+    busy_ms, kernels, _copies = _device_rows(prof)
+    nccl = sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower())
+    return {"busy_ms": busy_ms, "kernels": kernels, "nccl_kernels": nccl,
+            "step_ms": step_ms, "idle_share": max(0.0, 1 - busy_ms / step_ms)}
+
+
+def _rank_result(out_dir: str, result: dict) -> None:
+    from distributed_tensorflow_examples_tpu_torch.parallel import dist
+
+    with open(Path(out_dir) / f"rank{dist.process_index()}.json", "w") as f:
+        json.dump(result, f)
+
+
+def dp_resnet_rank(out_dir: str, steps: int, profile_step: int, parity: bool) -> None:
+    """One rank of phase 9's ResNet-50 runs: ``examples.resnet50``'s
+    ``run_training`` on the fused statistics path over the world the
+    runner's ``TF_CONFIG`` gives, then (``parity``) one float32 step from
+    the initial weights against a 1-rank step over the global batch."""
+    import dataclasses as dc
+
+    from distributed_tensorflow_examples_tpu_torch import bridge, ops
+    from distributed_tensorflow_examples_tpu_torch.examples import resnet50 as cli
+    from distributed_tensorflow_examples_tpu_torch.models import resnet
+    from distributed_tensorflow_examples_tpu_torch.parallel import collectives, dist, sharding
+    from distributed_tensorflow_examples_tpu_torch.parallel.mesh import Mesh
+    from distributed_tensorflow_examples_tpu_torch.train import state, step as step_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = cli.build_parser().parse_args([
+        f"--batch_size={RESNET_BATCH}", f"--image_size={RESNET_IMAGE}", "--num_classes=1000",
+        f"--train_steps={steps}", "--learning_rate=0.1", "--momentum=0.9",
+        "--log_every_steps=1", f"--seed={SEED}", f"--synthetic_examples={DP_EXAMPLES}",
+    ])
+    cfg = cli.config_from_args(args)
+    hook = dp_step_hook(("bn_stats", "bn_bwd_stats"), profile_step)
+    ops.reset_launches()  # every count to 0 just before the main path
+    collectives.TRAFFIC.clear()
+    t0 = time.perf_counter()
+    exp = cli.run_training(
+        args, loss_fn_factory=lambda mesh: resnet.loss_fn(cfg, mesh=mesh), extra_hooks=[hook])
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)  # read just after the main path
+    ops.reset_launches()
+    exp.evaluate(exp.source.ds.test, eval_fn=cli.eval_fn_for(cfg))
+    profiled = next(s for s in hook.steps if s["profiled"])
+    result = {
+        "rank": dist.process_index(), "world": dist.process_count(),
+        "backend": dist.backend(), "device": str(exp.device), "wall_s": wall,
+        "mesh": exp.mesh.shape, "steps": hook.steps, "launches": launches,
+        "eval_launches": dict(ops.LAUNCHES), "test_metrics": exp.test_metrics,
+        "param_sha256": state.params_sha256(exp.state.params),
+        "stats_sha256": state.params_sha256(exp.state.model_state),
+        "profile": _profile_summary(hook.prof, profiled["ms"]),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    if parity:
+        c32 = dc.replace(cfg, compute_dtype="float32")
+        init = resnet.init_numpy(cfg, SEED)
+        result["l2_term"] = 1e-4 * float(sum(np.sum(np.square(k, dtype=np.float64))
+                                             for k in resnet._kernels(init[0])))
+        batch = {k: torch.from_numpy(v[:RESNET_CMP_BATCH]).to(exp.device)
+                 for k, v in exp.source.ds.train.items()}
+        rows = sharding.rank_rows(RESNET_CMP_BATCH)
+        params = state.as_param_leaves(init[0], exp.device)
+        loss, _ = resnet.loss_fn(c32, mesh=exp.mesh)(
+            params, state.as_state_leaves(init[1], exp.device),
+            {k: v[rows] for k, v in batch.items()}, None)
+        loss.backward()
+        step_lib.sync_gradients(params, exp.mesh.group)
+        dp_loss = float(collectives.pmean(loss.detach()))
+        g_dp = [p.grad for p in state.leaves(params)]
+        if dist.is_chief():
+            # The 1-rank references over the global batch, on a mesh of one
+            # rank (it has no group: no collective reaches the other rank).
+            one = Mesh(device=exp.device, shape={"data": 1})
+            l1, g1 = _one_step_grads(c32, init, batch, one)
+            flipped = {k: v.flip(0) for k, v in batch.items()}
+            l1r, g1r = _one_step_grads(c32, init, flipped, one)
+            paths = [p for p, _l in bridge._leaves(init[0])]
+            result["parity"] = {
+                "dp_loss": dp_loss, "one_loss": l1, "reversed_loss": l1r, "paths": paths,
+                "dp_vs_one": _leaf_rel_errors(g_dp, g1),
+                "reversed_vs_one": _leaf_rel_errors(g1r, g1),
+            }
+        dist.barrier("parity")
+    _rank_result(out_dir, result)
+
+
+def dp_lstm_rank(out_dir: str) -> None:
+    """One rank of phase 9's W5 run: ``examples.ptb_lstm``'s
+    ``run_training`` at the CLI's defaults over the runner's world.  Then
+    one float32 step from the initial weights with the clip at
+    ``DP_LSTM_CLIP`` (engaged) on every rank's first window, against the
+    chief's 1-rank step over the global rows (rank 0's, then rank 1's)."""
+    import dataclasses as dc
+
+    from distributed_tensorflow_examples_tpu_torch.data import datasets
+    from distributed_tensorflow_examples_tpu_torch.examples import ptb_lstm as cli
+    from distributed_tensorflow_examples_tpu_torch.models import lstm
+    from distributed_tensorflow_examples_tpu_torch.parallel import dist
+    from distributed_tensorflow_examples_tpu_torch.parallel.mesh import Mesh
+    from distributed_tensorflow_examples_tpu_torch.train import optim, state
+    from distributed_tensorflow_examples_tpu_torch.train import step as step_lib
+
+    args = cli.build_parser().parse_args([
+        f"--seed={SEED}", f"--train_steps={WORKLOAD_STEPS}", "--log_every_steps=100"])
+    cfg = cli.config_from_args(args)
+    rec = dp_step_hook()
+    exp = cli.run_training(args, extra_hooks=[rec])
+    result = {
+        "rank": dist.process_index(), "backend": dist.backend(), "device": str(exp.device),
+        "steps": rec.steps, "param_sha256": state.params_sha256(exp.state.params),
+        "valid_perplexity": exp.valid_perplexity,
+    }
+    n, rank = dist.process_count(), dist.process_index()
+    train_ids, _v, _voc, _src = datasets.ptb(None, vocab_size=args.vocab_size, seed=SEED)
+    block, rows = len(train_ids) // n, args.batch_size // n
+    windows = [{k: torch.from_numpy(v).to(exp.device) for k, v in next(datasets.lm_batches(
+        train_ids[r * block:(r + 1) * block], batch_size=rows, seq_len=args.seq_len)).items()}
+        for r in range(n)]
+
+    c32 = dc.replace(cfg, compute_dtype="float32")
+
+    def update(batch, mesh):
+        """The first update (after - before, per leaf) from the initial
+        weights on ``batch``."""
+        init = lstm.init_numpy(c32, SEED, batch_size=batch["x"].shape[0])
+        opt = optim.SGD(args.learning_rate, clip_norm=DP_LSTM_CLIP)
+        st = state.create_state(lambda seed: init, opt, SEED, exp.device)
+        before = [p.detach().clone() for p in state.leaves(st.params)]
+        st, _m = step_lib.build_train_step(lstm.loss_fn(c32), opt, mesh=mesh)(st, batch)
+        return [(a.detach() - b).cpu() for a, b in zip(state.leaves(st.params), before)]
+
+    dp_update = update(windows[rank], exp.mesh)
+    if dist.is_chief():
+        one = Mesh(device=exp.device, shape={"data": 1})
+        glob = {k: torch.cat([w[k] for w in windows]) for k in windows[0]}
+
+        params = state.as_param_leaves(lstm.init_numpy(c32, SEED, batch_size=1)[0],
+                                       exp.device)
+        carry = state.as_state_leaves(lstm.zero_carry(c32, args.batch_size), exp.device)
+        lstm.loss_fn(c32)(params, carry, glob, None)[0].backward()
+        norm = float(torch.sqrt(sum(p.grad.square().sum() for p in state.leaves(params))))
+        one_update = update(glob, one)
+        result["parity"] = {"global_grad_norm": norm, "clip_norm": DP_LSTM_CLIP,
+                            "dp_vs_one": _leaf_rel_errors(dp_update, one_update)}
+    dist.barrier("parity")
+    _rank_result(out_dir, result)
+
+
+#: Phase 9's probe: NCCL with two ranks on one card (its own error is the
+#: reason the two ranks that share the card take gloo).
+DP_NCCL_PROBE = """
+import torch, torch.distributed as tdist
+from distributed_tensorflow_examples_tpu_torch.parallel import dist
+cfg = dist.resolve_cluster()
+torch.cuda.set_device(0)
+try:
+    tdist.init_process_group("nccl", init_method=f"tcp://{cfg.coordinator_address}",
+                             rank=cfg.process_id, world_size=cfg.num_processes,
+                             device_id=torch.device("cuda", 0))
+    t = torch.ones(1, device="cuda")
+    tdist.all_reduce(t)
+    torch.cuda.synchronize()
+    print("NCCL_OK", t.item(), flush=True)
+except Exception as e:
+    print("NCCL_ERROR", repr(e)[:1500].replace(chr(10), " "), flush=True)
+"""
+
+
+def _run_ranks(n: int, call: str, timeout: float) -> tuple[list, list, str]:
+    """Run ``chip_smoke.<call>`` (``{out}`` names the result directory) on
+    ``n`` ranks of the port's ``MultiProcessRunner`` on the card; returns
+    (exit codes, outputs, result directory).  A failing rank fails the
+    phase."""
+    import tempfile
+
+    from distributed_tensorflow_examples_tpu_torch.utils.multiprocess import MultiProcessRunner
+
+    out = tempfile.mkdtemp(prefix="dtx_dp_")
+    src = f"import chip_smoke\nchip_smoke.{call.format(out=out)}\n"
+    runner = MultiProcessRunner(n, src, device=None, timeout=timeout)
+    t0 = time.perf_counter()
+    runner.start()
+    codes = runner.join()
+    outs = [runner.output(i) for i in range(n)]
+    log(f"  {n} rank(s) of {call.split('(')[0]} exited {codes} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if any(c != 0 for c in codes):
+        for i, o in enumerate(outs):
+            log(f"  --- rank {i} (exit {codes[i]}), last lines ---\n" + "\n".join(o.splitlines()[-40:]))
+        raise SystemExit(f"a data-parallel rank failed: exit codes {codes}")
+    runner.cleanup()
+    return codes, outs, out
+
+
+def _read_ranks(out: str, n: int) -> list:
+    return [json.loads((Path(out) / f"rank{i}.json").read_text()) for i in range(n)]
+
+
+def _traffic_line(step: dict) -> str:
+    t = step["traffic"]
+    tags = sorted({k.rsplit("_", 1)[0] for k in t})
+    return ", ".join(f"{tag} {t.get(tag + '_calls', 0)} call(s) / "
+                     f"{t.get(tag + '_bytes', 0) / 1e6:.3f} MB / "
+                     f"{t.get(tag + '_seconds', 0) * 1e3:.1f} ms of host time" for tag in tags)
+
+
+def data_parallel_end_to_end(card: str, phase5: dict) -> dict:
+    """Sync data parallelism on the card (the module docstring's phase 9);
+    returns each run's step ms and the BN kernels' launches by rank."""
+    # The probe's two processes fail in NCCL's start within seconds, while
+    # the world of one still imports: it runs beside that run's start-up.
+    probe = dp_nccl_probe_start()
+    resnet_nccl1 = dp_resnet_nccl(card, phase5)
+    dp_nccl_probe_report(probe)
+    return {"resnet_dp2": dp_resnet(card, phase5), "resnet_nccl1": resnet_nccl1,
+            "lstm_dp2": dp_lstm(card)}
+
+
+def dp_nccl_probe_start():
+    """Start two ranks that try NCCL on the one card."""
+    from distributed_tensorflow_examples_tpu_torch.utils.multiprocess import MultiProcessRunner
+
+    runner = MultiProcessRunner(DP_RANKS, DP_NCCL_PROBE, prelude=False, device=None,
+                                timeout=60, env={"NCCL_DEBUG": "WARN"})
+    runner.start()
+    return runner
+
+
+def dp_nccl_probe_report(runner) -> None:
+    """Print what NCCL said to the probe's two ranks."""
+    log("  two ranks with NCCL on one card (the backend rule's case): probe, run beside the "
+        "world of one's start-up")
+    codes = runner.join()
+    outs = [runner.output(i) for i in range(DP_RANKS)]
+    runner.cleanup()
+    for i, o in enumerate(outs):
+        said = [l for l in o.splitlines() if l.startswith(("NCCL_OK", "NCCL_ERROR"))
+                or "NCCL WARN" in l or "Duplicate GPU" in l]
+        log(f"    rank {i} (exit {codes[i]}): " + (" | ".join(said[:4]) if said else
+                                                   "no NCCL result (hung or killed)"))
+    if all(any(l.startswith("NCCL_OK") for l in o.splitlines()) for o in outs):
+        log("    NCCL took two ranks on one card here; the backend rule still gives gloo to "
+            "ranks that share a card")
+    else:
+        log("    so the two ranks that share the card run on gloo (CUDA tensors), by the "
+            "backend rule (parallel/dist.py::backend_for)")
+
+
+def dp_resnet(card: str, phase5: dict) -> dict:
+    """ResNet-50 on ``DP_RANKS`` ranks sharing the card, gloo, with the
+    parity step."""
+    log(f"  ResNet-50 on {DP_RANKS} ranks sharing the card: global batch {RESNET_BATCH} "
+        f"({RESNET_BATCH // DP_RANKS} a rank), {RESNET_STEPS} steps, fused statistics")
+    _codes, outs, out = _run_ranks(
+        DP_RANKS, f"dp_resnet_rank({{out!r}}, {RESNET_STEPS}, {DP_PROFILE_STEP}, True)", 600)
+    ranks = _read_ranks(out, DP_RANKS)
+    n_bn = len(resnet50_bn_shapes(RESNET_BATCH // DP_RANKS, RESNET_IMAGE))
+    finals = [[l for l in o.splitlines() if l.startswith("FINAL ")] for o in outs]
+    for r in ranks:
+        log(f"    rank {r['rank']}: backend {r['backend']} on {r['device']}, mesh {r['mesh']}, "
+            f"{r['wall_s']:.1f} s (data, init, steps, eval), peak {r['peak_gib']:.1f} GiB; "
+            "steps: " + ", ".join(f"{s['step']}: loss {s['loss']:.4f} in {s['ms']:.1f} ms, "
+                                  f"BN launches {s['launches']['bn_stats']}/"
+                                  f"{s['launches']['bn_bwd_stats']}" for s in r["steps"]))
+    log(f"    FINAL lines by rank: {[len(f) for f in finals]}: {finals[0][:1]}")
+    if any(r["backend"] != "gloo" or not r["device"].startswith("cuda") for r in ranks):
+        raise SystemExit("the ranks sharing the card did not take gloo on CUDA devices")
+    if len(finals[0]) != 1 or any(finals[1:]) or "test_accuracy=" not in finals[0][0]:
+        raise SystemExit("the FINAL line must come from the chief alone")
+    if len({r["param_sha256"] for r in ranks}) != 1 or len({r["stats_sha256"] for r in ranks}) != 1:
+        raise SystemExit("the replicas' parameters or running stats differ at the end")
+    want = {"bn_stats": n_bn, "bn_bwd_stats": n_bn}
+    if any(s["launches"] != want for r in ranks for s in r["steps"]) or any(
+            sum(r["eval_launches"].values()) for r in ranks):
+        raise SystemExit(f"each rank must launch {n_bn} of each BN kernel a step, none in eval")
+    losses = [s["loss"] for s in ranks[0]["steps"]]
+    start = math.log(1000) + ranks[0]["l2_term"]
+    if not all(math.isfinite(x) for x in losses) or abs(losses[0] - start) > TOL_RESNET_START \
+            or not losses[-1] < losses[0]:
+        raise SystemExit(f"2-rank ResNet losses did not start near {start:.3f} and fall: {losses}")
+    par = ranks[0]["parity"]
+    paths = par["paths"]
+    affine = [i for i, p in enumerate(paths) if p.endswith(("scale", "bias"))]
+    med = {k: float(np.median(par[k])) for k in ("dp_vs_one", "reversed_vs_one")}
+    mx = {k: max(par[k]) for k in ("dp_vs_one", "reversed_vs_one")}
+    head = par["dp_vs_one"][paths.index("head/kernel")]
+    loss_gap = abs(par["dp_loss"] - par["one_loss"])
+    log(f"    parity, float32 at batch {RESNET_CMP_BATCH} ({RESNET_CMP_BATCH // DP_RANKS} a rank): "
+        f"loss {par['dp_loss']:.6f} (2 ranks) vs {par['one_loss']:.6f} (1 rank) (|d| "
+        f"{loss_gap:.2e}, tol {TOL_RESNET_LOSS:g}; the batch reversed on 1 rank: |d| "
+        f"{abs(par['reversed_loss'] - par['one_loss']):.2e}); per-leaf gradient error 2-rank vs "
+        f"1-rank median {med['dp_vs_one']:.3e}, max {mx['dp_vs_one']:.3e} at "
+        f"{paths[int(np.argmax(par['dp_vs_one']))]}, head {head:.3e} (tol {TOL_RESNET_HEAD:g}), "
+        f"BN scale/bias max {max(par['dp_vs_one'][i] for i in affine):.3e}; the float32 noise "
+        f"floor (1 rank, batch reversed) median {med['reversed_vs_one']:.3e}, max "
+        f"{mx['reversed_vs_one']:.3e} (the 2-rank step within {TOL_DP_VS_NOISE:g}x of it, or "
+        f"{TOL_RESNET_GRAD:g})")
+    if not (loss_gap <= TOL_RESNET_LOSS and head <= TOL_RESNET_HEAD and all(
+            m["dp_vs_one"] <= max(TOL_DP_VS_NOISE * m["reversed_vs_one"], TOL_RESNET_GRAD)
+            for m in (med, mx))):
+        raise SystemExit("the 2-rank ResNet step disagrees with the 1-rank step on the global batch")
+    step_ms = float(np.median([s["ms"] for s in ranks[0]["steps"][1:] if not s["profiled"]]))
+    one = next(s for s in ranks[0]["steps"][1:] if not s["profiled"])
+    log(f"    e2e: step {step_ms:.1f} ms (rank 0, median of steps 2-{RESNET_STEPS} without the "
+        f"profiled one), {RESNET_BATCH / (step_ms / 1e3):.0f} global images/s (phase 5, one "
+        f"rank, batch {RESNET_BATCH}: {phase5['step_ms']:.1f} ms; step 1 loss {losses[0]:.4f} "
+        f"vs phase 5's {phase5['first_loss']:.4f}, ln 1000 + l2 {start:.4f}) [{card}]")
+    log(f"    all-reduce a step, each rank: {_traffic_line(one)}")
+    for r in ranks:
+        p = r["profile"]
+        log(f"    rank {r['rank']} profiled step {DP_PROFILE_STEP}: {p['step_ms']:.1f} ms, device "
+            f"busy {p['busy_ms']:.1f} ms ({p['kernels']} kernels), idle share "
+            f"{p['idle_share']:.1%} of its step")
+    return {"step_ms": step_ms, "launches": [r["launches"] for r in ranks]}
+
+
+def dp_resnet_nccl(card: str, phase5: dict) -> dict:
+    """The ResNet-50 step on a world of one rank with NCCL."""
+    log(f"  ResNet-50 on one rank with NCCL (a world of 1: a real communicator), "
+        f"{DP_NCCL_STEPS} steps at batch {RESNET_BATCH}")
+    _codes, _outs, out = _run_ranks(
+        1, f"dp_resnet_rank({{out!r}}, {DP_NCCL_STEPS}, {DP_NCCL_STEPS}, False)", 600)
+    (nccl,) = _read_ranks(out, 1)
+    if nccl["backend"] != "nccl":
+        raise SystemExit(f"a world of one rank on one card took {nccl['backend']}, not nccl")
+    nccl_ms = float(np.median([s["ms"] for s in nccl["steps"][1:] if not s["profiled"]]))
+    p = nccl["profile"]
+    log(f"    backend {nccl['backend']} on {nccl['device']}: step {nccl_ms:.1f} ms (median of steps 2-"
+        f"{DP_NCCL_STEPS - 1}) beside phase 5's {phase5['step_ms']:.1f} ms; all-reduce a step: "
+        f"{_traffic_line(nccl['steps'][1])}; profiled step: {p['nccl_kernels']} NCCL kernel "
+        f"launch(es), busy {p['busy_ms']:.1f} ms of {p['step_ms']:.1f} [{card}]")
+    if any(s["traffic"].get("grads_calls") != 1 for s in nccl["steps"]):
+        raise SystemExit("the NCCL world of one did not all-reduce its gradients every step")
+    return {"step_ms": nccl_ms, "launches": [nccl["launches"]]}
+
+
+def dp_lstm(card: str) -> dict:
+    """W5 at its CLI defaults on ``DP_RANKS`` ranks sharing the card."""
+    log(f"  PTB LSTM (W5) at its CLI defaults on {DP_RANKS} ranks sharing the card, "
+        f"{WORKLOAD_STEPS} steps")
+    _codes, outs, out = _run_ranks(DP_RANKS, "dp_lstm_rank({out!r})", 600)
+    ranks = _read_ranks(out, DP_RANKS)
+    finals = [[l for l in o.splitlines() if l.startswith("FINAL ")] for o in outs]
+    losses = [s["loss"] for s in ranks[0]["steps"]]
+    par = ranks[0]["parity"]
+    lstm_ms = float(np.median([s["ms"] for s in ranks[0]["steps"][1:]]))
+    log(f"    {finals[0][:1]}; backends {[r['backend'] for r in ranks]}; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; valid_perplexity {ranks[0]['valid_perplexity']:.2f}")
+    log(f"    clip: one float32 step from the initial weights at clip {par['clip_norm']:g} "
+        f"(the global gradient's norm {par['global_grad_norm']:.4f}, so the clip scales the "
+        f"step): the 2-rank update vs the 1-rank one over the global rows, per leaf max "
+        f"{max(par['dp_vs_one']):.3e} (tol {TOL_DP_LSTM_UPDATE:g})")
+    log(f"    e2e: step {lstm_ms:.3f} ms (rank 0, median of steps 2-{WORKLOAD_STEPS}), "
+        f"{64 * 20 / (lstm_ms / 1e3):.0f} global tokens/s; all-reduce a step, each rank: "
+        f"{_traffic_line(ranks[0]['steps'][1])} [{card}]")
+    if len(finals[0]) != 1 or any(finals[1:]) or "valid_perplexity=" not in finals[0][0]:
+        raise SystemExit("W5: the FINAL line with valid_perplexity must come from the chief alone")
+    if any(r["backend"] != "gloo" for r in ranks) or len({r["param_sha256"] for r in ranks}) != 1:
+        raise SystemExit("W5: the ranks did not take gloo or end with different parameters")
+    if len(losses) != WORKLOAD_STEPS or not all(math.isfinite(x) for x in losses):
+        raise SystemExit("W5: a loss is not finite (or steps are missing)")
+    if par["global_grad_norm"] <= DP_LSTM_CLIP or max(par["dp_vs_one"]) > TOL_DP_LSTM_UPDATE:
+        raise SystemExit("W5: the 2-rank clipped update disagrees with the 1-rank one")
+    return {"step_ms": lstm_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
@@ -2395,7 +2898,7 @@ def main() -> int:
     train_launches, train_tc = train_end_to_end(card, kernel_ms)
 
     log("phase 5: train ResNet-50 end to end with the fused BatchNorm statistics")
-    resnet_launches = resnet_end_to_end(card)
+    resnet_launches, resnet_run = resnet_end_to_end(card)
 
     log(f"phase 6: train the flagship at T {LONG_T} end to end through the fused backward")
     long_launches, long_tc = train_long_end_to_end(card, fused["ms"], long_fwd["ms"])
@@ -2411,6 +2914,15 @@ def main() -> int:
     ps = ps_emulation_end_to_end(card)
     log("  ps_emulation: " + json.dumps({k: {m: (round(v, 6) if isinstance(v, float) else v)
                                              for m, v in r.items()} for k, r in ps.items()}))
+
+    log("phase 9: synchronous data parallelism on the card (ResNet-50 W3 and the PTB LSTM "
+        f"W5 on {DP_RANKS} ranks sharing it, gloo; ResNet-50 on a world of one, nccl)")
+    torch.cuda.empty_cache()  # the ranks are processes of their own
+    dp = data_parallel_end_to_end(card, resnet_run)
+    dp_launches = {name: [r.get(name, 0) for r in dp["resnet_dp2"]["launches"]]
+                   for name in ("bn_stats", "bn_bwd_stats")}
+    nccl_launches = {name: dp["resnet_nccl1"]["launches"][0].get(name, 0)
+                     for name in ("bn_stats", "bn_bwd_stats")}
 
     csrc = "distributed_tensorflow_examples_tpu_torch/ops/csrc"
     tpu = "distributed_tensorflow_examples_tpu/ops/flash_attention.py"
@@ -2452,8 +2964,11 @@ def main() -> int:
         *({
             "name": name, "route": "cuda", "source": f"{csrc}/bn_stats.cu",
             "replaces": f"distributed_tensorflow_examples_tpu/ops/bn.py:{line}",
-            "launches": resnet_launches.get(name, 0),
-            "launches_by_path": {"train_resnet50": resnet_launches.get(name, 0)},
+            "launches": resnet_launches.get(name, 0) + sum(dp_launches[name])
+            + nccl_launches[name],
+            "launches_by_path": {"train_resnet50": resnet_launches.get(name, 0),
+                                 "train_resnet50_dp2_by_rank": dp_launches[name],
+                                 "train_resnet50_nccl1": nccl_launches[name]},
             "max_abs_err": max(e[name] for e in bn_errs), **bn_times[name],
         } for name, line in (("bn_stats", 166), ("bn_bwd_stats", 239))),
     ]}

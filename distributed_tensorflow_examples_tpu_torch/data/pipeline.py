@@ -1,9 +1,13 @@
-"""Batching, batch grouping and the host-to-device infeed: the one-process
-part of ``distributed_tensorflow_examples_tpu/data/pipeline.py``.
+"""Batching, the per-rank shard and the host-to-device infeed: the port
+of ``distributed_tensorflow_examples_tpu/data/pipeline.py``.
 
-:class:`InMemoryPipeline` gives the JAX pipeline's batches for the same
-seed on one process: epoch e's order is
-``default_rng((seed, e)).permutation(n)``.
+:class:`InMemoryPipeline` gives each rank exactly the rows the JAX
+pipeline gives that process for the same seed: epoch e's order is
+``default_rng((seed, e)).permutation(n)``, truncated to a multiple of the
+rank count, and rank r takes every ``count``-th entry from r (strided,
+not contiguous), ``batch_size / count`` rows a batch.  JAX's
+``as_global`` lays those local batches out as one global batch, rank
+0's rows first; the port's ranks keep theirs (``parallel/sharding.py``).
 
 :func:`prefetch_to_device` takes ``prefetch_to_mesh``'s role: a
 background thread keeps ``depth`` batches queued, each field copied from
@@ -21,13 +25,25 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from ..parallel import dist
+
 
 class InMemoryPipeline:
-    """Shuffled, infinitely repeating batch stream over in-memory numpy
-    arrays (one process: every batch is ``batch_size`` rows; the ragged
-    end of an epoch is dropped)."""
+    """Shuffled, sharded, infinitely repeating batch stream over in-memory
+    numpy arrays.  ``batch_size`` is the GLOBAL batch; this rank yields
+    ``batch_size // process_count`` rows a batch (``process_index`` and
+    ``process_count`` default to the world's rank and size); the ragged
+    end of an epoch is dropped."""
 
-    def __init__(self, arrays: dict[str, np.ndarray], *, batch_size: int, seed: int = 0):
+    def __init__(
+        self,
+        arrays: dict[str, np.ndarray],
+        *,
+        batch_size: int,
+        seed: int = 0,
+        process_index: int | None = None,
+        process_count: int | None = None,
+    ):
         lengths = {k: len(v) for k, v in arrays.items()}
         if len(set(lengths.values())) != 1:
             raise ValueError(f"mismatched field lengths {lengths}")
@@ -35,15 +51,24 @@ class InMemoryPipeline:
         self.n = next(iter(lengths.values()))
         if not 0 < batch_size <= self.n:
             raise ValueError(f"batch_size {batch_size} must be in [1, {self.n}]")
+        self.pidx = dist.process_index() if process_index is None else process_index
+        self.pcount = dist.process_count() if process_count is None else process_count
+        if batch_size % self.pcount:
+            raise ValueError(f"global batch {batch_size} not divisible by {self.pcount} ranks")
         self.batch_size = batch_size
+        self.local_batch = batch_size // self.pcount
         self.seed = seed
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         epoch = 0
         while True:
             order = np.random.default_rng((self.seed, epoch)).permutation(self.n)
-            for s in range(self.n // self.batch_size):
-                idx = order[s * self.batch_size : (s + 1) * self.batch_size]
+            # Every rank's shard the same length, so the ranks cross epoch
+            # boundaries at the same step.
+            order = order[: self.n - (self.n % self.pcount)]
+            local = order[self.pidx :: self.pcount]
+            for s in range(len(local) // self.local_batch):
+                idx = local[s * self.local_batch : (s + 1) * self.local_batch]
                 yield {k: v[idx] for k, v in self.fields.items()}
             epoch += 1
 

@@ -75,5 +75,6 @@ def train_iter(
     if worker is not None:
         if not 0 <= worker < n_workers:
             raise ValueError(f"worker {worker} is not one of {n_workers} workers")
-        return iter(InMemoryPipeline(src.ds.train, batch_size=batch_size, seed=seed + worker))
+        return iter(InMemoryPipeline(src.ds.train, batch_size=batch_size, seed=seed + worker,
+                                     process_index=0, process_count=1))
     return iter(InMemoryPipeline(src.ds.train, batch_size=batch_size, seed=seed))

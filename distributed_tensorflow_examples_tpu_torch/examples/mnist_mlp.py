@@ -1,6 +1,8 @@
 """MNIST MLP example of the port: the twin of ``examples/mnist_mlp.py``
 (W1, the reference's SyncReplicasOptimizer workload), with the JAX CLI's
-flag names and defaults: its sync path on one device, or its PS emulation.
+flag names and defaults: its sync path (data parallel over the ranks of
+``TF_CONFIG``, each its strided share of the global batch), or its PS
+emulation.
 
 The MLP (``--hidden_units``, a comma list) from the JAX init's weights,
 plain SGD at ``--learning_rate``, MNIST from ``--data_dir/mnist.npz`` or
@@ -71,7 +73,7 @@ def run_training(args, *, extra_hooks=()):
             loss_fn=mlp.loss_fn(cfg),
             optimizer=optim.SGD(args.learning_rate),
             batches_for_worker=lambda w, bs, nw: InMemoryPipeline(
-                ds.train, batch_size=bs, seed=args.seed + w),
+                ds.train, batch_size=bs, seed=args.seed + w, process_index=0, process_count=1),
             FLAGS=args,
             mode="sync_replicas" if args.sync_replicas else "async",
             eval_fn=ps_experiment.array_eval_fn(

@@ -1,6 +1,6 @@
 """PTB LSTM example of the port: the twin of ``examples/ptb_lstm.py`` (W5,
-the reference's MultiWorkerMirroredStrategy workload) on one device, with
-the JAX CLI's flag names and defaults.
+the reference's MultiWorkerMirroredStrategy workload), with the JAX CLI's
+flag names and defaults.
 
 A word-level LSTM language model over truncated-BPTT windows
 (``--seq_len``) of PTB under ``--data_dir`` (``ptb.train.txt``,
@@ -13,11 +13,17 @@ the ``FINAL ... valid_perplexity=`` line.  Runs on the card unless
     python -m distributed_tensorflow_examples_tpu_torch.examples.ptb_lstm \\
         --batch_size=64 --seq_len=20 --train_steps=2000
 
+On a world of N ranks (``TF_CONFIG``, one process each; see
+``utils/multiprocess.py``) each rank trains on a contiguous block of the
+token stream with ``--batch_size / N`` rows and its own carry of those
+rows, the gradients mean-all-reduced before the clip, as the JAX CLI
+splits the rows over hosts; the validation runs on every rank, and the
+chief prints FINAL.
+
 ``--job_name=ps`` prints and exits 0 and the TF-1 cluster flags are mapped
 (``utils/flags.py``); the JAX CLI has no PS branch, so ``--ps_emulation``
 and ``--sync_replicas=false`` train as usual here too, and only a
-cross-process PS task raises (A9b).  The multi-worker ring (rows split
-over hosts) waits for the port's multi-device spine (A5).
+cross-process PS task raises (A9b).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 
 from ..data import datasets, pipeline
 from ..models import lstm
+from ..parallel import dist, sharding
 from ..train import Experiment, optim
 from ..train.state import as_state_leaves
 from ..utils import flags, threefry
@@ -89,13 +96,17 @@ def run_training(args, *, extra_hooks=()) -> Experiment:
                  len(valid_ids))
     cfg = config_from_args(args)
     exp = Experiment(
-        init_fn=lambda seed: lstm.init_numpy(cfg, seed, batch_size=args.batch_size),
+        # The carry of this rank's rows (the world is up when init runs).
+        init_fn=lambda seed: lstm.init_numpy(
+            cfg, seed, batch_size=args.batch_size // dist.process_count()),
         loss_fn=lstm.loss_fn(cfg),
         optimizer=optim.SGD(args.learning_rate, clip_norm=args.clip_norm),
         flags=args,
         extra_hooks=extra_hooks,
+        row_sharded_state=True,
     )
-    exp.run(datasets.lm_batches(train_ids, batch_size=args.batch_size, seq_len=args.seq_len))
+    local_ids, local_rows = sharding.stream_block(train_ids, args.batch_size)
+    exp.run(datasets.lm_batches(local_ids, batch_size=local_rows, seq_len=args.seq_len))
     exp.valid_perplexity = valid_perplexity(
         cfg, exp.state.params, valid_ids, batch_size=args.batch_size, seq_len=args.seq_len,
         device=exp.device,

@@ -18,8 +18,19 @@ every BatchNorm through the statistics kernels (``ops/bn.py``).
 TF-1 cluster flags are accepted and mapped (``utils/flags.py``): the JAX
 CLI has no PS branch, so ``--ps_emulation`` and ``--sync_replicas=false``
 train as usual, and only a cross-process PS task raises (A9b); ghost-batch BN
-(``--bn_ghost_slices``), streamed ``--data_dir`` sources and a mesh beyond
-one device wait for the port's items A8, A10 and A5.
+(``--bn_ghost_slices``) and streamed ``--data_dir`` sources wait for the
+port's items A8 and A10.
+
+On a world of N ranks (the reference's MirroredStrategy; ``TF_CONFIG``,
+one process per rank, ``utils/multiprocess.py``) each rank trains on its
+strided share of every global batch (``--batch_size / N`` rows), the
+gradients mean-all-reduced, BatchNorm synchronised over the ranks (the
+plain path's sums, or the fused path's B6/B7 partial sums), and the
+chief prints FINAL::
+
+    TF_CONFIG='{"cluster": {"worker": ["localhost:7000", "localhost:7000"]},
+                "task": {"type": "worker", "index": 0}}' \
+        python -m distributed_tensorflow_examples_tpu_torch.examples.resnet50 ...
 """
 
 from __future__ import annotations

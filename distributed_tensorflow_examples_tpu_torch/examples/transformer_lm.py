@@ -31,9 +31,11 @@ ignored, ``--worker_hosts`` logged; the JAX CLI has no PS branch, so
 cross-process PS task or a serve replica tracking ``--ps_hosts`` raises
 (the port's PS transport, A9b).  ``--sample_tokens=N`` greedily
 decodes N tokens after training from the corpus's first 16 tokens and
-logs them.  Pipeline stages, mixture-of-experts blocks and a mesh beyond
-one device wait for the port's model-parallel and multi-device items (A8,
-A5).
+logs them.  On a world of N ranks (``TF_CONFIG``) each rank trains on a
+contiguous block of the corpus with ``--batch_size / N`` rows, as the
+JAX CLI shards it over hosts, and, as there, a multi-process run skips
+the registry publish.  Pipeline stages and mixture-of-experts blocks
+wait for the port's model-parallel slice (A8).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ import numpy as np
 
 from ..data import datasets
 from ..models import transformer
+from ..parallel import dist, sharding
 from ..serve import ModelRegistry, host_serve_task
 from ..train import Experiment, optim
 from ..train.checkpoint import flat_params_of
@@ -137,9 +140,14 @@ def _serve(args) -> None:
     )
 
 
-def _publish_to_registry(args, exp) -> int:
+def _publish_to_registry(args, exp) -> int | None:
     """Publish the trained params as a NEW immutable registry version (the
-    artifact a pinned serve replica loads)."""
+    artifact a pinned serve replica loads); None on a multi-process run,
+    as in the JAX CLI."""
+    if dist.process_count() > 1:
+        logging.warning("--registry_dir publish skipped on multi-process runs; restore "
+                        "the checkpoint in one process and publish there.")
+        return None
     version = ModelRegistry(args.registry_dir).publish(
         "transformer_lm",
         flat_params_of(exp.state),
@@ -182,7 +190,8 @@ def run_training(args, *, extra_hooks=()) -> Experiment:
         device=args.device,
         extra_hooks=extra_hooks,
     )
-    exp.run(datasets.lm_batches(ids, batch_size=args.batch_size, seq_len=args.seq_len))
+    local_ids, local_rows = sharding.stream_block(ids, args.batch_size)
+    exp.run(datasets.lm_batches(local_ids, batch_size=local_rows, seq_len=args.seq_len))
     if args.sample_tokens > 0:
         # KV-cache greedy decode from a corpus prompt.
         out = transformer.generate(

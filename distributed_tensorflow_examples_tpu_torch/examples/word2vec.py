@@ -15,8 +15,10 @@ line.  Runs on the card unless ``--device=cpu``::
 ``--job_name=ps`` prints and exits 0 and the TF-1 cluster flags are mapped
 (``utils/flags.py``); the JAX CLI has no PS branch, so ``--ps_emulation``
 and ``--sync_replicas=false`` train as usual here too, and only a
-cross-process PS task raises (A9b).  The embedding sharded over a
-``model`` mesh axis waits for the port's items A5 and A8.
+cross-process PS task raises (A9b).  On a world of N ranks (``TF_CONFIG``)
+each rank draws ``--batch_size / N`` pairs a step from its own stream
+(seed ``--seed + rank``), as the JAX CLI does.  The embedding sharded
+over a ``model`` mesh axis waits for the port's model-parallel slice (A8).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import sys
 
 from ..data import datasets
 from ..models import word2vec
+from ..parallel import dist
 from ..train import Experiment, optim
 from ..utils import flags
 
@@ -70,8 +73,9 @@ def run_training(args, *, extra_hooks=()) -> Experiment:
         flags=args,
         extra_hooks=extra_hooks,
     )
-    exp.run(datasets.skipgram_batches(ids, batch_size=args.batch_size, window=args.window,
-                                      seed=args.seed))
+    exp.run(datasets.skipgram_batches(
+        ids, batch_size=args.batch_size // dist.process_count(), window=args.window,
+        seed=args.seed + dist.process_index()))
     eval_pairs = next(datasets.skipgram_batches(
         ids, batch_size=EVAL_PAIRS, window=args.window, seed=args.seed + 999
     ))

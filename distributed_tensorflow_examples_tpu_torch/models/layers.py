@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import bn as bn_ops
+from ..parallel import collectives
 from ..utils import threefry
 
 # ----------------------------------------------------------------------------
@@ -197,7 +198,8 @@ def batchnorm(
     - train with a ``mesh``: the fused statistics path (``ops/bn.py``: the
       B6/B7 kernels on the card, under a custom backward);
     - train without: one-pass f32 statistics, clamped biased variance,
-      autograd through them;
+      autograd through them; under data parallelism the global batch's
+      (sums all-reduced over the ranks, ``collectives.psum``);
     - eval: the running stats ([S, C] ghost stats by the law of total
       variance).
 
@@ -222,8 +224,13 @@ def batchnorm(
             }
         axes = tuple(range(x.dim() - 1))
         xf = x.to(torch.float32)
-        mean = xf.mean(dim=axes)
-        mean_sq = xf.square().mean(dim=axes)
+        # The global batch's moments, as GSPMD makes JAX's mean over a
+        # batch sharded on 'data': sums all-reduced with autograd (the
+        # identity on one rank), over the global count.
+        sums = collectives.psum(
+            torch.stack([xf.sum(dim=axes), xf.square().sum(dim=axes)]), tag="bn")
+        n = (x.numel() // x.shape[-1]) * collectives.axis_size()
+        mean, mean_sq = sums[0] / n, sums[1] / n
         # Clamp: f32 cancellation can push E[x^2]-E[x]^2 slightly negative.
         var = torch.clamp(mean_sq - mean.square(), min=0.0)
         new_stats = {

@@ -9,7 +9,8 @@ truncated-BPTT carry (c, h per layer, float32, shaped for the batch) is
 the train state's ``model_state``: the last state of one window starts
 the next, detached (the twin of ``stop_gradient``), so backprop stops at
 the window's edge.  Dropout on the embedding (``keep_prob < 1``) draws
-its mask from the step's key with ``threefry.bernoulli``.  The products
+its mask from the step's key with ``threefry.bernoulli``; under data
+parallelism each rank takes its rows of the global batch's draw.  The products
 are ``torch.matmul`` (the JAX package has no LSTM kernel), so a step on
 the card is some thousand small launches.
 """
@@ -21,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..parallel import sharding
 from ..utils import device as device_lib
 from ..utils import threefry
 from . import layers
@@ -79,7 +81,10 @@ def apply(cfg: Config, params, carry, x, *, rng=None):
     new_carry detached in float32)."""
     emb = layers.embedding_lookup(params["emb"], x, dtype=cfg.dtype)  # [B,T,D]
     if cfg.keep_prob < 1.0 and rng is not None:
-        mask = threefry.bernoulli(rng, cfg.keep_prob, tuple(emb.shape), emb.device)
+        # This rank's rows of the draw shaped by the global batch, as JAX
+        # draws one mask for the batch sharded over 'data'.
+        shape = (sharding.global_batch(emb.shape[0]), *emb.shape[1:])
+        mask = sharding.local_rows(threefry.bernoulli(rng, cfg.keep_prob, shape, emb.device))
         emb = torch.where(mask, emb / cfg.keep_prob, 0).to(emb.dtype)
     carries = [(carry[f"lstm_{i}"]["c"], carry[f"lstm_{i}"]["h"])
                for i in range(cfg.num_layers)]

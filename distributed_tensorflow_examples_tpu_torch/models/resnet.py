@@ -10,10 +10,10 @@ The parameter and state trees are the JAX ones (``stem``, ``bn_stem``,
 ``stage<s>/block<b>``, ``head``), so trees and flat registry vectors move
 between the packages as they are.
 
-``mesh`` (a one-device ``parallel.mesh.Mesh``) sends every BatchNorm
-through the fused statistics path, the B6/B7 kernels on the card
-(``ops/bn.py``), as the JAX ``mesh=`` does; without it BatchNorm is plain
-torch.  Ghost-batch BN training (``bn_ghost_slices > 0``) waits for the
+``mesh`` (a ``parallel.mesh.Mesh``) sends every BatchNorm through the
+fused statistics path, the B6/B7 kernels on the card (``ops/bn.py``;
+SyncBN when its ``data`` axis is larger than 1), as the JAX ``mesh=``
+does; without it BatchNorm is plain torch.  Ghost-batch BN training (``bn_ghost_slices > 0``) waits for the
 port's model-parallel slice (A8).
 """
 

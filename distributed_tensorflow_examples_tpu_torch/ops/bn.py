@@ -25,9 +25,17 @@ elementwise output in ``x.dtype``; the backward's sums from
 (biased variance, matching the E[x^2]-E[x]^2 forward): xhat = (x - mean) *
 inv; dy = do * relu_mask; dx = gamma * inv * (dy - s1/n - xhat * s2/n).
 
-SyncBN over a ``data`` axis larger than 1 (per-device partial sums, then
-an all_reduce of the (1, C) partials) comes with the port's multi-device
-item, A5: such a mesh raises here.
+SyncBN (a mesh whose ``data`` axis is larger than 1, JAX's
+``_shard_stats``): each rank runs the kernel on its own rows, and the
+(1, C) partial sums are sum-all-reduced over the mesh's data group
+(``Mesh.group``, ``parallel/mesh.py``) before the division by the global count
+(local rows x ranks), as JAX's ``_count`` reads the global array.  The
+backward sums (s1, s2) likewise, and dx takes the global sums.  The
+cotangents of scale and bias are the rank's LOCAL sums: the data-parallel
+step then averages them with every other gradient (JAX returns the psum'd
+sums because its one global loss has no later average; so does
+``torch.nn.SyncBatchNorm``: local ``grad_weight``, global sums for
+``grad_input``).
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import ctypes
 
 import torch
 
+from ..parallel import collectives
 from . import LAUNCHES, _build
 
 #: Statistics implementation, as in the JAX package: "kernel" (the
@@ -228,29 +237,33 @@ def mm_bwd_stats(do, x, mean, inv, scale, bias, *, relu: bool):
     return s1, s2
 
 
-def _check_mesh(mesh) -> None:
-    """A mesh whose ``data`` axis is larger than 1 needs SyncBN's all_reduce
-    of the per-device partial sums: the port's multi-device item (A5)."""
-    if mesh is not None and mesh.shape.get("data", 1) > 1:
-        raise NotImplementedError(
-            f"batchnorm over a data axis of {mesh.shape['data']} (SyncBN's "
-            "all_reduce of the (1, C) partial sums) waits for the port's "
-            "multi-device item (A5)"
-        )
+def _sum_over_ranks(a, b, group):
+    """(a, b), two [C] partial sums, summed over ``group`` (the mesh's data
+    group) in one all-reduce when it has more than one rank."""
+    if group is None or group.size == 1:
+        return a, b
+    both = torch.stack([a, b])
+    with collectives.use_group(group):
+        collectives.all_reduce_sum_(both, tag="bn")
+    return both[0], both[1]
 
 
 def _count(x) -> int:
     return x.numel() // x.shape[-1]
 
 
-def _stats_of(x, mesh):
-    _check_mesh(mesh)
+def _ranks(group) -> int:
+    return 1 if group is None else group.size
+
+
+def _stats_of(x, group):
     if IMPL == "matmul":
         s, ss = mm_stats(x)
     else:
         s, ss = bn_stats(x)
         s, ss = s[0], ss[0]
-    n = _count(x)
+    s, ss = _sum_over_ranks(s, ss, group)
+    n = _count(x) * _ranks(group)
     mean = s / n
     var = torch.clamp(ss / n - mean * mean, min=0.0)  # one-pass, clamped
     return mean, var
@@ -263,7 +276,8 @@ class BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, scale, bias, x, eps, mesh, relu):
-        mean, var = _stats_of(x, mesh)
+        group = None if mesh is None else mesh.group
+        mean, var = _stats_of(x, group)
         inv = torch.rsqrt(var + eps)
         dt = x.dtype
         # The same elementwise formula and compute dtype as the no-mesh path.
@@ -271,7 +285,7 @@ class BatchNormTrain(torch.autograd.Function):
         if relu:
             y = torch.relu(y)
         ctx.save_for_backward(scale, bias, x, mean, inv)
-        ctx.relu = relu
+        ctx.relu, ctx.group = relu, group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -286,7 +300,8 @@ class BatchNormTrain(torch.autograd.Function):
                 do, x, mean, inv, scale.to(torch.float32), bias.to(torch.float32), relu=relu
             )
             s1, s2 = s1[0], s2[0]
-        n = _count(x)
+        g1, g2 = _sum_over_ranks(s1, s2, ctx.group)
+        n = _count(x) * _ranks(ctx.group)
         dt = x.dtype
         xhat = (x - mean.to(dt)) * inv.to(dt)
         dy = do
@@ -294,8 +309,8 @@ class BatchNormTrain(torch.autograd.Function):
             pre = xhat * scale.to(dt) + bias.to(dt)
             dy = do * (pre > 0).to(dt)
         g = (scale * inv).to(dt)
-        dx = g * (dy - (s1 / n).to(dt) - xhat * (s2 / n).to(dt))
-        return s2, s1, dx, None, None, None  # dgamma, dbeta, dx
+        dx = g * (dy - (g1 / n).to(dt) - xhat * (g2 / n).to(dt))
+        return s2, s1, dx, None, None, None  # local dgamma, dbeta; dx
 
 
 def batchnorm_train(scale, bias, x, eps, mesh, relu=False):

@@ -1,5 +1,6 @@
-"""Host-side transport of the port: copies of the JAX package's jax-free
-wire, server runtime, tenancy and retry modules (wire bytes identical),
-and the in-process parameter-server emulation (``async_ps``)."""
-
-from .async_ps import AsyncPSConfig, AsyncPSTrainer  # noqa: F401
+"""The port's parallel layer: the process world (``dist``), the mesh over
+it (``mesh``), the data-axis collectives and batch sharding
+(``collectives``, ``sharding``), the in-process parameter-server
+emulation (``async_ps``), and copies of the JAX package's jax-free wire,
+server runtime, tenancy and retry modules (wire bytes identical).
+Import the modules themselves."""

@@ -14,6 +14,14 @@ lists, numbers and tensors).  A step that does not load (a file torn by
 a disk fault) is moved aside to ``.unreadable-<step>`` with a warning,
 and the step before it is tried.  Saves are synchronous; ``wait``
 exists for the hooks' sake.
+
+Under data parallelism every rank calls ``save`` at the same step; the
+chief alone writes, and a barrier follows, so every rank may then read
+the step.  Every rank restores (the chief alone moves an unreadable step
+aside).  With ``row_sharded_state`` the model state is split by rows
+over the ranks (the LSTM's carry, which JAX's rules shard over
+``data``): ``save`` gathers it into the global layout, rank 0's rows
+first, and a restore takes the rank's rows back.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 
 from ..bridge import _leaves
 from ..bridge import flat_params_of as _flat
+from ..parallel import collectives, dist, sharding
 from .state import TrainState
 
 log = logging.getLogger("dtx.checkpoint")
@@ -54,9 +63,11 @@ class CheckpointManager:
     """``save(step, state)`` (deduped, keeps ``max_to_keep``),
     ``restore_latest(template)``, ``latest_step()``."""
 
-    def __init__(self, directory: str, *, max_to_keep: int = 5):
+    def __init__(self, directory: str, *, max_to_keep: int = 5,
+                 row_sharded_state: bool = False):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.row_sharded_state = row_sharded_state
         os.makedirs(self.directory, exist_ok=True)
 
     def all_steps(self) -> list[int]:
@@ -72,10 +83,20 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState) -> bool:
         """Save ``state`` as ``step``, unless that step is saved already
-        (periodic + final overlap)."""
+        (periodic + final overlap).  Every rank calls it; the chief
+        writes; all leave together."""
         step = int(step)
-        if self.latest_step() == step:
-            return False
+        model_state = state.model_state
+        if self.row_sharded_state:
+            model_state = _gather_rows(model_state)
+        wrote = False
+        if dist.is_chief() and self.latest_step() != step:
+            self._write(step, state, model_state)
+            wrote = True
+        dist.barrier(f"checkpoint-{step}")
+        return wrote
+
+    def _write(self, step: int, state: TrainState, model_state) -> None:
         final = os.path.join(self.directory, str(step))
         tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
@@ -84,7 +105,7 @@ class CheckpointManager:
             "step": int(state.step),
             "params": {path: p.detach() for path, p in _leaves(state.params)},
             "opt_state": state.opt_state.state_dict(),
-            "model_state": state.model_state,
+            "model_state": model_state,
             "seed": int(state.seed),
         }
         with open(os.path.join(tmp, _FILE), "wb") as f:
@@ -98,7 +119,6 @@ class CheckpointManager:
         for old in self.all_steps()[: -self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
         log.info("saved checkpoint at step %d", step)
-        return True
 
     def _load(self, step: int, device):
         """The saved payload of ``step``, or None (and the step moved
@@ -107,7 +127,11 @@ class CheckpointManager:
         try:
             return torch.load(os.path.join(path, _FILE), map_location=device,
                               weights_only=True)
-        except (RuntimeError, EOFError, pickle.UnpicklingError) as e:
+        except (RuntimeError, EOFError, OSError, pickle.UnpicklingError) as e:
+            if not dist.is_chief():
+                log.warning("checkpoint at step %d does not load (%s); trying the step "
+                            "before it", step, e)
+                return None
             aside = os.path.join(self.directory, f".unreadable-{step}")
             shutil.rmtree(aside, ignore_errors=True)
             os.replace(path, aside)
@@ -143,12 +167,15 @@ class CheckpointManager:
             for path, p in params.items():
                 p.copy_(blob["params"][path])
         template.opt_state.load_state_dict(blob["opt_state"])
+        model_state = blob["model_state"]
+        if self.row_sharded_state:
+            model_state = _map(sharding.local_rows, model_state)
         log.info("restored checkpoint at step %d", step)
         return TrainState(
             step=int(blob["step"]),
             params=template.params,
             opt_state=template.opt_state,
-            model_state=blob["model_state"],
+            model_state=model_state,
             seed=int(blob["seed"]),
         )
 
@@ -157,3 +184,22 @@ class CheckpointManager:
 
     def close(self) -> None:
         pass
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _gather_rows(tree):
+    """Every leaf of a row-sharded tree as the global tensor: the ranks'
+    rows concatenated in rank order (the leaf itself on one rank)."""
+    if collectives.axis_size() == 1:
+        return tree
+
+    def gather(t):
+        parts = collectives.all_gather_object(t.detach().cpu())
+        return torch.cat(parts).to(t.device)
+
+    return _map(gather, tree)

@@ -4,6 +4,9 @@
 Runs ``state, metrics = step_fn(state, batch)`` until a hook requests
 stop: hook dispatch around every step, auto-resume from the newest
 checkpoint before the first step, and a final ``end`` for every hook.
+Under data parallelism every rank resumes from the same checkpoint, and
+before the first step the ranks prove that they hold the same
+parameters (``state.check_replicas_equal``).
 """
 
 from __future__ import annotations
@@ -11,8 +14,9 @@ from __future__ import annotations
 import logging
 from typing import Any, Callable, Iterable, Sequence
 
+from ..parallel import collectives
 from .hooks import Hook
-from .state import TrainState
+from .state import TrainState, check_replicas_equal
 
 log = logging.getLogger("dtx.loop")
 
@@ -62,6 +66,9 @@ class TrainSession:
                 self._host_step = int(restored.step)
                 self.record(resumed_at=self._host_step)
                 log.info("auto-resumed at step %d", self.step)
+        if collectives.axis_size() > 1:
+            digest = check_replicas_equal(self.state.params)
+            log.info("replicas equal at step %d: params sha256 %s", self.step, digest[:16])
         for h in self.hooks:
             h.begin(self)
 

@@ -4,6 +4,12 @@
 A SIGTERM flips a flag; the loop, at its only safe point (between
 steps), saves a checkpoint and requests a clean stop.  Resume is the
 ordinary auto-restore of ``TrainSession``.
+
+Under data parallelism a save is a collective (the chief writes, a
+barrier follows), and a signal may reach one rank only, or the ranks at
+different steps.  So after every step the ranks sum their flags (one
+all-reduce of one number): all of them save and stop at the first step
+after which any rank holds the flag.
 """
 
 from __future__ import annotations
@@ -12,7 +18,11 @@ import logging
 import signal
 import threading
 
+import torch
+
+from ..parallel import collectives
 from .hooks import Hook
+from .state import leaves
 
 log = logging.getLogger("dtx.preemption")
 
@@ -45,8 +55,19 @@ class PreemptionCheckpointHook(Hook):
         """Manual preemption signal (tests / external watchers)."""
         self._flag.set()
 
+    def _any_rank_preempted(self, loop) -> bool:
+        flag = self._flag.is_set()
+        if collectives.axis_size() == 1:
+            return flag
+        device = leaves(loop.state.params)[0].device  # the rank's card under nccl
+        t = torch.tensor([float(flag)], device=device)
+        collectives.all_reduce_sum_(t, tag="preempt")
+        if t.item() > 0:
+            self._flag.set()
+        return self._flag.is_set()
+
     def after_step(self, loop, metrics):
-        if self._flag.is_set() and not loop.should_stop():
+        if self._any_rank_preempted(loop) and not loop.should_stop():
             self.mgr.save(loop.step, loop.state)
             self.mgr.wait()
             loop.request_stop(f"preempted at step {loop.step} (checkpoint saved)")

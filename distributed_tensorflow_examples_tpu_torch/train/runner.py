@@ -1,23 +1,30 @@
-"""Experiment runner on one device: the port of
+"""Experiment runner: the port of
 ``distributed_tensorflow_examples_tpu/train/runner.py``.
 
-flags -> mesh -> state on the device -> train step -> hooks (stop, step
-counter, logging, summary, checkpoint, preemption) -> ``TrainSession``,
-plus the host-to-device infeed, the full-split ``evaluate`` and the
-``FINAL`` line the scrapers read.  A mesh beyond one device (``--mesh``
-other than empty or ``data=1``) waits for the port's multi-device items
-(A5 data parallel, A8 model parallel): ``parallel.mesh.build_mesh``
-raises; so do ``--zero_opt`` (A8) and ``--profile`` (A12), through
-``utils.flags.check_training_flags``; ``--deterministic`` turns on
+flags -> process world -> mesh -> state on the rank's device -> train
+step -> hooks (stop, step counter, logging, summary, checkpoint,
+preemption) -> ``TrainSession``, plus the host-to-device infeed, the
+full-split ``evaluate`` and the ``FINAL`` line the scrapers read.
+
+The world comes from ``parallel.dist.initialize`` (``TF_CONFIG`` or
+nothing: one process); a ``ps``/``evaluator`` task prints and exits 0.
+The mesh's ``data`` axis is the world (``--mesh`` must tile it); a
+model-parallel axis raises (A8), as do ``--zero_opt`` (A8) and
+``--profile`` (A12) through ``utils.flags.check_training_flags``.  On a
+world of 2 or more, ``--watchdog`` starts the peer watchdog; the metrics
+writer and the ``FINAL`` line are the chief's; ``evaluate`` splits each
+batch over the ranks and averages.  ``--deterministic`` turns on
 ``utils.determinism``, as the JAX ``Experiment`` does.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Any, Callable, Iterable
 
 from ..data import pipeline as pipeline_lib
+from ..parallel import collectives, dist, sharding
 from ..parallel.mesh import MeshSpec, build_mesh
 from ..utils import determinism
 from ..utils import device as device_lib
@@ -31,9 +38,11 @@ from .preemption import PreemptionCheckpointHook
 from .state import create_state
 from .step import build_eval_step, build_train_step
 
+log = logging.getLogger("dtx.runner")
+
 
 class Experiment:
-    """One configured training run on one device.
+    """One configured training run on this rank's device.
 
     ``init_fn(seed) -> params | (params, model_state)`` (numpy or tensor
     leaves), the framework-standard ``loss_fn`` (or ``loss_fn_factory(mesh)``
@@ -41,8 +50,11 @@ class Experiment:
     and an optimizer such as ``train.optim.ClippedAdamW`` or ``SGD``.
     ``flags`` carries the JAX CLI's names: seed, mesh, unroll, grad_accum,
     log_dir, train_steps, log_every_steps, checkpoint_every_steps,
-    batch_size (and optionally device).  ``mesh`` defaults to the one
-    ``--mesh`` describes.
+    batch_size (the global batch; and optionally device, watchdog,
+    watchdog_grace_secs).  ``mesh`` defaults to the one ``--mesh``
+    describes over the world.  ``row_sharded_state``: the model state is
+    split by rows over the ranks (the LSTM's carry), which the checkpoint
+    gathers.
     """
 
     def __init__(
@@ -56,16 +68,27 @@ class Experiment:
         mesh=None,
         extra_hooks: Iterable[hooks_lib.Hook] = (),
         loss_fn_factory: Callable | None = None,
+        row_sharded_state: bool = False,
     ):
         self.flags = flags
         flags_lib.check_training_flags(flags)
         if getattr(flags, "deterministic", False):
             determinism.enable()
-        self.device = device_lib.resolve(device or getattr(flags, "device", None))
+        requested = device or getattr(flags, "device", None)
+        cluster = dist.initialize(device=requested)
+        if cluster.is_ps_task:
+            print(f"TF_CONFIG task type {cluster.task_type!r}: synchronous data "
+                  "parallelism needs no parameter servers; exiting 0.", flush=True)
+            raise SystemExit(0)
+        self.device = dist.device() if dist.is_initialized() else device_lib.resolve(requested)
+        if getattr(flags, "watchdog", True):
+            dist.start_watchdog(grace_s=getattr(flags, "watchdog_grace_secs", 10.0))
         self.mesh = (
             mesh if mesh is not None
             else build_mesh(MeshSpec.parse(getattr(flags, "mesh", "")), self.device)
         )
+        log.info("mesh: %s over %d rank(s); this rank %d on %s", self.mesh.shape,
+                 self.mesh.size, dist.process_index(), self.device)
         if loss_fn is None:
             if loss_fn_factory is None:
                 raise ValueError("pass loss_fn or loss_fn_factory")
@@ -74,14 +97,15 @@ class Experiment:
         self.optimizer = optimizer
         self.state = create_state(init_fn, optimizer, flags.seed, self.device)
         self.step_fn = build_train_step(
-            loss_fn, optimizer, unroll=flags.unroll,
+            loss_fn, optimizer, mesh=self.mesh, unroll=flags.unroll,
             grad_accum=getattr(flags, "grad_accum", 1),
         )
         self.log_dir = flags.log_dir or None
-        self.writer = MetricsWriter(self.log_dir)
+        self.writer = MetricsWriter(self.log_dir if dist.is_chief() else None)
         self.ckpt = None
         if self.log_dir:
-            self.ckpt = CheckpointManager(os.path.join(self.log_dir, "ckpt"))
+            self.ckpt = CheckpointManager(os.path.join(self.log_dir, "ckpt"),
+                                          row_sharded_state=row_sharded_state)
         self.hooks = [
             hooks_lib.StopAtStepHook(flags.train_steps),
             hooks_lib.StepCounterHook(
@@ -125,10 +149,12 @@ class Experiment:
         batch_size: int | None = None,
     ) -> dict[str, float]:
         """Full-split eval of numpy ``arrays``: metrics averaged over the
-        complete batches of ``batch_size`` (default ``--batch_size``; the
-        ragged tail is left out).  ``eval_fn(params, model_state, batch) ->
-        metrics``; by default the loss's own metrics, under the JAX
-        ``evaluate``'s key, ``key(0)``."""
+        complete batches of ``batch_size`` (default ``--batch_size``)
+        rounded down to a multiple of the data axis (the ragged tail is
+        left out).  Each rank evaluates its rows of every batch and the
+        ranks' means are averaged: the batch's.  ``eval_fn(params,
+        model_state, batch) -> metrics``; by default the loss's own
+        metrics, under the JAX ``evaluate``'s key, ``key(0)``."""
         if eval_fn is None:
             loss_fn = self._loss_fn
 
@@ -137,28 +163,40 @@ class Experiment:
 
         step = build_eval_step(eval_fn)
         n = len(next(iter(arrays.values())))
-        ebs = min(batch_size or self.flags.batch_size, n)
+        dp = self.mesh.shape.get("data", 1)
+        ebs = min(batch_size or self.flags.batch_size, n // dp * dp)
+        ebs = (ebs // dp) * dp
         if ebs <= 0:
             return {}
+        rows = sharding.rank_rows(ebs, size=dp)
         sums: dict[str, float] = {}
         count = 0
         for i in range(0, (n // ebs) * ebs, ebs):
-            batch = pipeline_lib.to_device({k: v[i : i + ebs] for k, v in arrays.items()}, self.device)
-            for k, v in step(self.state, batch).items():
+            local = {k: v[i : i + ebs][rows] for k, v in arrays.items()}
+            metrics = step(self.state, pipeline_lib.to_device(local, self.device))
+            if dp > 1:
+                metrics = {k: collectives.pmean(v.detach().float(), tag="eval")
+                           for k, v in metrics.items()}
+            for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             count += 1
         return {k: v / count for k, v in sums.items()}
 
     def finish(self, **final_metrics) -> None:
-        """Print the FINAL line (the contract tests/bench scrape) and close."""
-        parts = [f"FINAL step={self.session.step}"]
-        sps = self.session.records.get("steps_per_sec") or 0.0
-        parts.append(f"steps_per_sec={sps:.1f}")
-        eps = self.session.records.get("examples_per_sec_per_chip") or 0.0
-        parts.append(f"examples_per_sec_per_chip={eps:.0f}")
-        for k, v in final_metrics.items():
-            parts.append(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}")
-        print(" ".join(parts), flush=True)
+        """The chief prints the FINAL line (the contract tests/bench
+        scrape; throughput of the global batch); every rank closes and
+        leaves the watchdog cleanly."""
+        if dist.is_chief():
+            parts = [f"FINAL step={self.session.step}"]
+            sps = self.session.records.get("steps_per_sec") or 0.0
+            parts.append(f"steps_per_sec={sps:.1f}")
+            eps = self.session.records.get("examples_per_sec_per_chip") or 0.0
+            parts.append(f"examples_per_sec_per_chip={eps:.0f}")
+            for k, v in final_metrics.items():
+                parts.append(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}")
+            print(" ".join(parts), flush=True)
         self.writer.close()
         if self.ckpt is not None:
             self.ckpt.close()
+        dist.stop_watchdog()
+        dist.barrier("finish")

@@ -3,8 +3,10 @@
 The twin of ``distributed_tensorflow_examples_tpu/train/state.py``: one
 object holding the step, the parameters, the optimizer state, mutable
 non-trainable model state and the run's seed, which the checkpoint saves
-and restores as one.  On one device there is nothing to shard, so
-:func:`create_state` is the whole of ``create_sharded_state``.
+and restores as one.  Under data parallelism every rank holds the whole
+state (the replicated part of ``create_sharded_state``): each draws the
+JAX init from the seed, and :func:`check_replicas_equal` proves at
+start-up that the ranks hold the same parameters.
 
 Parameters are separate leaf tensors that require grad: autograd and the
 optimizer update each one in place.  A tree of views into one buffer
@@ -14,12 +16,14 @@ optimizer update each one in place.  A tree of views into one buffer
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from ..bridge import _leaves
+from ..parallel import collectives
 
 
 @dataclasses.dataclass
@@ -76,3 +80,23 @@ def create_state(init_params_fn: Callable, optimizer, seed: int, device) -> Trai
         model_state=as_state_leaves(model_state, device),
         seed=int(seed),
     )
+
+
+def params_sha256(params) -> str:
+    """sha256 of the parameters' float32 bytes in ``leaves`` order."""
+    h = hashlib.sha256()
+    for leaf in leaves(params):
+        h.update(leaf.detach().to("cpu", torch.float32).contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def check_replicas_equal(params) -> str:
+    """Raise unless every rank of the data axis holds bit-for-bit the same
+    parameters (one all-gather of a checksum); returns the checksum."""
+    digest = params_sha256(params)
+    digests = collectives.all_gather_object(digest)
+    if len(set(digests)) != 1:
+        raise RuntimeError(
+            f"the data-parallel replicas hold different parameters: sha256 by rank {digests}"
+        )
+    return digest

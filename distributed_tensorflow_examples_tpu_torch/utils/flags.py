@@ -4,10 +4,11 @@ flags, accepted and mapped.
 :func:`add_training_flags` is the twin of ``utils/flags.py::
 define_training_flags`` in the JAX package, on argparse, with its names
 and defaults; :func:`check_training_flags` refuses, naming the port's
-item that brings it, what one device cannot run yet (``--zero_opt`` A8,
-``--profile`` A12, a ``--mesh`` beyond one device A5 through
-``parallel.mesh``), and logs ``--watchdog`` as A5's.  ``--deterministic``
-turns on ``utils.determinism``.
+item that brings it, what the port cannot run yet (``--zero_opt`` A8,
+``--profile`` A12; a model-parallel ``--mesh`` axis A8 through
+``parallel.mesh``).  ``--watchdog`` starts the peer watchdog on a world
+of 2 or more (``parallel/dist.py``); ``--deterministic`` turns on
+``utils.determinism``.
 
 The legacy flags are the twin of ``define_legacy_cluster_flags`` and of
 ``resolve_legacy_cluster``.  The reference scripts were launched with
@@ -61,7 +62,7 @@ def add_training_flags(parser: argparse.ArgumentParser, default_batch_size: int 
     add("--unroll", type=int, default=1, help="Steps per step call.")
     add("--grad_accum", type=int, default=1,
         help="Gradient-accumulation microbatches per step.")
-    add("--mesh", default="", help='Mesh spec; only "" or "data=1" (one device).')
+    add("--mesh", default="", help='Mesh spec, e.g. "data=2" ("" = data over every rank).')
     add("--profile", type=parse_bool, nargs="?", const=True, default=False,
         help="Profiler trace window (waits for the port's tools, A12).")
     add("--obs_events_dir", default="", help="Flight-recorder dump directory.")
@@ -69,7 +70,7 @@ def add_training_flags(parser: argparse.ArgumentParser, default_batch_size: int 
     add("--zero_opt", type=parse_bool, nargs="?", const=True, default=False,
         help="ZeRO-1 optimizer sharding (waits for A8).")
     add("--watchdog", type=parse_bool, nargs="?", const=True, default=True,
-        help="Multi-process peer watchdog (A5; one process needs none).")
+        help="Multi-process peer watchdog (a world of 2 or more ranks).")
     add("--watchdog_grace_secs", type=float, default=10.0,
         help="Heartbeat staleness after which a peer is declared dead.")
     add("--deterministic", type=parse_bool, nargs="?", const=True, default=False,
@@ -80,7 +81,7 @@ def add_training_flags(parser: argparse.ArgumentParser, default_batch_size: int 
 
 def check_training_flags(args) -> None:
     """Raise ``NotImplementedError`` naming the port's item for what it
-    cannot run on one device yet; log the multi-process watchdog."""
+    cannot run yet."""
     if getattr(args, "zero_opt", False):
         raise NotImplementedError(
             "--zero_opt (ZeRO-1 optimizer sharding) waits for the port's "
@@ -88,9 +89,6 @@ def check_training_flags(args) -> None:
     if getattr(args, "profile", False):
         raise NotImplementedError(
             "--profile (a profiler trace window) waits for the port's tools item (A12)")
-    if getattr(args, "watchdog", False):
-        log.info("--watchdog: the multi-device spine (A5) brings it; one device runs "
-                 "without it")
 
 
 def add_legacy_cluster_flags(parser: argparse.ArgumentParser) -> None:
@@ -210,8 +208,8 @@ def resolve_legacy_cluster(args) -> dict:
         else:
             info["ps_hosts"] = args.ps_hosts.split(",")
             log.warning(
-                "--ps_hosts given: the port trains synchronously on one device and "
-                "needs no parameter servers. Ignoring %d PS hosts.",
+                "--ps_hosts given: the port trains synchronously (data parallel over "
+                "the ranks) and needs no parameter servers. Ignoring %d PS hosts.",
                 len(info["ps_hosts"]),
             )
     if getattr(args, "worker_hosts", ""):
@@ -219,8 +217,8 @@ def resolve_legacy_cluster(args) -> dict:
         log.info(
             "--worker_hosts given (%d workers): %s", len(info["worker_hosts"]),
             "PS emulation — one worker thread per entry" if emulation
-            else "the port trains on one device; multi-device data parallelism "
-            "waits for A5.",
+            else "the equivalent data-parallel degree is the world: launch one "
+            "process per rank with TF_CONFIG (see parallel.dist, utils.multiprocess).",
         )
     info["is_legacy_ps_process"] = getattr(args, "job_name", "") == "ps"
     return info

@@ -30,6 +30,7 @@ from distributed_tensorflow_examples_tpu.models import layers as jax_layers
 from distributed_tensorflow_examples_tpu.ops import bn as jax_bn
 from distributed_tensorflow_examples_tpu_torch.models import layers
 from distributed_tensorflow_examples_tpu_torch.ops import bn
+from distributed_tensorflow_examples_tpu_torch.parallel import collectives
 from distributed_tensorflow_examples_tpu_torch.parallel import mesh as mesh_lib
 
 torch.set_num_threads(1)
@@ -234,9 +235,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         bn.bn_bwd_stats(xc.bfloat16(), xc, vec, vec, vec, vec, relu=True)
     with pytest.raises(ValueError, match="inv must be float32"):
         bn.bn_bwd_stats(xc, xc, vec, torch.zeros(7), vec, vec, relu=True)
-    two = mesh_lib.Mesh(device=torch.device("cpu"), shape={"data": 2})
-    with pytest.raises(NotImplementedError, match="A5"):
-        bn.batchnorm_train(vec, vec, xc, 1e-5, two)
+    # SyncBN over a data axis of 2 needs a group of 2 ranks: one process has none.
+    with pytest.raises(ValueError, match="data group of 2 ranks"):
+        mesh_lib.Mesh(device=torch.device("cpu"), shape={"data": 2})
+
+    def rank(r):
+        two = mesh_lib.build_mesh(mesh_lib.MeshSpec.parse("data=2"), "cpu")
+        return bn.batchnorm_train(vec + 1, vec, xc + r, 1e-5, two)
+
+    # On two simulated ranks it computes: every rank's statistics are the pair's.
+    outs = collectives.ThreadRanks(2).run(rank)
+    torch.testing.assert_close(outs[0][1], torch.full((8,), 0.5), rtol=0, atol=0)
+    torch.testing.assert_close(outs[0][2], torch.full((8,), 0.25), rtol=0, atol=0)
+    assert all(torch.equal(outs[0][i], outs[1][i]) for i in (1, 2))
     p, s = layers.batchnorm_init(8, ghost_slices=2)
     with pytest.raises(NotImplementedError, match="A8"):
         layers.batchnorm({k: torch.from_numpy(v) for k, v in p.items()},
@@ -254,7 +265,7 @@ def test_mesh_spec_and_one_device_mesh():
     for text in ("", "data=1", "data=-1", "model=1,data=1"):
         m = mesh_lib.build_mesh(mesh_lib.MeshSpec.parse(text), "cpu")
         assert m.shape == {"data": 1} and m.size == 1 and m.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         mesh_lib.build_mesh(mesh_lib.MeshSpec.parse("data=2"), "cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         mesh_lib.build_mesh(mesh_lib.MeshSpec.parse("model=2"), "cpu")

@@ -364,9 +364,13 @@ def test_cli_trains_evaluates_and_prints_final(tmp_path, capsys):
     "extra,error,match",
     [
         (["--bn_ghost_slices=2"], NotImplementedError, "A8"),
-        (["--mesh=data=2"], NotImplementedError, "A5"),
+        (["--mesh=data=2"], ValueError, "needs 2 devices, have 1"),
         (["--data_dir=dsvc://127.0.0.1:1"], NotImplementedError, "A10"),
     ],
+    # Stable case ids: the data=2 case raised NotImplementedError (A5)
+    # while the port ran on one device only.
+    ids=["extra0-NotImplementedError-A8", "extra1-NotImplementedError-A5",
+         "extra2-NotImplementedError-A10"],
 )
 def test_cli_refuses_what_later_slices_bring(extra, error, match, tmp_path):
     with pytest.raises(error, match=match):

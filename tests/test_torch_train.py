@@ -388,15 +388,18 @@ def test_cli_trains_prints_final_and_publishes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize(
-    "extra,match",
+    "extra,error,match",
     [
-        (["--pipeline_stages=2"], "model-parallel"),
-        (["--moe_experts=4"], "model-parallel"),
-        (["--mesh=data=2"], "A5"),
+        (["--pipeline_stages=2"], NotImplementedError, "model-parallel"),
+        (["--moe_experts=4"], NotImplementedError, "model-parallel"),
+        (["--mesh=data=2"], ValueError, "needs 2 devices, have 1"),
     ],
+    # Stable case ids: the data=2 case raised NotImplementedError (A5)
+    # while the port ran on one device only.
+    ids=["extra0-model-parallel", "extra1-model-parallel", "extra2-A5"],
 )
-def test_cli_refuses_what_later_slices_bring(extra, match, tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match=match):
+def test_cli_refuses_what_later_slices_bring(extra, error, match, tmp_path, capsys):
+    with pytest.raises(error, match=match):
         cli.main(["--device=cpu", "--vocab_size=64", "--dim=64", "--n_layers=1",
                   "--n_heads=4", "--seq_len=16", "--train_steps=1", *extra])
     # A PS task has nothing to do: it prints and exits 0, as the JAX CLI does.

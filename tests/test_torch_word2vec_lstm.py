@@ -371,7 +371,8 @@ def test_cli_prints_final_and_ps_task_exits(name, capsys):
                      rf"{metric}=[0-9.]+$", capsys.readouterr().out, re.M)
     with pytest.raises(NotImplementedError, match="A12"):
         cli.main(["--device=cpu", "--profile", *argv])
-    with pytest.raises(NotImplementedError, match="A5"):
+    # As in JAX: a data axis of 2 on a world of one process does not tile it.
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         cli.main(["--device=cpu", "--mesh=data=2", *argv])
 
 
