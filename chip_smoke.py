@@ -243,6 +243,38 @@ it fails:
    committed record) and ms an applied step before and after.
    ``chip_smoke.ps_sharded_end_to_end(card, {})`` runs it alone.
 
+12. The ``model`` mesh axis and ZeRO-1, every rank a process of the port's
+   ``MultiProcessRunner`` on the card (gloo: the ranks share it).  (a) W4
+   word2vec and (b) W5 PTB LSTM through their CLIs' ``run_training`` at
+   the CLI defaults (W4: vocab 10000, dim 128, 64 negatives, batch 256;
+   W5: vocab 10000, width 200, 2 layers, batch 64 x 20) with
+   ``--mesh=data=1,model=2`` (``MA_MESH``), ``WORKLOAD_STEPS`` steps
+   each, in the same two rank processes (``ma_rank``).  Gates: each rank's
+   device ``cuda`` and backend gloo; the ranks are the model axis's two
+   positions; each rank holds 5000 of the 10000 rows of ``emb/table`` and
+   ``nce/weights`` (W5: of ``emb/table``, and 5000 of the softmax's 10000
+   columns); the replicated leaves bitwise equal on both ranks; FINAL from
+   the chief alone with a finite ``eval_loss`` / ``valid_perplexity``; no
+   hand kernel launched; one float32 step from the initial weights (W5
+   with its clip at ``DP_LSTM_CLIP``, below the global gradient's norm)
+   against the chief's 1-rank step on the same batch (W4: and the same
+   negatives, id for id): the loss within ``TOL_MA_LOSS_REL``, every
+   parameter, the tables put together, within ``TOL_MA_PARAM``.  Printed:
+   step ms, examples/s or tokens/s, the model-axis all-reduces a step
+   (calls, bytes, host ms) and one profiled step's device busy ms and idle
+   share.  (c) ResNet-50 (W3) with ``--zero_opt`` and then without, on
+   ``DP_RANKS`` data ranks at phase 9's global batch and width,
+   ``ZERO_STEPS`` steps each from the same weights and batches, cuDNN
+   deterministic (``zero_resnet_rank``): the parameters bitwise equal (or
+   within ``TOL_DP_VS_NOISE`` of the float32 noise floor, a second
+   replicated run, when not); each rank's optimizer bytes (every tensor
+   the optimizer holds beyond the parameters, ``optim.state_bytes``) its
+   half of every slot ZeRO-1 shards plus the small leaves whole, so no
+   copy of a parameter's block beside them; 53 launches of each BN
+   kernel a step, as in phase 9.  Printed: step ms beside phase 9's, and
+   the optimizer bytes a rank.  ``chip_smoke.model_axis_end_to_end(card)``
+   runs this phase alone (the BN kernels built first, as for phase 9).
+
 Phase 4 still runs the split kernels: at T 2048 the blocks give
 nq = nk = 2, under the fused regime.  No path is cut in depth.
 
@@ -2663,18 +2695,18 @@ except Exception as e:
 """
 
 
-def _run_ranks(n: int, call: str, timeout: float) -> tuple[list, list, str]:
+def _run_ranks(n: int, call: str, timeout: float, device=None) -> tuple[list, list, str]:
     """Run ``chip_smoke.<call>`` (``{out}`` names the result directory) on
-    ``n`` ranks of the port's ``MultiProcessRunner`` on the card; returns
-    (exit codes, outputs, result directory).  A failing rank fails the
-    phase."""
+    ``n`` ranks of the port's ``MultiProcessRunner`` on the card (or
+    ``device``); returns (exit codes, outputs, result directory).  A
+    failing rank fails the phase."""
     import tempfile
 
     from distributed_tensorflow_examples_tpu_torch.utils.multiprocess import MultiProcessRunner
 
     out = tempfile.mkdtemp(prefix="dtx_dp_")
     src = f"import chip_smoke\nchip_smoke.{call.format(out=out)}\n"
-    runner = MultiProcessRunner(n, src, device=None, timeout=timeout)
+    runner = MultiProcessRunner(n, src, device=device, timeout=timeout)
     t0 = time.perf_counter()
     runner.start()
     codes = runner.join()
@@ -3264,6 +3296,399 @@ def ps_sharded_end_to_end(card: str, phase10: dict, device: str = "cuda",
             "w1_sync_reshard": _w1_sync_reshard(card, env, device, reshard_steps)}
 
 
+# ----------------------------------------------------------------------------
+# Phase 12: the model mesh axis (W4, W5 vocab-parallel) and ZeRO-1 (W3)
+# ----------------------------------------------------------------------------
+
+#: Phase 12's ranks and mesh: the two ranks split the tables' vocab rows.
+MA_RANKS = 2
+MA_MESH = "data=1,model=2"
+MA_PROFILE_STEP = 50
+#: The compared step, float32, 2 model ranks against 1 rank on the same
+#: batch and negatives.  The sharded logits are the owner's value plus
+#: zeros (exact), so what may differ is the order in which the card sums
+#: the gradient rows of repeated ids (index backward's atomic adds; a row
+#: of the batch's 256 ids sums at most a few hundred terms, each rounded
+#: at 2^-24 relative) and the clip's norm (W5: its squares summed over
+#: the two blocks, then over the ranks).  Losses relative 1e-6; the
+#: parameters after the update (entries ~1e-2) absolute 1e-6: at the CLI's
+#: learning rates (0.01 for W4; 1.0 clipped to a norm of 0.05 for W5) a
+#: reorder moves an entry by ~1e-9.  A psum in place of the vocab-parallel
+#: operators doubles the table's update (1e-2 off), a local clip norm
+#: scales W5's update by ~sqrt(2), a missed block's rows are O(1e-2).
+TOL_MA_LOSS_REL = 1e-6
+TOL_MA_PARAM = 1e-6
+#: Phase 12 (c): ResNet-50 with ``--zero_opt`` and without, on two data
+#: ranks, phase 9's batch and width, ``ZERO_STEPS`` steps each, cuDNN
+#: deterministic so that the two runs may be compared bit for bit.
+ZERO_STEPS = 4
+
+
+def _leaf_arrays(params) -> dict:
+    from distributed_tensorflow_examples_tpu_torch import bridge
+
+    return {p: t.detach().float().cpu().numpy() for p, t in bridge._leaves(params)}
+
+
+def _specs_json(specs) -> dict:
+    from distributed_tensorflow_examples_tpu_torch import bridge
+
+    return {p: list(s) for p, s in bridge._leaves(specs)}
+
+
+def _ma_run(out_dir: str, name: str, cli, argv: list, compare) -> dict:
+    """One CLI run of phase 12 on this rank at ``MA_MESH`` (every count to
+    0 just before it), then ``compare(exp)``, the float32 step against the
+    chief's 1-rank step."""
+    from distributed_tensorflow_examples_tpu_torch import bridge, ops
+    from distributed_tensorflow_examples_tpu_torch.parallel import collectives, dist
+
+    args = cli.build_parser().parse_args([
+        f"--seed={SEED}", f"--train_steps={WORKLOAD_STEPS}", "--log_every_steps=100",
+        f"--mesh={MA_MESH}", *argv])
+    hook = dp_step_hook(profile_step=MA_PROFILE_STEP)
+    ops.reset_launches()
+    collectives.TRAFFIC.clear()
+    t0 = time.perf_counter()
+    exp = cli.run_training(args, extra_hooks=[hook])
+    wall = time.perf_counter() - t0
+    specs = _specs_json(exp.specs["params"])
+    replicated = [t for p, t in bridge._leaves(exp.state.params)
+                  if "model" not in specs[p]]
+    profiled = next(s for s in hook.steps if s["profiled"])
+    final = {"eval_loss": getattr(exp, "eval_metrics", {}).get("loss"),
+             "valid_perplexity": getattr(exp, "valid_perplexity", None)}
+    r = {"device": str(exp.device), "backend": dist.backend(), "mesh": exp.mesh.shape,
+         "data_index": exp.mesh.data_index, "model_index": exp.mesh.model_index,
+         "wall_s": wall, "steps": hook.steps, "launches": dict(ops.LAUNCHES),
+         "specs": specs, "shapes": {p: list(t.shape) for p, t in bridge._leaves(exp.state.params)},
+         "replicated_sha256": _sha256(replicated), "final": final,
+         "profile": _profile_summary(hook.prof, profiled["ms"])}
+    r["compare"] = compare(args, exp, Path(out_dir) / f"{name}_rank{dist.process_index()}")
+    return r
+
+
+def _sha256(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _ma_compare(init, cfg, loss_fn, rules, opt_fn, batch, grad_norm=False):
+    """``compare(args, exp, path)``: one float32 step from ``init`` on
+    ``batch`` on this rank's mesh (saved to ``path``.npz), and on the chief
+    the same step on a mesh of one rank (``path``_one.npz); returns the
+    losses, the negatives drawn and (``grad_norm``) the global gradient's
+    norm before the clip."""
+    from distributed_tensorflow_examples_tpu_torch.models import word2vec
+    from distributed_tensorflow_examples_tpu_torch.parallel import dist
+    from distributed_tensorflow_examples_tpu_torch.parallel.mesh import Mesh
+    from distributed_tensorflow_examples_tpu_torch.train import state
+    from distributed_tensorflow_examples_tpu_torch.train import step as step_lib
+
+    def compare(args, exp, path):
+        dev_batch = {k: torch.from_numpy(v).to(exp.device) for k, v in batch.items()}
+
+        def one_step(mesh):
+            opt = opt_fn(args)
+            st, _specs = state.create_sharded_state(lambda s: init, opt, SEED, exp.device,
+                                                    mesh=mesh, rules=rules)
+            before = _leaf_arrays(st.params)
+            drawn, draw = [], word2vec.log_uniform_sample
+
+            def recording(rng, n, v, device="cpu"):
+                ids = draw(rng, n, v, device)
+                drawn.append(ids.cpu().tolist())
+                return ids
+
+            word2vec.log_uniform_sample = recording
+            try:
+                st, m = step_lib.build_train_step(loss_fn, opt, mesh=mesh)(st, dev_batch)
+            finally:
+                word2vec.log_uniform_sample = draw
+            after = _leaf_arrays(st.params)
+            return float(m["loss"]), {p: after[p] - before[p] for p in after}, after, drawn
+
+        out = {}
+        loss, update, after, drawn = one_step(exp.mesh)
+        np.savez(f"{path}.npz", **{f"u:{p}": a for p, a in update.items()},
+                 **{f"p:{p}": a for p, a in after.items()})
+        out.update(loss=loss, negatives=drawn)
+        if dist.is_chief():
+            one = Mesh(device=exp.device, shape={"data": 1})
+            loss1, update1, after1, drawn1 = one_step(one)
+            np.savez(f"{path}_one.npz", **{f"u:{p}": a for p, a in update1.items()},
+                     **{f"p:{p}": a for p, a in after1.items()})
+            out.update(one_loss=loss1, one_negatives=drawn1)
+            if grad_norm:
+                st, _specs = state.create_sharded_state(lambda s: init, opt_fn(args), SEED,
+                                                        exp.device, mesh=one)
+                loss_fn(st.params, st.model_state, dev_batch, None)[0].backward()
+                out["global_grad_norm"] = float(torch.sqrt(sum(
+                    p.grad.double().square().sum() for p in state.leaves(st.params))))
+        dist.barrier("ma-compare")
+        return out
+
+    return compare
+
+
+def ma_rank(out_dir: str) -> None:
+    """One rank of phase 12 (a) and (b): W4 and W5 through their CLIs'
+    ``run_training`` at ``MA_MESH``, each with its compared step."""
+    import dataclasses as dc
+
+    from distributed_tensorflow_examples_tpu_torch.data import datasets
+    from distributed_tensorflow_examples_tpu_torch.examples import ptb_lstm
+    from distributed_tensorflow_examples_tpu_torch.examples import word2vec as w2v_cli
+    from distributed_tensorflow_examples_tpu_torch.models import lstm, word2vec
+    from distributed_tensorflow_examples_tpu_torch.parallel import dist
+    from distributed_tensorflow_examples_tpu_torch.train import optim
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wargs = w2v_cli.build_parser().parse_args([f"--seed={SEED}"])
+    wcfg = w2v_cli.config_from_args(wargs)
+    ids, _v, _s = datasets.text_corpus(None, vocab_size=wargs.vocab_size, seed=SEED)
+    wbatch = next(datasets.skipgram_batches(ids, batch_size=wargs.batch_size,
+                                            window=wargs.window, seed=SEED))
+    w4 = _ma_run(out_dir, "w4", w2v_cli, [], _ma_compare(
+        word2vec.init_numpy(wcfg, SEED), wcfg, word2vec.loss_fn(wcfg), word2vec.SHARDING_RULES,
+        lambda a: optim.SGD(a.learning_rate), wbatch))
+
+    largs = ptb_lstm.build_parser().parse_args([f"--seed={SEED}"])
+    c32 = dc.replace(ptb_lstm.config_from_args(largs), compute_dtype="float32")
+    train_ids, _v, _voc, _src = datasets.ptb(None, vocab_size=largs.vocab_size, seed=SEED)
+    lbatch = next(datasets.lm_batches(train_ids, batch_size=largs.batch_size,
+                                      seq_len=largs.seq_len))
+    w5 = _ma_run(out_dir, "w5", ptb_lstm, [], _ma_compare(
+        lstm.init_numpy(c32, SEED, batch_size=largs.batch_size), c32, lstm.loss_fn(c32),
+        lstm.SHARDING_RULES, lambda a: optim.SGD(a.learning_rate, clip_norm=DP_LSTM_CLIP),
+        lbatch, grad_norm=True))
+    _rank_result(out_dir, {"rank": dist.process_index(), "w4": w4, "w5": w5})
+
+
+def zero_resnet_rank(out_dir: str, steps: int) -> None:
+    """One rank of phase 12 (c): ``examples.resnet50``'s ``run_training``
+    with ``--zero_opt`` and then without, on the fused statistics path,
+    from the same weights and batches, cuDNN deterministic."""
+    from distributed_tensorflow_examples_tpu_torch import ops
+    from distributed_tensorflow_examples_tpu_torch.examples import resnet50 as cli
+    from distributed_tensorflow_examples_tpu_torch.models import resnet
+    from distributed_tensorflow_examples_tpu_torch.parallel import dist
+    from distributed_tensorflow_examples_tpu_torch.train import optim, state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    base = [f"--batch_size={RESNET_BATCH}", f"--image_size={RESNET_IMAGE}", "--num_classes=1000",
+            f"--train_steps={steps}", "--learning_rate=0.1", "--momentum=0.9",
+            "--log_every_steps=1", f"--seed={SEED}", f"--synthetic_examples={DP_EXAMPLES}"]
+    runs, params = {}, {}
+
+    def run(name, extra):
+        args = cli.build_parser().parse_args(base + extra)
+        cfg = cli.config_from_args(args)
+        hook = dp_step_hook(("bn_stats", "bn_bwd_stats"))
+        ops.reset_launches()
+        exp = cli.run_training(args, loss_fn_factory=lambda mesh: resnet.loss_fn(cfg, mesh=mesh),
+                               extra_hooks=[hook])
+        leaves = state.leaves(exp.state.params)
+        opt_specs = [tuple(s) for s in state.leaves(exp.specs["opt_state"])]
+        runs[name] = {
+            "steps": hook.steps, "launches": dict(ops.LAUNCHES),
+            "opt_bytes": optim.state_bytes(exp.state.opt_state),
+            "replicated_bytes": sum(p.numel() * 4 for p in leaves),
+            "zero_bytes": sum(p.numel() * 4 // (2 if "data" in s else 1)
+                              for p, s in zip(leaves, opt_specs)),
+            "zero_leaves": sum("data" in s for s in opt_specs), "leaves": len(leaves),
+            "param_sha256": state.params_sha256(exp.state.params),
+            "backend": dist.backend(), "device": str(exp.device),
+        }
+        params[name] = [p.detach().clone() for p in leaves]
+        del exp
+        torch.cuda.empty_cache()
+
+    run("zero", ["--zero_opt"])
+    run("replicated", [])
+    bitwise = all(torch.equal(a, b) for a, b in zip(params["zero"], params["replicated"]))
+    result = {"rank": dist.process_index(), "runs": runs, "bitwise": bitwise}
+    if not bitwise:  # the float32 noise floor: the replicated run again
+        run("replicated_again", [])
+        result["zero_vs_replicated"] = _leaf_rel_errors(params["zero"], params["replicated"])
+        result["noise"] = _leaf_rel_errors(params["replicated_again"], params["replicated"])
+    _rank_result(out_dir, result)
+
+
+def _ma_load(out: str, name: str, rank: int, one: bool = False) -> dict:
+    path = Path(out) / f"{name}_rank{rank}{'_one' if one else ''}.npz"
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _ma_global(out: str, name: str, ranks: list) -> dict:
+    """The ranks' compared-step arrays put together: a leaf sharded over
+    ``model`` concatenated along its sharded dim in model order."""
+    parts = [_ma_load(out, name, r["rank"]) for r in ranks]
+    specs = ranks[0][name]["specs"]
+    order = np.argsort([r[name]["model_index"] for r in ranks])
+    out_arrays = {}
+    for key in parts[0]:
+        spec = specs[key.split(":", 1)[1]]
+        if "model" in spec:
+            out_arrays[key] = np.concatenate([parts[i][key] for i in order],
+                                             axis=spec.index("model"))
+        else:
+            out_arrays[key] = parts[0][key]
+    return out_arrays
+
+
+def _ma_check(card: str, out: str, name: str, ranks: list, outs: list, metric: str,
+              rows: dict, unit: str, per_step: int, device: str) -> dict:
+    """Phase 12's gates and report for one of W4 and W5."""
+    runs = [r[name] for r in ranks]
+    finals = [[l for l in o.splitlines() if l.startswith("FINAL ") and metric in l]
+              for o in outs]
+    log(f"  {name.upper()} at --mesh={MA_MESH}: {finals[0][:1]}")
+    for r in runs:
+        log(f"    rank (data {r['data_index']}, model {r['model_index']}): backend "
+            f"{r['backend']} on {r['device']}, mesh {r['mesh']}, {r['wall_s']:.1f} s; "
+            + ", ".join(f"{p} {r['shapes'][p]}" for p in rows))
+    if any(r["backend"] != "gloo" or not r["device"].startswith(device) for r in runs):
+        raise SystemExit(f"{name}: the ranks sharing the card did not take gloo on CUDA devices")
+    if sorted(r["model_index"] for r in runs) != list(range(MA_RANKS)):
+        raise SystemExit(f"{name}: the ranks are not the model axis's {MA_RANKS} positions")
+    for p, (dim, full) in rows.items():
+        if any(r["shapes"][p][dim] * MA_RANKS != full for r in runs):
+            raise SystemExit(f"{name}: {p} is not split {MA_RANKS} ways along dim {dim}")
+    if len({r["replicated_sha256"] for r in runs}) != 1:
+        raise SystemExit(f"{name}: the replicated leaves differ between the model ranks")
+    if len(finals[0]) != 1 or any(finals[1:]):
+        raise SystemExit(f"{name}: the FINAL line must come from the chief alone")
+    final = runs[0]["final"]["eval_loss" if name == "w4" else "valid_perplexity"]
+    losses = [s["loss"] for s in runs[0]["steps"]]
+    if final is None or not math.isfinite(final) or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"{name}: a loss or the final metric is not finite")
+    if any(sum(r["launches"].values()) for r in runs):
+        raise SystemExit(f"{name}: a hand kernel launched on a path that has none")
+    cmp0 = runs[0]["compare"]
+    sharded, one = _ma_global(out, name, ranks), _ma_load(out, name, 0, one=True)
+    worst = max(float(np.max(np.abs(sharded[k] - one[k]))) for k in one)
+    worst_update = max(float(np.max(np.abs(sharded[k] - one[k]))) for k in one
+                       if k.startswith("u:"))
+    loss_rel = abs(cmp0["loss"] - cmp0["one_loss"]) / abs(cmp0["one_loss"])
+    negs_equal = all(r["compare"]["negatives"] == cmp0["one_negatives"] for r in runs)
+    clip = (f"; the global gradient's norm {cmp0['global_grad_norm']:.4f} against the clip "
+            f"{DP_LSTM_CLIP:g}" if "global_grad_norm" in cmp0 else "")
+    negs = f"; negatives equal id for id: {negs_equal}" if name == "w4" else ""
+    log(f"    compared step (float32, {MA_RANKS} model ranks vs 1 rank, same batch"
+        f"{' and negatives' if name == 'w4' else ''}): loss {cmp0['loss']:.7f} vs "
+        f"{cmp0['one_loss']:.7f} (rel {loss_rel:.2e}, tol {TOL_MA_LOSS_REL:g}); parameters "
+        f"after the step max |d| {worst:.2e}, updates {worst_update:.2e} (tol "
+        f"{TOL_MA_PARAM:g}){negs}{clip}")
+    if loss_rel > TOL_MA_LOSS_REL or worst > TOL_MA_PARAM or (name == "w4" and not negs_equal):
+        raise SystemExit(f"{name}: the model-sharded step disagrees with the 1-rank step")
+    if "global_grad_norm" in cmp0 and cmp0["global_grad_norm"] <= DP_LSTM_CLIP:
+        raise SystemExit(f"{name}: the compared step's clip did not engage")
+    timed = [s["ms"] for s in runs[0]["steps"][1:] if not s["profiled"]]
+    step_ms = float(np.median(timed))
+    one_step = next(s for s in runs[0]["steps"][1:] if not s["profiled"])
+    p = runs[0]["profile"]
+    log(f"    e2e: step {step_ms:.3f} ms (rank 0, median of steps 2-{WORKLOAD_STEPS} without the "
+        f"profiled one), {per_step / (step_ms / 1e3):.0f} {unit}/s; losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; final {final:.4f} [{card}]")
+    log(f"    all-reduce a step, each rank: {_traffic_line(one_step)}")
+    log(f"    profiled step {MA_PROFILE_STEP}: {p['step_ms']:.2f} ms, device busy "
+        f"{p['busy_ms']:.2f} ms ({p['kernels']} kernels), idle share {p['idle_share']:.1%}")
+    t = one_step["traffic"]
+    return {"step_ms": step_ms, "per_s": per_step / (step_ms / 1e3),
+            "model_calls": t.get("model_fwd_calls", 0) + t.get("model_bwd_calls", 0)
+            + t.get("model_clip_calls", 0),
+            "model_bytes": t.get("model_fwd_bytes", 0) + t.get("model_bwd_bytes", 0)
+            + t.get("model_clip_bytes", 0),
+            "model_host_ms": 1e3 * (t.get("model_fwd_seconds", 0) + t.get("model_bwd_seconds", 0)
+                                    + t.get("model_clip_seconds", 0)),
+            "busy_ms": p["busy_ms"], "idle_share": p["idle_share"],
+            "loss_rel": loss_rel, "max_param_err": worst}
+
+
+def model_axis_end_to_end(card: str, phase9: dict | None = None, device: str = "cuda") -> dict:
+    """Phase 12 (the module docstring): W4 and W5 at ``MA_MESH`` on two
+    ranks sharing the card, then ResNet-50 with ``--zero_opt`` on two data
+    ranks; returns the measurements and the BN kernels' launches by rank.
+    ``device="cpu"`` rehearses it on gloo CPU ranks (set the step counts
+    and ResNet sizes down first)."""
+    rank_device = None if device == "cuda" else device
+    log(f"  W4 word2vec and W5 PTB LSTM at their CLI defaults on {MA_RANKS} ranks sharing the "
+        f"card, --mesh={MA_MESH}, {WORKLOAD_STEPS} steps each")
+    _codes, outs, out = _run_ranks(MA_RANKS, "ma_rank({out!r})", 300, rank_device)
+    ranks = _read_ranks(out, MA_RANKS)
+    result = {
+        "w4": _ma_check(card, out, "w4", ranks, outs, "eval_loss=",
+                        {"emb/table": (0, 10000), "nce/weights": (0, 10000),
+                         "nce/bias": (0, 10000)}, "examples", 256, device),
+        "w5": _ma_check(card, out, "w5", ranks, outs, "valid_perplexity=",
+                        {"emb/table": (0, 10000), "softmax/kernel": (1, 10000),
+                         "softmax/bias": (0, 10000)}, "tokens", 64 * 20, device),
+    }
+    result["zero"] = zero_resnet(card, phase9 or {}, device)
+    return result
+
+
+def zero_resnet(card: str, phase9: dict, device: str = "cuda") -> dict:
+    """Phase 12 (c): ResNet-50 with ``--zero_opt`` against the replicated
+    optimizer on ``DP_RANKS`` data ranks."""
+    log(f"  ResNet-50 with --zero_opt and without on {DP_RANKS} data ranks sharing the card: "
+        f"global batch {RESNET_BATCH}, {ZERO_STEPS} steps each, fused statistics, cuDNN "
+        "deterministic")
+    _codes, _outs, out = _run_ranks(DP_RANKS, f"zero_resnet_rank({{out!r}}, {ZERO_STEPS})", 300,
+                                    None if device == "cuda" else device)
+    ranks = _read_ranks(out, DP_RANKS)
+    n_bn = len(resnet50_bn_shapes(RESNET_BATCH // DP_RANKS, RESNET_IMAGE))
+    want = {"bn_stats": n_bn, "bn_bwd_stats": n_bn}
+    for r in ranks:
+        z, rep = r["runs"]["zero"], r["runs"]["replicated"]
+        log(f"    rank {r['rank']}: backend {z['backend']} on {z['device']}; optimizer bytes "
+            f"{z['opt_bytes']} with ZeRO-1 ({z['zero_leaves']} of {z['leaves']} leaves sharded) vs "
+            f"{rep['opt_bytes']} replicated ({z['opt_bytes'] / rep['opt_bytes']:.4f}); "
+            f"parameters after {ZERO_STEPS} steps bitwise equal: {r['bitwise']}")
+        if z["backend"] != "gloo" or not z["device"].startswith(device):
+            raise SystemExit("ZeRO-1: the ranks sharing the card did not take gloo on CUDA")
+        if z["opt_bytes"] != z["zero_bytes"] or rep["opt_bytes"] != rep["replicated_bytes"]:
+            raise SystemExit("ZeRO-1: a rank's optimizer holds more than its block of the "
+                             "sharded slots")
+        for run in (z, rep):
+            if any(s["launches"] != want for s in run["steps"]):
+                raise SystemExit(f"ZeRO-1: each rank must launch {n_bn} of each BN kernel a step")
+        if not r["bitwise"]:
+            med = float(np.median(r["zero_vs_replicated"]))
+            floor = float(np.median(r["noise"]))
+            log(f"      not bitwise: per-leaf rel error median {med:.3e}, max "
+                f"{max(r['zero_vs_replicated']):.3e}; the float32 noise floor (the replicated run "
+                f"again) median {floor:.3e}, max {max(r['noise']):.3e}")
+            if med > max(TOL_DP_VS_NOISE * floor, TOL_RESNET_GRAD) or max(
+                    r["zero_vs_replicated"]) > max(TOL_DP_VS_NOISE * max(r["noise"]),
+                                                   TOL_RESNET_GRAD):
+                raise SystemExit("ZeRO-1: the parameters disagree with the replicated run")
+    if len({r["runs"]["zero"]["param_sha256"] for r in ranks}) != 1:
+        raise SystemExit("ZeRO-1: the data ranks end with different parameters")
+    z0, rep0 = ranks[0]["runs"]["zero"], ranks[0]["runs"]["replicated"]
+    ms = {k: float(np.median([s["ms"] for s in run["steps"][1:]]))
+          for k, run in (("zero", z0), ("replicated", rep0))}
+    log(f"    e2e: step {ms['zero']:.1f} ms with ZeRO-1, {ms['replicated']:.1f} ms replicated "
+        f"(cuDNN deterministic; rank 0, median of steps 2-{ZERO_STEPS}); phase 9's 2-rank step "
+        f"{phase9.get('step_ms', float('nan')):.1f} ms; all-reduce and all-gather a ZeRO-1 step: "
+        f"{_traffic_line(z0['steps'][1])} [{card}]")
+    return {"step_ms": ms["zero"], "replicated_step_ms": ms["replicated"],
+            "opt_bytes": z0["opt_bytes"], "replicated_opt_bytes": rep0["opt_bytes"],
+            "bitwise": all(r["bitwise"] for r in ranks),
+            "launches": [{k: r["runs"]["zero"]["launches"].get(k, 0)
+                          + r["runs"]["replicated"]["launches"].get(k, 0)
+                          for k in ("bn_stats", "bn_bwd_stats")} for r in ranks]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
@@ -3395,6 +3820,17 @@ def main() -> int:
     log("  ps_sharded: " + json.dumps({k: {m: (round(v, 6) if isinstance(v, float) else v)
                                            for m, v in r.items()} for k, r in sharded.items()}))
 
+    log(f"phase 12: the model mesh axis (W4 word2vec and W5 PTB LSTM at --mesh={MA_MESH}, "
+        "vocab-parallel tables) and ZeRO-1 (ResNet-50 --zero_opt on 2 data ranks)")
+    t12 = time.perf_counter()
+    model_axis = model_axis_end_to_end(card, dp["resnet_dp2"])
+    zero_launches = {name: [r[name] for r in model_axis["zero"]["launches"]]
+                     for name in ("bn_stats", "bn_bwd_stats")}
+    log("  model_axis: " + json.dumps({k: {m: (round(v, 6) if isinstance(v, float) else v)
+                                           for m, v in r.items() if m != "launches"}
+                                       for k, r in model_axis.items()})
+        + f"; phase 12 took {time.perf_counter() - t12:.1f} s")
+
     csrc = "distributed_tensorflow_examples_tpu_torch/ops/csrc"
     tpu = "distributed_tensorflow_examples_tpu/ops/flash_attention.py"
     record = {"kernels": [
@@ -3436,10 +3872,11 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"{csrc}/bn_stats.cu",
             "replaces": f"distributed_tensorflow_examples_tpu/ops/bn.py:{line}",
             "launches": resnet_launches.get(name, 0) + sum(dp_launches[name])
-            + nccl_launches[name],
+            + nccl_launches[name] + sum(zero_launches[name]),
             "launches_by_path": {"train_resnet50": resnet_launches.get(name, 0),
                                  "train_resnet50_dp2_by_rank": dp_launches[name],
-                                 "train_resnet50_nccl1": nccl_launches[name]},
+                                 "train_resnet50_nccl1": nccl_launches[name],
+                                 "train_resnet50_zero1_dp2_by_rank": zero_launches[name]},
             "max_abs_err": max(e[name] for e in bn_errs), **bn_times[name],
         } for name, line in (("bn_stats", 166), ("bn_bwd_stats", 239))),
     ]}

@@ -31,14 +31,16 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from ..parallel import collectives, dist, sharding
+from ..parallel import collectives, sharding
 
 
 class InMemoryPipeline:
     """Shuffled, sharded, infinitely repeating batch stream over in-memory
     numpy arrays.  ``batch_size`` is the GLOBAL batch; this rank yields
     ``batch_size // process_count`` rows a batch (``process_index`` and
-    ``process_count`` default to the world's rank and size); the ragged
+    ``process_count`` default to the ``data`` axis: the rank's data index
+    and the data size, so the model ranks of one data index read the same
+    rows; without a mesh, the world's rank and size); the ragged
     end of an epoch is dropped.  ``microbatches=k`` (``--grad_accum``):
     on several ranks, this rank's share of each of the k microbatches of
     the global batch, microbatch 0's rows first (module docstring)."""
@@ -60,8 +62,8 @@ class InMemoryPipeline:
         self.n = next(iter(lengths.values()))
         if not 0 < batch_size <= self.n:
             raise ValueError(f"batch_size {batch_size} must be in [1, {self.n}]")
-        self.pidx = dist.process_index() if process_index is None else process_index
-        self.pcount = dist.process_count() if process_count is None else process_count
+        self.pidx = collectives.axis_index() if process_index is None else process_index
+        self.pcount = collectives.axis_size() if process_count is None else process_count
         if batch_size % self.pcount:
             raise ValueError(f"global batch {batch_size} not divisible by {self.pcount} ranks")
         self.batch_size = batch_size
@@ -90,13 +92,16 @@ class InMemoryPipeline:
             epoch += 1
 
 
-def rank_batches(make, microbatches: int = 1) -> Iterator[dict[str, np.ndarray]]:
+def rank_batches(make, microbatches: int = 1, rank: int | None = None,
+                 size: int | None = None) -> Iterator[dict[str, np.ndarray]]:
     """This rank's batches: ``make(rank)``, the stream of local batches a
     rank of the data axis reads; under ``microbatches`` > 1 on several
     ranks, this rank's share of each microbatch of the global batch (every
     rank's ``make(q)`` laid out rank 0's first), which each rank assembles
-    from the deterministic streams alone."""
-    size, rank = collectives.axis_size(), collectives.axis_index()
+    from the deterministic streams alone.  ``rank`` of ``size`` data ranks
+    (default: the calling thread's data axis)."""
+    size = collectives.axis_size() if size is None else size
+    rank = collectives.axis_index() if rank is None else rank
     if microbatches <= 1 or size == 1:
         yield from make(rank)
         return

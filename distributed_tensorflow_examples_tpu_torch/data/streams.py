@@ -65,12 +65,13 @@ def resolve_image_source(
 
 def train_iter(
     src: ImageSource, *, batch_size: int, seed: int, worker: int | None = None,
-    n_workers: int = 1, microbatches: int = 1,
+    n_workers: int = 1, microbatches: int = 1, mesh=None,
 ) -> Iterator[dict[str, np.ndarray]]:
     """Training batches of ``batch_size`` from an in-memory source, in the
-    JAX pipeline's order for ``seed`` (under ``microbatches`` > 1 on
-    several ranks, this rank's share of each microbatch:
-    ``InMemoryPipeline``).  With ``worker=w`` (one of ``n_workers``
+    JAX pipeline's order for ``seed``: the rows of ``mesh``'s data index
+    (default: the calling thread's data axis), under ``microbatches`` > 1
+    on several ranks this rank's share of each microbatch
+    (``InMemoryPipeline``).  With ``worker=w`` (one of ``n_workers``
     PS-emulation workers) the stream is worker w's own: the whole training
     split at seed ``seed + w``, as the JAX memory branch gives it."""
     if worker is not None:
@@ -78,5 +79,7 @@ def train_iter(
             raise ValueError(f"worker {worker} is not one of {n_workers} workers")
         return iter(InMemoryPipeline(src.ds.train, batch_size=batch_size, seed=seed + worker,
                                      process_index=0, process_count=1))
+    index, count = (None, None) if mesh is None else (mesh.data_index, mesh.shape["data"])
     return iter(InMemoryPipeline(src.ds.train, batch_size=batch_size, seed=seed,
+                                 process_index=index, process_count=count,
                                  microbatches=microbatches))

@@ -105,7 +105,7 @@ def run_training(args, *, extra_hooks=()):
     )
     exp.source = src
     exp.run(streams.train_iter(src, batch_size=args.batch_size, seed=args.seed,
-                               microbatches=args.grad_accum))
+                               microbatches=args.grad_accum, mesh=exp.mesh))
     exp.test_metrics = exp.evaluate(src.ds.test)
     exp.finish(test_accuracy=exp.test_metrics.get("accuracy", 0.0))
     return exp

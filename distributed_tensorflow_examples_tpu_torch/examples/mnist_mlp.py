@@ -126,6 +126,8 @@ def run_training(args, *, extra_hooks=()):
     )
     exp.source = ds
     exp.run(InMemoryPipeline(ds.train, batch_size=args.batch_size, seed=args.seed,
+                             process_index=exp.mesh.data_index,
+                             process_count=exp.mesh.shape["data"],
                              microbatches=args.grad_accum))
     exp.test_metrics = exp.evaluate(ds.test)
     exp.finish(test_accuracy=exp.test_metrics.get("accuracy", 0.0))

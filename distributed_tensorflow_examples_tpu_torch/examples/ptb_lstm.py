@@ -13,12 +13,16 @@ the ``FINAL ... valid_perplexity=`` line.  Runs on the card unless
     python -m distributed_tensorflow_examples_tpu_torch.examples.ptb_lstm \\
         --batch_size=64 --seq_len=20 --train_steps=2000
 
-On a world of N ranks (``TF_CONFIG``, one process each; see
-``utils/multiprocess.py``) each rank trains on a contiguous block of the
-token stream with ``--batch_size / N`` rows and its own carry of those
-rows, the gradients mean-all-reduced before the clip, as the JAX CLI
-splits the rows over hosts; the validation runs on every rank, and the
-chief prints FINAL.
+On a world of ranks (``TF_CONFIG``, one process each; see
+``utils/multiprocess.py``) the mesh is D data x M model (``--mesh``,
+default all data).  Each data index trains on a contiguous block of the
+token stream with ``--batch_size / D`` rows and its own carry of those
+rows, the gradients mean-all-reduced over ``data`` before the clip, as
+the JAX CLI splits the rows over hosts; the M model ranks of one data
+index read the same rows and split the embedding's rows and the
+softmax's vocab columns (``models.lstm.SHARDING_RULES``), the clip's norm
+summed over them.  The validation runs on every rank, and the chief
+prints FINAL.
 
 ``--job_name=ps`` prints and exits 0 and the TF-1 cluster flags are mapped
 (``utils/flags.py``); the JAX CLI has no PS branch, so ``--ps_emulation``
@@ -36,7 +40,7 @@ import torch
 
 from ..data import datasets, pipeline
 from ..models import lstm
-from ..parallel import dist, sharding
+from ..parallel import collectives, sharding
 from ..train import Experiment, optim
 from ..train.state import as_state_leaves
 from ..utils import flags, threefry
@@ -96,21 +100,24 @@ def run_training(args, *, extra_hooks=()) -> Experiment:
                  len(valid_ids))
     cfg = config_from_args(args)
     exp = Experiment(
-        # The carry of this rank's rows (the world is up when init runs).
+        # The carry of this data index's rows (the mesh is up when init runs).
         init_fn=lambda seed: lstm.init_numpy(
-            cfg, seed, batch_size=args.batch_size // dist.process_count()),
+            cfg, seed, batch_size=args.batch_size // collectives.axis_size()),
         loss_fn=lstm.loss_fn(cfg),
         optimizer=optim.SGD(args.learning_rate, clip_norm=args.clip_norm),
         flags=args,
         extra_hooks=extra_hooks,
         row_sharded_state=True,
+        rules=lstm.SHARDING_RULES,
     )
-    local_ids, local_rows = sharding.stream_block(train_ids, args.batch_size)
+    local_ids, local_rows = sharding.stream_block(train_ids, args.batch_size,
+                                                  exp.mesh.data_index, exp.mesh.shape["data"])
     exp.run(datasets.lm_batches(local_ids, batch_size=local_rows, seq_len=args.seq_len))
-    exp.valid_perplexity = valid_perplexity(
-        cfg, exp.state.params, valid_ids, batch_size=args.batch_size, seq_len=args.seq_len,
-        device=exp.device,
-    )
+    with exp.mesh.axes():  # the vocab-parallel softmax sums over the model axis
+        exp.valid_perplexity = valid_perplexity(
+            cfg, exp.state.params, valid_ids, batch_size=args.batch_size,
+            seq_len=args.seq_len, device=exp.device,
+        )
     exp.finish(valid_perplexity=exp.valid_perplexity)
     return exp
 

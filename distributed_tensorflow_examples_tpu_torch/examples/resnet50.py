@@ -19,7 +19,9 @@ TF-1 cluster flags are accepted and mapped (``utils/flags.py``): the JAX
 CLI has no PS branch, so ``--ps_emulation`` and ``--sync_replicas=false``
 train as usual, and so does a cross-process PS task role, as there; ghost-batch BN
 (``--bn_ghost_slices``) and streamed ``--data_dir`` sources wait for the
-port's items A8 and A10.
+port's items A8b and A10.  ``--zero_opt`` keeps each data rank's block of
+the momentum of every leaf of 65536 elements or more (ZeRO-1,
+``train/state.py``), with the replicated run's numbers.
 
 On a world of N ranks (the reference's MirroredStrategy; ``TF_CONFIG``,
 one process per rank, ``utils/multiprocess.py``) each rank trains on its
@@ -55,7 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("--momentum", type=float, default=0.9, help="SGD momentum.")
     add("--synthetic_examples", type=int, default=2048, help="Synthetic train-set size.")
     add("--bn_ghost_slices", type=int, default=0,
-        help=">0 scopes BN statistics to slice-local groups (waits for A8).")
+        help=">0 scopes BN statistics to slice-local groups (waits for A8b).")
     flags.add_legacy_cluster_flags(p)
     return p
 
@@ -92,7 +94,7 @@ def run_training(args, *, loss_fn_factory=None, extra_hooks=()) -> Experiment:
     ``resnet.loss_fn(cfg)``.  Returns the finished Experiment, with its
     data as ``exp.source`` and the eval's metrics as ``exp.test_metrics``."""
     cfg = config_from_args(args)
-    resnet.sharding_rules(cfg)  # ghost-batch BN raises here (A8)
+    rules = resnet.sharding_rules(cfg)  # ghost-batch BN raises here (A8b)
     src = streams.resolve_image_source(
         args.data_dir,
         fallback=lambda: datasets.imagenet_synthetic(
@@ -109,10 +111,11 @@ def run_training(args, *, loss_fn_factory=None, extra_hooks=()) -> Experiment:
         flags=args,
         device=args.device,
         extra_hooks=extra_hooks,
+        rules=rules,
     )
     exp.source = src
     exp.run(streams.train_iter(src, batch_size=args.batch_size, seed=args.seed,
-                               microbatches=args.grad_accum))
+                               microbatches=args.grad_accum, mesh=exp.mesh))
     exp.test_metrics = exp.evaluate(src.ds.test, eval_fn=eval_fn_for(cfg))
     exp.finish(test_accuracy=exp.test_metrics.get("accuracy", 0.0))
     return exp

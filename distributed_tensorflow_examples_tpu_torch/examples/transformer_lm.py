@@ -38,7 +38,7 @@ logs them.  On a world of N ranks (``TF_CONFIG``) each rank trains on a
 contiguous block of the corpus with ``--batch_size / N`` rows, as the
 JAX CLI shards it over hosts, and, as there, a multi-process run skips
 the registry publish.  Pipeline stages and mixture-of-experts blocks
-wait for the port's model-parallel slice (A8).
+wait for the port's sequence, expert and pipeline axes (A8b).
 """
 
 from __future__ import annotations
@@ -164,7 +164,7 @@ def run_training(args, *, extra_hooks=()) -> Experiment:
     line.  Returns the finished Experiment (``exp.published_version``
     when ``--registry_dir`` was given)."""
     cfg = config_from_args(args)
-    transformer.param_shapes(cfg)  # pipeline stages / MoE raise here (A8)
+    transformer.param_shapes(cfg)  # pipeline stages / MoE raise here (A8b)
     if args.sample_tokens > 0 and PROMPT_LEN + args.sample_tokens > args.seq_len:
         # Refused before training: generate() would raise after the whole
         # run and lose the FINAL line.

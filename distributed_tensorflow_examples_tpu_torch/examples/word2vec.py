@@ -1,6 +1,6 @@
 """word2vec example of the port: the twin of ``examples/word2vec.py``
-(W4, the reference's PS-sharded-embedding workload) on one device, with
-the JAX CLI's flag names and defaults.
+(W4, the reference's PS-sharded-embedding workload), with the JAX CLI's
+flag names and defaults.
 
 Skip-gram pairs (``--window``) from the text corpus under ``--data_dir``
 (``text8`` or ``corpus.txt``) or the synthetic stream, NCE or sampled
@@ -15,10 +15,17 @@ line.  Runs on the card unless ``--device=cpu``::
 ``--job_name=ps`` prints and exits 0 and the TF-1 cluster flags are mapped
 (``utils/flags.py``); the JAX CLI has no PS branch, so ``--ps_emulation``
 and ``--sync_replicas=false`` train as usual here too, and so does a
-cross-process PS task role, as there.  On a world of N ranks (``TF_CONFIG``)
-each rank draws ``--batch_size / N`` pairs a step from its own stream
-(seed ``--seed + rank``), as the JAX CLI does.  The embedding sharded
-over a ``model`` mesh axis waits for the port's model-parallel slice (A8).
+cross-process PS task role, as there.  On a world of ranks
+(``TF_CONFIG``) the mesh is D data x M model (``--mesh``, default all
+data): each data index draws ``--batch_size / D`` pairs a step from its
+own stream (seed ``--seed + data index``), as the JAX CLI does per host,
+and the M model ranks of one data index read the same pairs.  Both
+tables (and the nce bias) shard their vocab rows over ``model``
+(``models.word2vec.SHARDING_RULES``), the reference's PS-sharded table::
+
+    # two ranks, one table split in two: each with its own TF_CONFIG index
+    python -m distributed_tensorflow_examples_tpu_torch.examples.word2vec \
+        --mesh=data=1,model=2
 """
 
 from __future__ import annotations
@@ -29,7 +36,6 @@ import sys
 
 from ..data import datasets, pipeline
 from ..models import word2vec
-from ..parallel import dist
 from ..train import Experiment, optim
 from ..utils import flags
 
@@ -72,12 +78,13 @@ def run_training(args, *, extra_hooks=()) -> Experiment:
         optimizer=optim.SGD(args.learning_rate),
         flags=args,
         extra_hooks=extra_hooks,
+        rules=word2vec.SHARDING_RULES,
     )
+    local_batch = args.batch_size // exp.mesh.shape["data"]
     exp.run(pipeline.rank_batches(
         lambda rank: datasets.skipgram_batches(
-            ids, batch_size=args.batch_size // dist.process_count(), window=args.window,
-            seed=args.seed + rank),
-        args.grad_accum))
+            ids, batch_size=local_batch, window=args.window, seed=args.seed + rank),
+        args.grad_accum, exp.mesh.data_index, exp.mesh.shape["data"]))
     eval_pairs = next(datasets.skipgram_batches(
         ids, batch_size=EVAL_PAIRS, window=args.window, seed=args.seed + 999
     ))

@@ -207,11 +207,11 @@ def batchnorm(
     (the reverse of ``nn.BatchNorm2d``'s convention, and with the biased
     variance).  ``relu`` applies ReLU inside the layer; on the fused path
     the backward then recomputes the mask in the kernel.  Ghost-batch
-    training waits for the port's model-parallel slice (A8)."""
+    training waits for the port's item A8b."""
     if train and ghost_slices > 0:
         raise NotImplementedError(
             "ghost-batch BN training (bn_ghost_slices > 0, statistics scoped to "
-            "a 'slice' mesh axis) waits for the port's model-parallel slice (A8)"
+            "a 'slice' mesh axis) waits for the port's item A8b"
         )
     if train:
         if mesh is not None:
@@ -283,18 +283,41 @@ def lstm_cell(params, carry, x, *, forget_bias=1.0, dtype=None):
 # ----------------------------------------------------------------------------
 
 
-def embedding_lookup(params, ids, *, dtype=None):
+def embedding_lookup(params, ids, *, dtype=None, vocab_size=None):
     """Gather rows of ``params["table"]`` as ``jnp.take`` does: a negative
     id counts from the end, and an id outside [-V, V) gives a row of NaN
-    (JAX's fill mode) instead of a device-side fault."""
+    (JAX's fill mode) instead of a device-side fault.
+
+    A table of fewer rows than ``vocab_size`` is this rank's block of a
+    table sharded over ``model`` (rows ``[m n, (m + 1) n)`` on model rank
+    m): the ids outside the block are masked, the block gathers its own,
+    and :func:`collectives.reduce_from_model` sums the blocks' rows, so
+    each row comes from its one owner and its gradient goes back to that
+    owner alone.  The NaN rows are filled after the sum, once.  A whole
+    table issues no collective, under any mesh."""
     t = params["table"]
     n = t.shape[0]
+    v = n if vocab_size is None else vocab_size
     ids = ids.long()
-    ids = torch.where(ids < 0, ids + n, ids)
-    valid = (ids >= 0) & (ids < n)
-    rows = t[ids.clamp(0, n - 1)]
+    ids = torch.where(ids < 0, ids + v, ids)
+    valid = (ids >= 0) & (ids < v)
+    if n == v:
+        rows = t[ids.clamp(0, n - 1)]
+    else:
+        rows = collectives.reduce_from_model(own_rows(t, ids))
     rows = torch.where(valid[..., None], rows, torch.nan)
     return rows if dtype is None else rows.to(dtype)
+
+
+def own_rows(t, ids):
+    """This model rank's rows of ``t`` (its block of a table sharded by
+    rows over ``model``) for ``ids``: the row where the block holds the
+    id, zeros elsewhere."""
+    n = t.shape[0]
+    local = ids - collectives.axis_index("model") * n
+    mine = (local >= 0) & (local < n)
+    shape = mine.shape + (1,) * (t.dim() - 1)
+    return torch.where(mine.reshape(shape), t[local.clamp(0, n - 1)], 0.0)
 
 
 def softmax_cross_entropy(logits, labels):
@@ -304,6 +327,25 @@ def softmax_cross_entropy(logits, labels):
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return (logz - gold).mean()
+
+
+def vocab_parallel_cross_entropy(logits, labels):
+    """:func:`softmax_cross_entropy` over this model rank's block of the
+    vocab, ``logits`` [N, V/M] holding the columns ``[m V/M, (m + 1) V/M)``:
+    the max over ``model`` (no gradient), then one sum over ``model`` of
+    each row's Σexp and of its gold logit, which only its owning block
+    holds.  The loss comes out the same on every model rank."""
+    logits = logits.to(torch.float32)
+    n = logits.shape[-1]
+    m = logits.detach().amax(dim=-1)
+    collectives.all_reduce_max_(m, tag="model_fwd", axis_name="model")
+    local = labels.long() - collectives.axis_index("model") * n
+    mine = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    part = torch.stack([torch.exp(logits - m[..., None]).sum(dim=-1),
+                        torch.where(mine, gold, 0.0)], dim=-1)
+    sums = collectives.reduce_from_model(part)
+    return (torch.log(sums[..., 0]) + m - sums[..., 1]).mean()
 
 
 def accuracy(logits, labels):

@@ -13,6 +13,14 @@ its mask from the step's key with ``threefry.bernoulli``; under data
 parallelism each rank takes its rows of the global batch's draw.  The products
 are ``torch.matmul`` (the JAX package has no LSTM kernel), so a step on
 the card is some thousand small launches.
+
+:data:`SHARDING_RULES` (JAX :120-125) shard the embedding's rows and the
+softmax's vocab columns over ``model``: the lookup gathers over the
+row blocks (``layers.embedding_lookup``), ``h`` enters the softmax
+through ``collectives.copy_to_model``, each model rank computes its
+[B·T, V/M] block of the logits, and the cross-entropy runs vocab-parallel
+(``layers.vocab_parallel_cross_entropy``).  The carry's rows follow the
+batch over ``data`` (the CLI builds each rank's rows).
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..parallel import sharding
+from ..parallel import collectives, sharding
+from ..parallel.partitioner import PartitionSpec as P
 from ..utils import device as device_lib
 from ..utils import threefry
 from . import layers
@@ -77,9 +86,11 @@ def reset_carry(model_state):
 
 
 def apply(cfg: Config, params, carry, x, *, rng=None):
-    """x: [B, T] int ids -> (logits [B, T, V] in the compute dtype,
-    new_carry detached in float32)."""
-    emb = layers.embedding_lookup(params["emb"], x, dtype=cfg.dtype)  # [B,T,D]
+    """x: [B, T] int ids -> (logits [B, T, V] in the compute dtype, or this
+    model rank's [B, T, V/M] block of them, new_carry detached in
+    float32)."""
+    emb = layers.embedding_lookup(params["emb"], x, dtype=cfg.dtype,
+                                  vocab_size=cfg.vocab_size)  # [B,T,D]
     if cfg.keep_prob < 1.0 and rng is not None:
         # This rank's rows of the draw shaped by the global batch, as JAX
         # draws one mask for the batch sharded over 'data'.
@@ -95,7 +106,10 @@ def apply(cfg: Config, params, carry, x, *, rng=None):
             carries[i], h = layers.lstm_cell(params[f"lstm_{i}"], carries[i], h,
                                              dtype=cfg.dtype)
         hs.append(h)
-    logits = layers.dense(params["softmax"], torch.stack(hs, dim=1), dtype=cfg.dtype)
+    hs = torch.stack(hs, dim=1)
+    if params["softmax"]["kernel"].shape[1] != cfg.vocab_size:  # vocab-parallel
+        hs = collectives.copy_to_model(hs)
+    logits = layers.dense(params["softmax"], hs, dtype=cfg.dtype)
     new_carry = {
         f"lstm_{i}": {"c": c.detach().to(torch.float32), "h": h.detach().to(torch.float32)}
         for i, (c, h) in enumerate(carries)
@@ -109,9 +123,21 @@ def loss_fn(cfg: Config):
 
     def f(params, model_state, batch, rng):
         logits, new_carry = apply(cfg, params, model_state, batch["x"], rng=rng)
-        loss = layers.softmax_cross_entropy(
-            logits.reshape(-1, cfg.vocab_size), batch["y"].reshape(-1)
-        )
+        xent = (layers.softmax_cross_entropy if logits.shape[-1] == cfg.vocab_size
+                else layers.vocab_parallel_cross_entropy)
+        loss = xent(logits.reshape(-1, logits.shape[-1]), batch["y"].reshape(-1))
         return loss, (new_carry, {"loss": loss.detach(), "perplexity": torch.exp(loss.detach())})
 
     return f
+
+
+#: The JAX rule table (:120-125): the carry's rows over ``data`` with the
+#: batch; the [V, D] embedding's rows and the [D, V] softmax's columns,
+#: and its bias, over ``model`` (clamped to replicated without a model
+#: axis).
+SHARDING_RULES: tuple = (
+    (r"lstm_\d+/(c|h)$", P("data", None)),
+    (r"emb/table", P("model", None)),
+    (r"softmax/kernel", P(None, "model")),
+    (r"softmax/bias", P("model")),
+)

@@ -13,8 +13,8 @@ between the packages as they are.
 ``mesh`` (a ``parallel.mesh.Mesh``) sends every BatchNorm through the
 fused statistics path, the B6/B7 kernels on the card (``ops/bn.py``;
 SyncBN when its ``data`` axis is larger than 1), as the JAX ``mesh=``
-does; without it BatchNorm is plain torch.  Ghost-batch BN training (``bn_ghost_slices > 0``) waits for the
-port's model-parallel slice (A8).
+does; without it BatchNorm is plain torch.  Ghost-batch BN training
+(``bn_ghost_slices > 0``) waits for the port's item A8b.
 """
 
 from __future__ import annotations
@@ -211,11 +211,12 @@ def loss_fn(cfg: Config, *, l2: float = 1e-4, mesh=None):
 
 
 def sharding_rules(cfg: Config) -> tuple:
-    """No rules on one device; ghost-batch BN's per-slice stats, sharded
-    over a 'slice' axis, wait for the port's model-parallel slice (A8)."""
+    """No rules without ghost BN (every leaf replicated; ``--zero_opt``
+    shards the slots); ghost-batch BN's per-slice stats, sharded over a
+    'slice' axis, wait for the port's item A8b."""
     if cfg.bn_ghost_slices > 0:
         raise NotImplementedError(
             "ghost-batch BN (bn_ghost_slices > 0) shards its running stats over a "
-            "'slice' mesh axis: the port's model-parallel slice (A8)"
+            "'slice' mesh axis: the port's item A8b"
         )
     return ()

@@ -20,7 +20,7 @@ KV-cache decode (:func:`decode_step`, the per-row-position
 :func:`decode_step_batch` a serving replica steps, :func:`generate`) keeps
 its attention in plain PyTorch, as the reference keeps it outside Pallas.
 A mesh, pipeline stages and mixture-of-experts blocks come with the port's
-model-parallel slice.
+item A8b (the sequence, pipeline and expert axes).
 """
 
 from __future__ import annotations
@@ -85,11 +85,11 @@ class Config:
 def _check_supported(cfg: Config) -> None:
     if cfg.pipeline_stages > 1:
         raise NotImplementedError(
-            "pipeline_stages > 1 waits for the port's model-parallel slice"
+            "pipeline_stages > 1 waits for the port's model-parallel slice A8b"
         )
     if cfg.moe_experts > 0:
         raise NotImplementedError(
-            "moe_experts > 0 waits for the port's model-parallel slice"
+            "moe_experts > 0 waits for the port's model-parallel slice A8b"
         )
 
 
@@ -220,7 +220,8 @@ def apply(cfg: Config, params, x, *, mesh=None):
     _check_supported(cfg)
     if mesh is not None:
         raise NotImplementedError(
-            "a mesh waits for the port's model-parallel slice"
+            "a mesh waits for the port's model-parallel slice A8b (the transformer's "
+            "rule table, the sequence axis)"
         )
     h = _trunk(cfg, params, x)
     return layers.dense(params["head"], h, dtype=cfg.dtype)
@@ -407,7 +408,8 @@ def loss_fn(cfg: Config, *, mesh=None):
     _check_supported(cfg)
     if mesh is not None:
         raise NotImplementedError(
-            "a mesh waits for the port's model-parallel slice"
+            "a mesh waits for the port's model-parallel slice A8b (the transformer's "
+            "rule table, the sequence axis)"
         )
 
     def f(params, model_state, batch, rng):

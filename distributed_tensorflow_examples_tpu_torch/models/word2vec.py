@@ -9,8 +9,20 @@ sampled logits.  The negatives are drawn from the train step's key with
 ``threefry.uniform`` and the JAX function's float32 inverse CDF, so from
 the same key the port samples the JAX package's ids.  The row gathers are
 tensor indexing, whose gradient scatter-adds into repeated ids, as
-``jnp.take``'s transpose does.  One device: the table sharding over the
-``model`` axis waits for the port's model-parallel item (A8).
+``jnp.take``'s transpose does.
+
+:data:`SHARDING_RULES` (JAX :135-138) shard both tables' vocab dim, and
+the bias, over the ``model`` axis.  A model rank then holds a block of
+rows: the lookup gathers its own and sums over ``model``
+(``layers.embedding_lookup``), and :func:`_logits` takes the true and
+sampled logits from its rows of ``nce/weights`` and ``nce/bias`` (zero
+for the other blocks' ids) and sums the partial logits over ``model``
+(``collectives.reduce_from_model``), with ``emb`` entering through
+``collectives.copy_to_model``, so the gradient of ``emb`` is the sum of
+the blocks'.  Each logit has one owner, so a sum adds zeros only and the
+sharded logits are the replicated ones.  The negatives come from the
+step key, the same ids on every rank; ``log_q`` is per id and not
+sharded.
 """
 
 from __future__ import annotations
@@ -22,6 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives
+from ..parallel.partitioner import PartitionSpec as P
 from ..utils import device as device_lib
 from ..utils import threefry
 from ..utils.threefry import fma32
@@ -157,14 +171,23 @@ def _log_expected_count(ids, vocab_size: int, num_sampled: int) -> torch.Tensor:
 
 
 def _logits(cfg: Config, params, emb, true_ids, sampled_ids):
-    """(true_logits [B], sampled_logits [B, S]) with subtract-log-q."""
+    """(true_logits [B], sampled_logits [B, S]) with subtract-log-q; from
+    this rank's rows of a table sharded over ``model`` (module
+    docstring)."""
     w, b = params["nce"]["weights"], params["nce"]["bias"]
     emb = emb.to(torch.promote_types(emb.dtype, w.dtype))
     true_ids, sampled_ids = true_ids.long(), sampled_ids.long()
-    w_true = w[true_ids]  # [B, D]
-    w_samp = w[sampled_ids]  # [S, D]
-    true_logits = (emb * w_true).sum(dim=-1) + b[true_ids]
-    sampled_logits = emb @ w_samp.T + b[sampled_ids][None, :]
+    if w.shape[0] == cfg.vocab_size:  # a whole table: no collective
+        true_logits = (emb * w[true_ids]).sum(dim=-1) + b[true_ids]  # [B]
+        sampled_logits = emb @ w[sampled_ids].T + b[sampled_ids][None, :]  # [B, S]
+    else:
+        emb = collectives.copy_to_model(emb)
+        w_true, b_true = layers.own_rows(w, true_ids), layers.own_rows(b, true_ids)
+        w_samp, b_samp = layers.own_rows(w, sampled_ids), layers.own_rows(b, sampled_ids)
+        part = torch.cat([((emb * w_true).sum(dim=-1) + b_true)[:, None],
+                          emb @ w_samp.T + b_samp[None, :]], dim=-1)
+        logits = collectives.reduce_from_model(part)  # [B, 1 + S], one all-reduce
+        true_logits, sampled_logits = logits[:, 0], logits[:, 1:]
     log_q = _log_expected_counts(cfg.vocab_size, cfg.num_sampled, str(w.device))
     true_logits = true_logits - log_q[true_ids]
     sampled_logits = sampled_logits - log_q[sampled_ids][None, :]
@@ -193,7 +216,8 @@ def loss_fn(cfg: Config):
     key) draws the negatives."""
 
     def f(params, model_state, batch, rng):
-        emb = layers.embedding_lookup(params["emb"], batch["center"], dtype=cfg.dtype)
+        emb = layers.embedding_lookup(params["emb"], batch["center"], dtype=cfg.dtype,
+                                      vocab_size=cfg.vocab_size)
         fn = nce_loss if cfg.loss == "nce" else sampled_softmax_loss
         loss = fn(cfg, params, emb, batch["context"], rng)
         return loss, (model_state, {"loss": loss.detach()})
@@ -202,7 +226,22 @@ def loss_fn(cfg: Config):
 
 
 def similarity(cfg: Config, params, query_ids) -> torch.Tensor:
-    """Cosine similarity [Q, V] of the query words against the vocab."""
+    """Cosine similarity [Q, V] of the query words against the vocab; on
+    a table sharded over ``model``, the queries' rows are gathered from
+    their owners and the ranks' columns concatenated."""
     table = params["emb"]["table"]
     norm = table / (torch.linalg.vector_norm(table, dim=-1, keepdim=True) + 1e-8)
-    return norm[query_ids.long()] @ norm.T
+    q = layers.embedding_lookup({"table": norm}, query_ids, vocab_size=cfg.vocab_size)
+    if table.shape[0] == cfg.vocab_size:
+        return q @ norm.T
+    return collectives.all_gather(q @ norm.T, 1, axis_name="model", tag="similarity")
+
+
+#: The fixed_size_partitioner -> mesh mapping (JAX :135-138): both [vocab,
+#: dim] tables shard their vocab dim over ``model``; the bias follows.  On
+#: a mesh without a model axis they clamp to replicated.
+SHARDING_RULES: tuple = (
+    (r"emb/table", P("model", None)),
+    (r"nce/weights", P("model", None)),
+    (r"nce/bias", P("model")),
+)

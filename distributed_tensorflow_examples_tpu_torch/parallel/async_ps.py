@@ -1152,7 +1152,25 @@ def host_ps_task(
         while True:
             # Bounded pops keep this thread responsive (fault triggers,
             # signals) and the idle polling a trickle.
-            token = tq.pop(timeout_s=2.0)
+            try:
+                token = tq.pop(timeout_s=2.0)
+            except ps_service.PSError as e:
+                if not isinstance(e.__cause__, TimeoutError):
+                    raise
+                # The server runs in this process, so a pop that outran its
+                # socket timeout means this process was starved (a loaded
+                # host), not that the service died: dial it again.  Exiting
+                # here would restart the replica while its peer may be
+                # restarting too, and lose the shard's state (fault C9).  The
+                # checks of an idle pop below still run (supervisor gone,
+                # orphan, idle pair), and a server that no longer answers
+                # fails the dial and ends the task.
+                log.warning("PS task: the shutdown watch timed out on its own server "
+                            "(%s); reconnecting", e)
+                client.close()
+                client = ps_service.PSClient("127.0.0.1", bound, timeout_s=10.0)
+                tq = ps_service.RemoteTokenQueue(client, "ps_shutdown")
+                token = ps_service.TIMED_OUT
             if token is ps_service.TIMED_OUT:
                 if supervised and os.getppid() != ppid0:
                     log.warning("PS task: supervisor died; exiting")

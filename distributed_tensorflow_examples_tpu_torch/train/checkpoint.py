@@ -21,7 +21,15 @@ the step.  Every rank restores (the chief alone moves an unreadable step
 aside).  With ``row_sharded_state`` the model state is split by rows
 over the ranks (the LSTM's carry, which JAX's rules shard over
 ``data``): ``save`` gathers it into the global layout, rank 0's rows
-first, and a restore takes the rank's rows back.
+first, and a restore takes the rank's rows back.  Sharded leaves
+(``create_sharded_state``) are saved as their global arrays too: with
+``param_specs`` the leaves sharded over ``model`` are gathered over the
+model group, and a ``ShardedOptState`` hands over global slots (its
+ZeRO-1 blocks gathered over ``data``); a restore takes this rank's
+blocks.  So a step saved at one mesh shape resumes at another (a
+``model`` of 2 at 1, and back), as JAX's restore re-shards into the
+target layout.  The gathers are collectives, so every rank builds the
+payload and the chief writes it.
 """
 
 from __future__ import annotations
@@ -64,10 +72,14 @@ class CheckpointManager:
     ``restore_latest(template)``, ``latest_step()``."""
 
     def __init__(self, directory: str, *, max_to_keep: int = 5,
-                 row_sharded_state: bool = False):
+                 row_sharded_state: bool = False, param_specs=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.row_sharded_state = row_sharded_state
+        #: path -> the dim of the leaf sharded over ``model``.
+        self.model_dims = {} if param_specs is None else {
+            path: d for path, spec in _leaves(param_specs)
+            if (d := sharding.sharded_dim(spec, "model")) is not None}
         os.makedirs(self.directory, exist_ok=True)
 
     def all_steps(self) -> list[int]:
@@ -89,22 +101,28 @@ class CheckpointManager:
         model_state = state.model_state
         if self.row_sharded_state:
             model_state = _gather_rows(model_state)
+        params = {}
+        for path, p in _leaves(state.params):
+            dim = self.model_dims.get(path)
+            params[path] = p.detach() if dim is None else collectives.all_gather(
+                p, dim, axis_name="model", tag="ckpt")
+        opt_state = state.opt_state.state_dict()
         wrote = False
         if dist.is_chief() and self.latest_step() != step:
-            self._write(step, state, model_state)
+            self._write(step, state, params, opt_state, model_state)
             wrote = True
         dist.barrier(f"checkpoint-{step}")
         return wrote
 
-    def _write(self, step: int, state: TrainState, model_state) -> None:
+    def _write(self, step: int, state: TrainState, params, opt_state, model_state) -> None:
         final = os.path.join(self.directory, str(step))
         tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         payload = {
             "step": int(state.step),
-            "params": {path: p.detach() for path, p in _leaves(state.params)},
-            "opt_state": state.opt_state.state_dict(),
+            "params": params,
+            "opt_state": opt_state,
             "model_state": model_state,
             "seed": int(state.seed),
         }
@@ -165,7 +183,12 @@ class CheckpointManager:
             )
         with torch.no_grad():
             for path, p in params.items():
-                p.copy_(blob["params"][path])
+                saved = blob["params"][path]
+                dim = self.model_dims.get(path)
+                if dim is not None:
+                    n = p.shape[dim]
+                    saved = saved.narrow(dim, collectives.axis_index("model") * n, n)
+                p.copy_(saved)
         template.opt_state.load_state_dict(blob["opt_state"])
         model_state = blob["model_state"]
         if self.row_sharded_state:

@@ -30,24 +30,54 @@ optax's, in float32 as optax computes them.
 
 Both run fused (one kernel for every leaf) and share ``init(params) ->
 opt_state`` and ``update(opt_state, params, step)``.
+
+Sharded leaves (``train/state.py::create_sharded_state``) take a
+:class:`ShardedOptState` in place of the torch optimizer.  A leaf sharded
+over ``model`` (a vocab-parallel table) holds this rank's rows, and so do
+its slots.  A ZeRO-1 leaf (``--zero_opt``, JAX ``_zero_shard_opt``) is
+replicated, but its slots hold only this rank's 1/D of it (D the data
+degree): the step's gradient all-reduce is followed by a slice (an
+all-reduce and a slice, not a reduce-scatter: gloo has none), the torch
+optimizer updates this rank's chunk of the parameter in place, through a
+view, and an all-gather of the chunks rebuilds the rest of the
+parameter, so the numbers are the replicated step's (the update is
+elementwise).  The chunk is the rank's contiguous 1/D of the leaf's
+elements, not its block along the dim the JAX rule names: torch's fused
+optimizers read a strided view as if it were dense, and so update the
+wrong elements of a block along an inner dim.  The rule still decides
+which leaves are sharded, and a checkpoint holds the global slots.  The clip
+takes the global norm over the global gradient: a ``model``-sharded
+leaf's squares are summed over the model group, every other leaf counts
+once.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from ..parallel import collectives
 from .state import leaves
 
 B1, B2, EPS, WEIGHT_DECAY = 0.9, 0.999, 1e-8, 1e-4
 
 
-def clip_by_global_norm_(grads: list, max_norm: float) -> None:
+def clip_by_global_norm_(grads: list, max_norm: float, model_sharded=None) -> None:
     """Scale ``grads`` in place by ``max_norm / norm`` when their global
-    norm (f32) is at or above ``max_norm``; below it they are unchanged."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads])
-    )
+    norm (f32) is at or above ``max_norm``; below it they are unchanged.
+    ``model_sharded[i]``: grads[i] is this rank's block of a leaf sharded
+    over ``model``, whose squares the model group sums."""
+    norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads])
+    if model_sharded is not None and any(model_sharded):
+        mask = torch.tensor(model_sharded, device=norms.device)
+        sq = norms * norms
+        shard_sq = torch.where(mask, sq, torch.zeros_like(sq)).sum().reshape(1)
+        collectives.all_reduce_sum_(shard_sq, tag="model_clip", axis_name="model")
+        norm = torch.sqrt(torch.where(mask, torch.zeros_like(sq), sq).sum() + shard_sq[0])
+    else:
+        norm = torch.linalg.vector_norm(norms)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, factor)
 
@@ -62,7 +92,7 @@ class ClippedAdamW:
 
     def init(self, params) -> torch.optim.AdamW:
         return torch.optim.AdamW(
-            leaves(params), lr=self.learning_rate, betas=(B1, B2), eps=EPS,
+            _as_list(params), lr=self.learning_rate, betas=(B1, B2), eps=EPS,
             weight_decay=WEIGHT_DECAY, fused=True,
         )
 
@@ -71,8 +101,14 @@ class ClippedAdamW:
         """``step`` is unused: AdamW's own count, saved with its state,
         drives the bias correction."""
         ps = _grads_or_zeros(params)
-        clip_by_global_norm_([p.grad for p in ps], self.clip_norm)
+        clip_by_global_norm_([p.grad for p in ps], self.clip_norm,
+                             getattr(opt_state, "model_sharded", None))
         opt_state.step()
+
+
+def _as_list(params) -> list:
+    """A list of leaves as it is, or the leaves of a params tree."""
+    return list(params) if isinstance(params, list) else leaves(params)
 
 
 def _grads_or_zeros(params) -> list:
@@ -134,7 +170,7 @@ class SGD:
 
     def init(self, params) -> torch.optim.SGD:
         return torch.optim.SGD(
-            leaves(params), lr=self.schedule(0), momentum=self.momentum,
+            _as_list(params), lr=self.schedule(0), momentum=self.momentum,
             dampening=0.0, nesterov=False, fused=True,
         )
 
@@ -143,8 +179,132 @@ class SGD:
         """Update number ``step`` (0 for the first) at ``schedule(step)``."""
         ps = _grads_or_zeros(params)
         if self.clip_norm is not None:
-            clip_by_global_norm_([p.grad for p in ps], self.clip_norm)
+            clip_by_global_norm_([p.grad for p in ps], self.clip_norm,
+                                 getattr(opt_state, "model_sharded", None))
         lr = self.schedule(int(step))
         for group in opt_state.param_groups:
             group["lr"] = lr
         opt_state.step()
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """How one leaf is laid out: ``model_dim``, the dim of which this rank
+    holds a block over ``model`` (the leaf and its slots; None: not
+    sharded so); ``zero``, its slots hold this data rank's chunk (ZeRO-1)."""
+
+    model_dim: int | None = None
+    zero: bool = False
+
+
+def _block(t: torch.Tensor, dim: int, index: int, count: int) -> torch.Tensor:
+    n = t.shape[dim] // count
+    return t.narrow(dim, index * n, n)
+
+
+def _chunk(t: torch.Tensor, index: int, count: int) -> torch.Tensor:
+    """Chunk ``index`` of ``count`` of the contiguous ``t``'s elements, a
+    view."""
+    return _block(t.view(-1), 0, index, count)
+
+
+class ShardedOptState:
+    """The optimizer state of a run with sharded leaves (module
+    docstring): the torch optimizer over the leaves, each ZeRO-1 leaf
+    replaced by a view of this rank's chunk of it, so the optimizer holds
+    no tensor of its own beyond the slots.  ``step()``,
+    ``param_groups``, ``state_dict()`` and ``load_state_dict()`` stand in
+    for the torch optimizer's; the state dicts hold the GLOBAL slots (the
+    ranks' blocks gathered), the layout of the replicated optimizer, so a
+    checkpoint moves between mesh shapes."""
+
+    def __init__(self, optimizer, params, plan: list, *, data_group, model_group):
+        self.plan = list(plan)
+        self.data_group, self.model_group = data_group, model_group
+        self.params = leaves(params)
+        self._data = (0, 1) if data_group is None else (data_group.rank, data_group.size)
+        self._model = (0, 1) if model_group is None else (model_group.rank, model_group.size)
+        #: leaf index -> the view of its chunk that the optimizer updates
+        self.chunks = {i: _chunk(p.detach(), *self._data)
+                       for i, (p, lp) in enumerate(zip(self.params, self.plan)) if lp.zero}
+        self.inner = optimizer.init(
+            [self.chunks.get(i, p) for i, p in enumerate(self.params)])
+
+    @property
+    def model_sharded(self) -> list[bool]:
+        return [lp.model_dim is not None for lp in self.plan]
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    def _groups(self):
+        return collectives.use_group(self.data_group, model=self.model_group)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """Update every leaf from its ``.grad`` (the global gradient, after
+        the step's all-reduce): a ZeRO-1 leaf's chunk in place, then the
+        all-gather of the chunks into the leaf."""
+        for i, chunk in self.chunks.items():
+            chunk.grad = _chunk(self.params[i].grad, *self._data)
+        self.inner.step()
+        with self._groups():
+            for i, chunk in self.chunks.items():
+                self.params[i].view(-1).copy_(collectives.all_gather(
+                    chunk, 0, axis_name="data", tag="zero_params"))
+
+    def _slots(self, sd: dict, fn) -> dict:
+        """``sd`` with ``fn(slot, leaf index)`` in place of every slot (a
+        state tensor shaped like its leaf), in new dicts."""
+        state = {}
+        for i, slots in sd["state"].items():
+            state[i] = {k: fn(v, int(i)) if torch.is_tensor(v) and v.dim() > 0 else v
+                        for k, v in slots.items()}
+        return {**sd, "state": state}
+
+    def state_dict(self) -> dict:
+        """The torch optimizer's state dict with every slot global (a
+        collective: every rank calls it)."""
+
+        def gather(v, i):
+            lp, p = self.plan[i], self.params[i]
+            with self._groups():
+                if lp.zero:
+                    v = collectives.all_gather(v, 0, axis_name="data", tag="ckpt").view(p.shape)
+                if lp.model_dim is not None:
+                    v = collectives.all_gather(v, lp.model_dim, axis_name="model", tag="ckpt")
+            return v
+
+        return self._slots(self.inner.state_dict(), gather)
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Load a state dict of global slots: each rank takes its blocks."""
+
+        def take(v, i):
+            lp = self.plan[i]
+            if lp.model_dim is not None:
+                v = _block(v, lp.model_dim, *self._model)
+            if lp.zero:
+                v = _chunk(v.contiguous(), *self._data)
+            return v.clone()  # the rank's own slot, not a view of the caller's
+
+        self.inner.load_state_dict(self._slots(sd, take))
+
+
+def state_bytes(opt_state) -> int:
+    """The bytes of every tensor the optimizer holds on this rank beyond
+    the model's parameters: its slots, and a parameter tensor of its own
+    where it updates a copy rather than the parameter or a view of it
+    (each storage counted once)."""
+    inner = getattr(opt_state, "inner", opt_state)
+    model = getattr(opt_state, "params", None)
+    if model is None:
+        model = [p for g in inner.param_groups for p in g["params"]]
+    params = {p.untyped_storage().data_ptr() for p in model}
+    owned = {}
+    for t in [v for slots in inner.state.values() for v in slots.values()] + [
+            p for g in inner.param_groups for p in g["params"]]:
+        if torch.is_tensor(t) and t.untyped_storage().data_ptr() not in params:
+            owned[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(owned.values())

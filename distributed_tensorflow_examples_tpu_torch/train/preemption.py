@@ -57,11 +57,13 @@ class PreemptionCheckpointHook(Hook):
 
     def _any_rank_preempted(self, loop) -> bool:
         flag = self._flag.is_set()
-        if collectives.axis_size() == 1:
+        world = collectives.world()  # every rank, whatever the mesh's axes
+        if world is None or world.size == 1:
             return flag
         device = leaves(loop.state.params)[0].device  # the rank's card under nccl
         t = torch.tensor([float(flag)], device=device)
-        collectives.all_reduce_sum_(t, tag="preempt")
+        with collectives.use_group(world):
+            collectives.all_reduce_sum_(t, tag="preempt")
         if t.item() > 0:
             self._flag.set()
         return self._flag.is_set()

@@ -39,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import socket
 import sys
 import time
 from typing import Any, Callable, Iterator
@@ -250,6 +251,22 @@ def _relaunch_argv() -> list[str] | None:
     return None
 
 
+#: Set by a task's supervisor to the restart count of the incarnation it
+#: starts (absent in the first).
+RESTART_ENV = "DTX_TASK_RESTART"
+
+
+def _listening(addr: tuple[str, int]) -> bool:
+    """Whether a process listens on ``addr``: the kernel completes the dial
+    of a listening socket even when its process is starved; a refused dial
+    means nobody does."""
+    try:
+        socket.create_connection(addr, timeout=5.0).close()
+    except OSError:
+        return False
+    return True
+
+
 def _supervised_reexec(FLAGS, *, child_env_flag: str) -> int | None:
     """Re-exec this launch under ``utils.supervisor.supervise()`` — the PS
     task's crash-heal path.  Returns the supervisor's exit code when THIS
@@ -257,7 +274,8 @@ def _supervised_reexec(FLAGS, *, child_env_flag: str) -> int | None:
     when the caller should host the service itself: supervision disabled,
     a launch that cannot be re-executed, or this process IS the supervised
     child (``child_env_flag`` set).  A fault-INJECTED death is healed by
-    stripping the fired ``die`` spec from the restarted child's plan."""
+    stripping the fired ``die`` spec from the restarted child's plan, and
+    a restarted child learns its restart count (``RESTART_ENV``)."""
     from ..utils import faults
 
     restarts = int(getattr(FLAGS, "ps_restarts", 0) or 0)
@@ -277,6 +295,7 @@ def _supervised_reexec(FLAGS, *, child_env_flag: str) -> int | None:
     env[child_env_flag] = "1"
 
     def heal_fault_plan(env: dict, attempt: int, returncode: int) -> dict:
+        env[RESTART_ENV] = str(attempt)
         # A fault-INJECTED death must not re-fire in the healing
         # incarnation (the plan is inherited through the env).
         if returncode == faults.FAULT_EXIT_CODE and env.get("DTX_FAULT_PLAN"):
@@ -458,10 +477,16 @@ def run_ps_cluster_task(
                 task_kw = {}
             else:
                 # Task i serves shard i % shards, replica i // shards.  Its
-                # PEER is the other replica of the shard, which a restart
-                # catches up from before serving: the primary waits briefly
-                # (its peer may be waiting on it at a cold start), the backup
-                # generously (its primary is booting too).
+                # PEER is the other replica of the shard, which a start
+                # catches up from before serving.  At a cold start the
+                # primary waits briefly (its peer may be waiting on it) and
+                # the backup generously (its primary is booting too).  A
+                # RESTARTED incarnation whose peer still listens catches up
+                # from the survivor that holds the state, so it waits as
+                # long as a backup does: a primary that gave up after 2 s
+                # on a loaded host served an empty shard beside its peer's
+                # state (fault C9).  A peer that refuses the dial is gone
+                # (the run ended): the short wait, then a cold start.
                 s_id, r_id = tid % n_shards, tid // n_shards
                 task_kw = dict(shard_id=s_id, shard_count=n_shards,
                                layout_version=layout_version,
@@ -471,8 +496,11 @@ def run_ps_cluster_task(
                     pair = replica_major(list(range(n_shards * n_replicas)), n_shards,
                                          n_replicas)[s_id]
                     peer_tid = pair[(r_id + 1) % 2]
+                    long_wait = r_id != 0 or (
+                        int(os.environ.get(RESTART_ENV, "0")) > 0
+                        and _listening(entries[peer_tid]))
                     task_kw.update(peer=entries[peer_tid], peer_role=f"ps{peer_tid}",
-                                   sync_wait_s=2.0 if r_id == 0 else 45.0)
+                                   sync_wait_s=45.0 if long_wait else 2.0)
         rc = _supervised_reexec(FLAGS, child_env_flag="DTX_PS_SUPERVISED")
         if rc is not None:
             if rc != 0:

@@ -8,9 +8,11 @@ full-split ``evaluate`` and the ``FINAL`` line the scrapers read.
 
 The world comes from ``parallel.dist.initialize`` (``TF_CONFIG`` or
 nothing: one process); a ``ps``/``evaluator`` task prints and exits 0.
-The mesh's ``data`` axis is the world (``--mesh`` must tile it); a
-model-parallel axis raises (A8), as do ``--zero_opt`` (A8) and
-``--profile`` (A12) through ``utils.flags.check_training_flags``.  On a
+``--mesh`` must tile the world with its ``data`` and ``model`` axes (the
+others raise, A8b); the state is laid out by the model's rule table
+(``rules``, ``train/state.py::create_sharded_state``), with the
+optimizer slots ZeRO-1 sharded under ``--zero_opt``.  ``--profile``
+raises (A12) through ``utils.flags.check_training_flags``.  On a
 world of 2 or more, ``--watchdog`` starts the peer watchdog; the metrics
 writer and the ``FINAL`` line are the chief's; ``evaluate`` splits each
 batch over the ranks and averages.  ``--deterministic`` turns on
@@ -35,7 +37,7 @@ from . import hooks as hooks_lib
 from .checkpoint import CheckpointManager
 from .loop import TrainSession
 from .preemption import PreemptionCheckpointHook
-from .state import create_state
+from .state import create_sharded_state
 from .step import build_eval_step, build_train_step
 
 log = logging.getLogger("dtx.runner")
@@ -52,9 +54,10 @@ class Experiment:
     log_dir, train_steps, log_every_steps, checkpoint_every_steps,
     batch_size (the global batch; and optionally device, watchdog,
     watchdog_grace_secs).  ``mesh`` defaults to the one ``--mesh``
-    describes over the world.  ``row_sharded_state``: the model state is
-    split by rows over the ranks (the LSTM's carry), which the checkpoint
-    gathers.
+    describes over the world.  ``rules``: the model's sharding rule table
+    (its ``SHARDING_RULES``), as the JAX ``Experiment`` takes it.
+    ``row_sharded_state``: the model state is split by rows over the data
+    ranks (the LSTM's carry), which the checkpoint gathers.
     """
 
     def __init__(
@@ -69,6 +72,7 @@ class Experiment:
         extra_hooks: Iterable[hooks_lib.Hook] = (),
         loss_fn_factory: Callable | None = None,
         row_sharded_state: bool = False,
+        rules=(),
     ):
         self.flags = flags
         flags_lib.check_training_flags(flags)
@@ -87,15 +91,19 @@ class Experiment:
             mesh if mesh is not None
             else build_mesh(MeshSpec.parse(getattr(flags, "mesh", "")), self.device)
         )
-        log.info("mesh: %s over %d rank(s); this rank %d on %s", self.mesh.shape,
-                 self.mesh.size, dist.process_index(), self.device)
+        log.info("mesh: %s over %d rank(s); this rank %d (data %d, model %d) on %s",
+                 self.mesh.shape, self.mesh.size, dist.process_index(),
+                 self.mesh.data_index, self.mesh.model_index, self.device)
         if loss_fn is None:
             if loss_fn_factory is None:
                 raise ValueError("pass loss_fn or loss_fn_factory")
             loss_fn = loss_fn_factory(self.mesh)
         self._loss_fn = loss_fn
         self.optimizer = optimizer
-        self.state = create_state(init_fn, optimizer, flags.seed, self.device)
+        with self.mesh.axes():  # an init_fn may read the data axis (the LSTM's carry)
+            self.state, self.specs = create_sharded_state(
+                init_fn, optimizer, flags.seed, self.device, mesh=self.mesh, rules=rules,
+                zero_opt_sharding=getattr(flags, "zero_opt", False))
         self.step_fn = build_train_step(
             loss_fn, optimizer, mesh=self.mesh, unroll=flags.unroll,
             grad_accum=getattr(flags, "grad_accum", 1),
@@ -105,7 +113,8 @@ class Experiment:
         self.ckpt = None
         if self.log_dir:
             self.ckpt = CheckpointManager(os.path.join(self.log_dir, "ckpt"),
-                                          row_sharded_state=row_sharded_state)
+                                          row_sharded_state=row_sharded_state,
+                                          param_specs=self.specs["params"])
         self.hooks = [
             hooks_lib.StopAtStepHook(flags.train_steps),
             hooks_lib.StepCounterHook(
@@ -139,8 +148,11 @@ class Experiment:
         return pipeline_lib.prefetch_to_device(it, self.device)
 
     def run(self, local_iter) -> Any:
-        """Managed run over the given batch iterator; returns final state."""
-        final = self.session.run(self.batches(local_iter))
+        """Managed run over the given batch iterator, under the mesh's
+        axes (the streams, the checkpoint and the hooks read them); returns
+        final state."""
+        with self.mesh.axes():
+            final = self.session.run(self.batches(local_iter))
         self.state = final
         return final
 
@@ -168,15 +180,16 @@ class Experiment:
         ebs = (ebs // dp) * dp
         if ebs <= 0:
             return {}
-        rows = sharding.rank_rows(ebs, size=dp)
+        rows = sharding.rank_rows(ebs, self.mesh.data_index, dp)
         sums: dict[str, float] = {}
         count = 0
         for i in range(0, (n // ebs) * ebs, ebs):
             local = {k: v[i : i + ebs][rows] for k, v in arrays.items()}
-            metrics = step(self.state, pipeline_lib.to_device(local, self.device))
-            if dp > 1:
-                metrics = {k: collectives.pmean(v.detach().float(), tag="eval")
-                           for k, v in metrics.items()}
+            with self.mesh.axes():
+                metrics = step(self.state, pipeline_lib.to_device(local, self.device))
+                if dp > 1:
+                    metrics = {k: collectives.pmean(v.detach().float(), tag="eval")
+                               for k, v in metrics.items()}
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             count += 1

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from ..bridge import _leaves
-from ..parallel import collectives
+from ..parallel import collectives, sharding
+from ..parallel.partitioner import min_max_variable_partitioner
 
 
 @dataclasses.dataclass
@@ -80,6 +81,95 @@ def create_state(init_params_fn: Callable, optimizer, seed: int, device) -> Trai
         model_state=as_state_leaves(model_state, device),
         seed=int(seed),
     )
+
+
+def create_sharded_state(
+    init_params_fn: Callable,
+    optimizer,
+    seed: int,
+    device,
+    *,
+    mesh,
+    rules: sharding.ShardingRules = (),
+    auto_shard_min_bytes: int | None = None,
+    zero_opt_sharding: bool = False,
+    zero_min_elements: int = 65536,
+) -> tuple[TrainState, dict]:
+    """The state of :func:`create_state` laid out over ``mesh`` by the rule
+    table: each rank keeps its block of every leaf a rule shards (the
+    global leaf drawn on the host, then sliced).
+
+    ``auto_shard_min_bytes``: a leaf no rule matches whose per-model-shard
+    slice would still hold at least this many bytes gets its leading dim
+    sharded over ``model`` (``min_max_variable_partitioner``); explicit
+    rules win.  ``zero_opt_sharding`` (ZeRO-1, JAX ``_zero_shard_opt``):
+    the slots of every leaf of at least ``zero_min_elements`` that no rule
+    shards are sharded along the first dim the data degree divides (each
+    rank holds its 1/D of their elements as one contiguous chunk:
+    ``optim.ShardedOptState``).
+
+    Returns ``(state, specs)``: ``specs["params"]`` the tree of each
+    leaf's spec, ``specs["opt_state"]`` of its slots' global layout, JAX's
+    (one per leaf; the ZeRO-1 ones over ``data``)."""
+    out = init_params_fn(seed)
+    params, model_state = out if isinstance(out, tuple) else (out, {})
+    default_fn = None
+    if auto_shard_min_bytes is not None and mesh.shape.get("model", 1) > 1:
+        decide = min_max_variable_partitioner(auto_shard_min_bytes)
+
+        def default_fn(path, leaf):
+            return decide(tuple(leaf.shape), leaf.dtype.itemsize, mesh.shape["model"])
+
+    param_specs = sharding.sharding_tree(params, mesh, rules, default_spec_fn=default_fn)
+    local = _map2(lambda leaf, spec: sharding.block(leaf, spec, mesh),
+                  params, param_specs)
+    data = mesh.shape.get("data", 1)
+    opt_specs = _map2(
+        lambda leaf, spec: _zero_spec(np.shape(leaf), spec, data, zero_min_elements)
+        if zero_opt_sharding else spec, params, param_specs)
+    params = as_param_leaves(local, device)
+    sharded_model = mesh.shape.get("model", 1) > 1
+    plan = [_leaf_plan(ps, os_, sharded_model)
+            for ps, os_ in zip(leaves(param_specs), leaves(opt_specs))]
+    if any(lp.model_dim is not None or lp.zero for lp in plan):
+        from .optim import ShardedOptState
+
+        opt_state = ShardedOptState(optimizer, params, plan, data_group=mesh.group,
+                                    model_group=mesh.model_group)
+    else:
+        opt_state = optimizer.init(params)
+    state = TrainState(step=0, params=params, opt_state=opt_state,
+                       model_state=as_state_leaves(model_state, device), seed=int(seed))
+    return state, {"params": param_specs, "opt_state": opt_specs}
+
+
+def _map2(fn, tree, other):
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
+
+
+def _zero_spec(shape, spec, data: int, min_elements: int):
+    """JAX ``_zero_shard_opt`` for one slot: the first dim ``data``
+    divides, over ``data``, when the leaf is big enough and no rule
+    shards it; else ``spec``."""
+    if data <= 1 or not shape or int(np.prod(shape)) < min_elements:
+        return spec
+    if any(e is not None for e in spec):
+        return spec
+    for d, s in enumerate(shape):
+        if s % data == 0:
+            entries = [None] * len(shape)
+            entries[d] = "data"
+            return sharding.P(*entries)
+    return spec
+
+
+def _leaf_plan(param_spec, opt_spec, sharded_model: bool):
+    from .optim import LeafPlan
+
+    model_dim = sharding.sharded_dim(param_spec, "model") if sharded_model else None
+    return LeafPlan(model_dim=model_dim, zero=opt_spec != param_spec)
 
 
 def params_sha256(params) -> str:

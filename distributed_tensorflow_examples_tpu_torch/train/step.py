@@ -8,9 +8,13 @@ updated in place, the analog of the JAX step's donated buffers) and
 returns the next one.
 
 Data parallelism (a ``mesh`` whose data group is up,
-``parallel/mesh.py``): the step runs under the mesh's group (no mesh, or
+``parallel/mesh.py``): the step runs under the mesh's groups (no mesh, or
 a mesh without a group: one rank), so plain BN and the LSTM's dropout
-rows read the group the gradients are summed over.  Each rank takes the
+rows read the group the gradients are summed over, and the
+vocab-parallel layers the mesh's ``model`` group.  The gradients are
+averaged over the ``data`` group only: the model ranks of one data index
+hold replicated leaves whose gradients are equal already (the loss is
+replicated over ``model``), and their own rows of the sharded ones.  Each rank takes the
 gradient of its local mean loss over its rows of the global batch;
 :func:`sync_gradients`
 mean-all-reduces the gradients in one flat float32 bucket; only then
@@ -96,9 +100,10 @@ def build_train_step(
     if unroll < 1:
         raise ValueError(f"unroll must be >= 1, got {unroll}")
     group = mesh.group if mesh is not None else None
+    model_group = mesh.model_group if mesh is not None else None
 
     def one_step(state: TrainState, batch) -> tuple[TrainState, dict]:
-        with collectives.use_group(group):
+        with collectives.use_group(group, model=model_group):
             return _one_step(state, batch)
 
     def _one_step(state: TrainState, batch) -> tuple[TrainState, dict]:

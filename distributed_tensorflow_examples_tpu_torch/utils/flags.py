@@ -4,9 +4,10 @@ flags, accepted and mapped.
 :func:`add_training_flags` is the twin of ``utils/flags.py::
 define_training_flags`` in the JAX package, on argparse, with its names
 and defaults; :func:`check_training_flags` refuses, naming the port's
-item that brings it, what the port cannot run yet (``--zero_opt`` A8,
-``--profile`` A12; a model-parallel ``--mesh`` axis A8 through
-``parallel.mesh``).  ``--watchdog`` starts the peer watchdog on a world
+item that brings it, what the port cannot run yet (``--profile`` A12;
+a ``--mesh`` axis other than ``data`` and ``model`` A8b through
+``parallel.mesh``).  ``--zero_opt`` shards the optimizer slots (ZeRO-1,
+``train/state.py``).  ``--watchdog`` starts the peer watchdog on a world
 of 2 or more (``parallel/dist.py``); ``--deterministic`` turns on
 ``utils.determinism``.
 
@@ -73,13 +74,15 @@ def add_training_flags(parser: argparse.ArgumentParser, default_batch_size: int 
     add("--unroll", type=int, default=1, help="Steps per step call.")
     add("--grad_accum", type=int, default=1,
         help="Gradient-accumulation microbatches per step.")
-    add("--mesh", default="", help='Mesh spec, e.g. "data=2" ("" = data over every rank).')
+    add("--mesh", default="",
+        help='Mesh spec over the ranks, e.g. "data=2" or "data=1,model=2" ("" = data over '
+             'every rank; the model axis shards the tables a model\'s rules name).')
     add("--profile", type=parse_bool, nargs="?", const=True, default=False,
         help="Profiler trace window (waits for the port's tools, A12).")
     add("--obs_events_dir", default="", help="Flight-recorder dump directory.")
     add("--platform", default="", help="(JAX platform; unused by the port).")
     add("--zero_opt", type=parse_bool, nargs="?", const=True, default=False,
-        help="ZeRO-1 optimizer sharding (waits for A8).")
+        help="ZeRO-1: shard the big replicated leaves' optimizer slots over the data axis.")
     add("--watchdog", type=parse_bool, nargs="?", const=True, default=True,
         help="Multi-process peer watchdog (a world of 2 or more ranks).")
     add("--watchdog_grace_secs", type=float, default=10.0,
@@ -93,10 +96,6 @@ def add_training_flags(parser: argparse.ArgumentParser, default_batch_size: int 
 def check_training_flags(args) -> None:
     """Raise ``NotImplementedError`` naming the port's item for what it
     cannot run yet."""
-    if getattr(args, "zero_opt", False):
-        raise NotImplementedError(
-            "--zero_opt (ZeRO-1 optimizer sharding) waits for the port's "
-            "model-parallel item (A8)")
     if getattr(args, "profile", False):
         raise NotImplementedError(
             "--profile (a profiler trace window) waits for the port's tools item (A12)")

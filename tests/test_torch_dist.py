@@ -130,8 +130,14 @@ def test_build_mesh_over_the_world():
             assert m.shape == {"data": 2} and m.size == 2 and m.group.size == 2
     with pytest.raises(ValueError, match="needs 4 devices, have 2"):
         _on_two_ranks("data=4")
-    for text in ("model=2", "data=1,model=-1", "slice=2"):
-        with pytest.raises(NotImplementedError, match="A8"):
+    # The model axis builds (model innermost: rank r at data r // M, model
+    # r % M); the sequence, expert, pipeline and slice axes raise (A8b).
+    for text in ("model=2", "data=1,model=-1"):
+        for r, m in enumerate(_on_two_ranks(text)):
+            assert m.shape == {"data": 1, "model": 2} and m.size == 2
+            assert m.group is None and m.model_group.size == 2 and m.model_index == r
+    for text in ("slice=2", "data=1,seq=2", "pipe=2", "expert=2"):
+        with pytest.raises(NotImplementedError, match="A8b"):
             _on_two_ranks(text)
     # The mesh owns its group: a data axis of 1 has none, and sums nothing.
     one = mesh_lib.Mesh(device=torch.device("cpu"), shape={"data": 1})

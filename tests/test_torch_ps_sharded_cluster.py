@@ -17,6 +17,14 @@ shards x 2 replicas; FINAL ``mode=async_cluster workers=2`` at the full
 step count; both workers contributed; ps0 ran a second incarnation, whose
 state token is its peer's, and ps2 counts the catch-up it served
 (``repl_syncs_served``, read over STATS).
+
+The stall case (fault C9) runs the same cluster and the same kill, then
+starves the survivor: it stops ps2's server process (SIGSTOP) for
+``STALL_S`` while ps0's new incarnation starts, as a host too busy to
+schedule ps2 would.  The restarted replica must catch up from its peer
+once the peer runs again, rather than serve an empty shard beside the
+peer's state, and ps2's shutdown watch must outlive the stall rather
+than restart ps2 too: the same gates hold.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import signal
 import sys
 import threading
 import time
@@ -45,6 +54,10 @@ STEPS = 1200
 #: restarted incarnation (a few seconds: a new process importing torch)
 #: rejoins while the run still trains.
 KILL_AFTER_REQS = 1200
+#: The survivor's stall: longer than the shutdown watch's 10 s socket
+#: timeout on its own server and than the 2 s sync budget a cold primary
+#: takes, so that both give out while ps2 is stopped.
+STALL_S = 20.0
 
 
 def _stats(port: int) -> dict | None:
@@ -77,7 +90,41 @@ def _watch(ports: list[int], seen: dict, stop: threading.Event) -> None:
         stop.wait(0.1)
 
 
-def test_replicated_ps_kill_heals_via_backup_with_zero_reseeds():
+def _children(pid: int) -> list[int]:
+    """The pids whose parent is ``pid`` (read from /proc)."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    stat = f.read()
+            except OSError:  # the process ended meanwhile
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                out.append(int(entry))
+    return out
+
+
+def _stall_ps2(cluster: ProcessCluster) -> None:
+    """Once ps0 died, stop ps2's server process (the supervisor's child)
+    for ``STALL_S``, or until ps0's new incarnation serves."""
+    cluster.wait_until(lambda: "child exited 43" in cluster.output("ps0"))
+    server = _children(cluster.procs["ps2"].pid)
+    assert server, "ps2's supervisor has no server process"
+    for pid in server:
+        os.kill(pid, signal.SIGSTOP)
+    end = time.monotonic() + STALL_S
+    try:
+        cluster.wait_until(lambda: time.monotonic() >= end
+                           or cluster.output("ps0").count("serving on port") >= 2)
+    finally:
+        for pid in server:
+            os.kill(pid, signal.SIGCONT)
+
+
+def _run_cluster(during=None) -> tuple[dict, dict]:
+    """Run the cluster to its end (``during(cluster)`` once every process
+    is up); the processes' outputs and what the watcher saw."""
     ports = free_ports(4)
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
                DTX_FAULT_PLAN=f"die:role=ps0,after_reqs={KILL_AFTER_REQS}")
@@ -98,11 +145,26 @@ def test_replicated_ps_kill_heals_via_backup_with_zero_reseeds():
             for w in range(2):
                 cluster.spawn(f"worker{w}", [*common, "--job_name=worker",
                                              f"--task_index={w}"], env=env, cwd=ROOT)
+            if during is not None:
+                during(cluster)
             outs = cluster.finish()
     finally:
         stop.set()
         watcher.join(10)
+    return outs, seen
 
+
+def test_replicated_ps_kill_heals_via_backup_with_zero_reseeds():
+    _check_healed(*_run_cluster())
+
+
+def test_replicated_ps_kill_heals_while_the_survivor_stalls():
+    """Fault C9: the kill, and the survivor stopped while the killed
+    replica restarts; the same gates."""
+    _check_healed(*_run_cluster(_stall_ps2))
+
+
+def _check_healed(outs: dict, seen: dict) -> None:
     finals = [l for l in outs["chief"].splitlines() if l.startswith("FINAL ")]
     assert len(finals) == 1, outs["chief"][-3000:]
     assert re.match(rf"^FINAL step={STEPS} .* mode=async_cluster workers=2 ", finals[0]), finals

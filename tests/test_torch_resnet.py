@@ -363,7 +363,7 @@ def test_cli_trains_evaluates_and_prints_final(tmp_path, capsys):
 @pytest.mark.parametrize(
     "extra,error,match",
     [
-        (["--bn_ghost_slices=2"], NotImplementedError, "A8"),
+        (["--bn_ghost_slices=2"], NotImplementedError, "A8b"),
         (["--mesh=data=2"], ValueError, "needs 2 devices, have 1"),
         (["--data_dir=dsvc://127.0.0.1:1"], NotImplementedError, "A10"),
     ],
