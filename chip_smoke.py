@@ -275,6 +275,50 @@ it fails:
    the optimizer bytes a rank.  ``chip_smoke.model_axis_end_to_end(card)``
    runs this phase alone (the BN kernels built first, as for phase 9).
 
+13. The data planes and deploys at full width.  The data:
+   ``imagenet_synthetic`` at ``RESNET_IMAGE``^2 and 1000 classes, 1280
+   images quantised to uint8 once (the record type a real ImageNet shard
+   set holds; it exercises the u8 decode), written by the port's writers
+   in shards of ``D13_SHARD_RECORDS``: 4 train shards and 1 held out, in
+   ``.dtxr`` and ``.npz``.  (a) ResNet-50 through
+   ``examples.resnet50.run_training`` with the fused statistics path, as in
+   phase 5, ``RESNET_STEPS`` steps at batch ``RESNET_BATCH`` from the
+   ``.dtxr`` directory (the native C++ loader), (b) the same from the
+   ``.npz`` directory (``FileStreamPipeline``), (c) the same from
+   ``--data_dir=dsvc://127.0.0.1:<port>``, served by a supervised
+   ``--job_name=data_service`` task process over the ``.npz`` directory.
+   Gates for each: every batch of ``RESNET_BATCH`` rows, losses finite,
+   step 1 within ``TOL_RESNET_START`` of ln(1000) + l2, 53 launches of
+   each BN kernel a step, and the eval on the held-out shard.  Printed
+   beside phase 5's in-memory step: step ms and images/s, the training
+   loop's wait for a host batch a step, and (a) the loader's
+   ``batches_produced``, (a, b) the decode ms a batch, (b) the pipeline's
+   ``stats``, (c) the wire MB a batch and the prefetcher's waits.
+   (d) W2 in its reference shape reading a data service: the CIFAR-10 CNN
+   at its CLI defaults, async, a supervised PS task, the chief and 2
+   workers (as in phase 10) on ``--data_dir=dsvc://...`` from one
+   supervised data_service task over port-written CIFAR-10 synthetic
+   ``.npz`` shards, which ``DTX_FAULT_PLAN=die:role=data_service0,
+   after_reqs=DSVC_KILL_AFTER_REQS`` kills once mid-epoch.  Gates: phase
+   10's, FINAL ``step=PS_STEPS mode=async_cluster workers=2``; the task
+   restarted once; both workers' clients logged ``dsvc_reincarnation``;
+   the restarted service completed an epoch with every split visited; no
+   hand kernel launched.  (e) A canary deploy of the W2 CNN on port
+   replicas pinned on the card (``make_pinned_factory``,
+   ``RollingDeploy``): version 1 the initial weights, version 2 after
+   ``DEPLOY_TRAIN_STEPS`` steps, both published to a registry; 2 replicas
+   at version 1 with a client thread predicting throughout; a canary
+   replica at version 2 with weight 0.5 until it has
+   ``DEPLOY_MIN_ANSWERS`` answers, ``canary_verdict``, the promote; then a
+   second deploy (version 1 again) rolled back.  Gates: zero failed
+   predicts; every answer carries version 1 or 2 and its logits lie within
+   ``TOL_DEPLOY_LOGITS`` of that version's apply on the card; after the
+   promote the pool is all version 2 (no version 1 answer until the second
+   deploy), and the rollback leaves it non-empty.  Printed: the predicts,
+   p50 and p99 per version and the flip's seconds.
+   ``chip_smoke.data_planes_end_to_end(card)`` runs this phase alone (the
+   BN kernels built first, as for phase 9).
+
 Phase 4 still runs the split kernels: at T 2048 the blocks give
 nq = nk = 2, under the fused regime.  No path is cut in depth.
 
@@ -2038,7 +2082,7 @@ def resnet_end_to_end(card: str) -> tuple[dict, dict]:
     for us, count, key in sorted(kernels, reverse=True)[:12]:
         log(f"    {us / 1e3:8.2f} ms in {count:4d} launches  {key[:110]}")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
-    return launches, {"first_loss": losses[0], "step_ms": step_ms}
+    return launches, {"first_loss": losses[0], "step_ms": step_ms, "start": start}
 
 
 def step_recorder(profile_step: int | None = None):
@@ -3689,6 +3733,597 @@ def zero_resnet(card: str, phase9: dict, device: str = "cuda") -> dict:
                           for k in ("bn_stats", "bn_bwd_stats")} for r in ranks]}
 
 
+# ----------------------------------------------------------------------------
+# Phase 13: the data planes and deploys at full width
+# ----------------------------------------------------------------------------
+
+#: ResNet-50's streamed data: ``imagenet_synthetic`` at RESNET_IMAGE and
+#: 1000 classes, quantised to uint8 once, written in shards of this many
+#: records: 4 train shards and 1 held out (the ``_holdout`` rule).
+D13_SHARD_RECORDS = 256
+D13_TRAIN_SHARDS = 4
+#: W2 from a data service: CIFAR-10 synthetic rows written by the port's
+#: ``.npz`` writer, 9 train shards (8 splits of 64-row local batches each)
+#: and 1 held out; the supervised task dies after this many requests, about
+#: 60 batches into the first of the run's ~2.8 epochs.
+D13_W2_SHARD_ROWS = 512
+D13_W2_SHARDS = 10
+DSVC_KILL_AFTER_REQS = 60
+#: The canary deploy: rows of each predict, answers each version must have
+#: before a verdict (the policy's own ``min_requests``), the steps between
+#: version 1 (the initial weights) and version 2, the logits' tolerance
+#: against the version's own apply on the card at the replica's padded batch.
+DEPLOY_ROWS = 8
+DEPLOY_MIN_ANSWERS = 20
+DEPLOY_TRAIN_STEPS = 3
+TOL_DEPLOY_LOGITS = 1e-2
+
+
+def _quantise_u8(x: np.ndarray) -> np.ndarray:
+    """Synthetic float images as the uint8 records a real image shard set
+    holds (``image_decode_fn`` maps them back to ``v / 255 - 0.5``)."""
+    return np.clip(np.rint((x * 0.125 + 0.5) * 255.0), 0, 255).astype(np.uint8)
+
+
+def _write_image_shards(root: Path, ds, records: int) -> dict:
+    """``ds``'s train rows then its test rows, quantised, written by the
+    port's ``.dtxr`` and ``.npz`` writers; the last shard is the test split."""
+    from distributed_tensorflow_examples_tpu_torch.data import filestream, native_loader
+
+    arrays = {"image": _quantise_u8(np.concatenate([ds.train["image"], ds.test["image"]])),
+              "label": np.concatenate([ds.train["label"], ds.test["label"]]).astype(np.int32)}
+    t0 = time.perf_counter()
+    dtxr = native_loader.write_raw_shards(str(root / "dtxr"), arrays, shard_records=records)
+    t1 = time.perf_counter()
+    npz = filestream.write_array_shards(str(root / "npz"), arrays, rows_per_shard=records)
+    t2 = time.perf_counter()
+    return {"dtxr": root / "dtxr", "npz": root / "npz", "held_out_labels": arrays["label"][-records:],
+            "bytes": int(sum(a.nbytes for a in arrays.values())), "shards": len(dtxr),
+            "dtxr_write_s": t1 - t0, "npz_write_s": t2 - t1, "npz_files": len(npz)}
+
+
+class _InfeedProbes:
+    """Instruments the streamed infeed of the runs inside it: the training
+    loop's wait for each host batch (``Experiment.batches``' consumer), each
+    train-time decode, the native loader's ``batches_produced``, the npz
+    pipeline's ``stats``, and the data-service prefetcher's waits and
+    payload bytes.  Restores everything on exit."""
+
+    def __enter__(self):
+        from distributed_tensorflow_examples_tpu_torch.data import (
+            data_service,
+            filestream,
+            native_loader,
+        )
+        from distributed_tensorflow_examples_tpu_torch.train import runner
+
+        self.waits, self.rows, self.decodes, self.loaders, self.pipes = [], [], [], [], []
+        self.fetches: list = []  # (queue was empty, wait s, payload bytes)
+        probes = self
+        self._saved = [(runner.Experiment, "batches", runner.Experiment.batches),
+                       (native_loader, "NativeFileStream", native_loader.NativeFileStream),
+                       (filestream, "FileStreamPipeline", filestream.FileStreamPipeline),
+                       (filestream, "image_decode_fn", filestream.image_decode_fn),
+                       (data_service, "_BatchPrefetcher", data_service._BatchPrefetcher)]
+        real_batches = runner.Experiment.batches
+        real_decode_fn = filestream.image_decode_fn
+
+        def batches(exp, local_iter):
+            it = real_batches(exp, local_iter)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        b = next(it)
+                    except StopIteration:
+                        return
+                    probes.waits.append(time.perf_counter() - t0)
+                    probes.rows.append(len(b["label"]))
+                    yield b
+            finally:
+                it.close()
+
+        class Loader(native_loader.NativeFileStream):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                probes.loaders.append(self)
+
+        class Pipe(filestream.FileStreamPipeline):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                probes.pipes.append(self)
+
+        def image_decode_fn(**kw):
+            decode = real_decode_fn(**kw)
+            if not kw.get("augment"):
+                return decode  # the eval split's decode
+
+            def timed(batch):
+                t0 = time.perf_counter()
+                out = decode(batch)
+                probes.decodes.append(time.perf_counter() - t0)
+                return out
+
+            return timed
+
+        class Prefetcher(data_service._BatchPrefetcher):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                get = self._q.get
+
+                def timed_get(*ga, **gk):
+                    empty = self._q.empty()
+                    t0 = time.perf_counter()
+                    item = get(*ga, **gk)
+                    nbytes = (sum(v.nbytes for v in item.values()) if isinstance(item, dict)
+                              else 0)
+                    probes.fetches.append((empty, time.perf_counter() - t0, nbytes))
+                    return item
+
+                self._q.get = timed_get
+
+        runner.Experiment.batches = batches
+        native_loader.NativeFileStream = Loader
+        filestream.FileStreamPipeline = Pipe
+        filestream.image_decode_fn = image_decode_fn
+        data_service._BatchPrefetcher = Prefetcher
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, value in self._saved:
+            setattr(owner, name, value)
+        return False
+
+
+def _resnet_streamed(card: str, kind: str, data_dir: str, shards: dict, phase5: dict,
+                     device: str) -> tuple[dict, dict]:
+    """ResNet-50 through ``examples.resnet50.run_training`` (the fused
+    statistics path) from ``data_dir``; gates and prints as phase 13's
+    docstring says.  Returns (the BN launches, the run's numbers)."""
+    import contextlib
+    import io
+
+    from distributed_tensorflow_examples_tpu_torch import ops
+    from distributed_tensorflow_examples_tpu_torch.examples import resnet50 as cli
+    from distributed_tensorflow_examples_tpu_torch.models import resnet
+
+    args = cli.build_parser().parse_args([
+        f"--batch_size={RESNET_BATCH}", f"--image_size={RESNET_IMAGE}", "--num_classes=1000",
+        f"--train_steps={RESNET_STEPS}", "--learning_rate=0.1", "--momentum=0.9",
+        "--log_every_steps=1", f"--seed={SEED}", f"--device={device}", f"--data_dir={data_dir}",
+    ])
+    cfg = cli.config_from_args(args)
+    n_bn = len(resnet50_bn_shapes(RESNET_BATCH, RESNET_IMAGE)) if device == "cuda" else 0
+    clock = step_clock(("bn_stats", "bn_bwd_stats"))
+    final = io.StringIO()
+    with _InfeedProbes() as probes:
+        ops.reset_launches()  # every count to 0 just before the main path
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(final):
+            exp = cli.run_training(args, loss_fn_factory=lambda mesh: resnet.loss_fn(cfg, mesh=mesh),
+                                   extra_hooks=[clock])
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)  # read just after the main path
+    final_line = [l for l in final.getvalue().splitlines() if l.startswith("FINAL ")]
+    losses = [loss for _s, _ms, loss, _c in clock.steps]
+    log(f"  {kind}: {final_line[0] if final_line else 'no FINAL line'}")
+    if not probes.rows or set(probes.rows) != {RESNET_BATCH}:
+        raise SystemExit(f"ResNet from {kind}: batches of {sorted(set(probes.rows))} rows, "
+                         f"not {RESNET_BATCH}")
+    log("    steps: " + ", ".join(
+        f"{s}: loss {loss:.4f} in {ms:.1f} ms, launches {c['bn_stats']}/{c['bn_bwd_stats']}"
+        for s, ms, loss, c in clock.steps))
+    if exp.source.kind != kind:
+        raise SystemExit(f"{data_dir} resolved to {exp.source.kind}, not {kind}")
+    if not final_line or "test_accuracy=" not in final_line[0]:
+        raise SystemExit(f"ResNet from {kind} printed no FINAL line with test_accuracy")
+    if len(losses) != RESNET_STEPS or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"ResNet from {kind}: losses not finite: {losses}")
+    if abs(losses[0] - phase5["start"]) > TOL_RESNET_START:
+        raise SystemExit(f"ResNet from {kind}: step 1 loss {losses[0]:.4f} not within "
+                         f"{TOL_RESNET_START} of ln(1000) + l2 = {phase5['start']:.4f}")
+    if any(c != {"bn_stats": n_bn, "bn_bwd_stats": n_bn} for *_r, c in clock.steps) or any(
+            launches.get(k, 0) != n_bn * RESNET_STEPS for k in ("bn_stats", "bn_bwd_stats")):
+        raise SystemExit(f"ResNet from {kind} did not run each BN kernel {n_bn} times a step")
+    test = exp.source.ds.test
+    if len(test["label"]) != D13_SHARD_RECORDS or not np.array_equal(
+            test["label"], shards["held_out_labels"]):
+        raise SystemExit(f"ResNet from {kind}: the eval split is not the held-out shard")
+    later = [ms for _s, ms, _l, _c in clock.steps[1:]]
+    step_ms = float(np.median(later))
+    waits_ms = [w * 1e3 for w in probes.waits[1:RESNET_STEPS]]
+    # The median hides a host-bound infeed while the batches the producer
+    # made during step 1 last; the mean and the last step show it.
+    r = {"step_ms": step_ms, "images_per_s": RESNET_BATCH / (step_ms / 1e3),
+         "step_ms_mean": float(np.mean(later)), "last_step_ms": later[-1],
+         "host_wait_ms_total": float(sum(waits_ms)),
+         "first_loss": losses[0], "wall_s": wall,
+         "host_wait_ms_median": float(np.median(waits_ms)) if waits_ms else float("nan"),
+         "host_wait_ms_max": float(max(waits_ms)) if waits_ms else float("nan"),
+         "first_batch_wait_ms": probes.waits[0] * 1e3 if probes.waits else float("nan"),
+         "decode_ms_median": float(np.median(probes.decodes)) * 1e3 if probes.decodes
+         else float("nan"), "decodes": len(probes.decodes),
+         "test_accuracy": exp.test_metrics.get("accuracy", float("nan"))}
+    line = (f"    {kind}: step {step_ms:.1f} ms (median of steps 2-{RESNET_STEPS}; mean "
+            f"{r['step_ms_mean']:.1f}, the last {r['last_step_ms']:.1f}), "
+            f"{r['images_per_s']:.0f} images/s; phase 5 in memory {phase5['step_ms']:.1f} ms; "
+            f"the loop waited {r['host_wait_ms_median']:.2f} ms (median, max "
+            f"{r['host_wait_ms_max']:.2f}, {r['host_wait_ms_total']:.0f} in all) a step for a "
+            f"host batch, {r['first_batch_wait_ms']:.0f} ms for the first; {wall:.1f} s for "
+            "source, init, steps and eval")
+    if probes.decodes:
+        line += (f"; decode {r['decode_ms_median']:.1f} ms a batch (median of "
+                 f"{len(probes.decodes)}, u8 -> f32 + flips, host)")
+    log(line + f" [{card}]")
+    if kind == "native":
+        r["batches_produced"] = int(sum(l.batches_produced for l in probes.loaders))
+        log(f"    native loader: {len(probes.loaders)} stream(s), batches_produced "
+            f"{r['batches_produced']} (the ring runs ahead of the {RESNET_STEPS} steps)")
+    if kind == "stream":
+        st = probes.pipes[0].stats
+        r.update({f"stream_{k}": v for k, v in st.items()})
+        log(f"    FileStreamPipeline stats: {json.dumps({k: round(v, 4) for k, v in st.items()})}")
+    if kind == "dsvc":
+        waits = [w for _e, w, _n in probes.fetches]
+        payload = [n for _e, _w, n in probes.fetches if n]
+        r.update({"wire_mb_per_batch": float(np.median(payload)) / 1e6 if payload else 0.0,
+                  "prefetch_gets": len(probes.fetches),
+                  "prefetch_empty": sum(e for e, _w, _n in probes.fetches),
+                  "prefetch_wait_ms_median": float(np.median(waits)) * 1e3 if waits else 0.0,
+                  "prefetch_wait_s_total": float(sum(waits))})
+        log(f"    data service: {r['wire_mb_per_batch']:.1f} MB a batch on the wire (the decoded "
+            f"f32 arrays; the JSON schema adds < 1 kB); prefetcher: {r['prefetch_empty']} of "
+            f"{r['prefetch_gets']} gets found the queue empty, median wait "
+            f"{r['prefetch_wait_ms_median']:.2f} ms, {r['prefetch_wait_s_total']:.2f} s in all")
+    del exp
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return launches, r
+
+
+def _dsvc_cmd(ports: dict, data_dir: Path, batch_size: int, workers: str, *extra) -> list[str]:
+    """A supervised ``--job_name=data_service`` task of the CIFAR-10 CLI
+    (the data service is model-agnostic) over ``data_dir``'s ``.npz``."""
+    return [sys.executable, "-m", "distributed_tensorflow_examples_tpu_torch.examples.cifar10_cnn",
+            "--job_name=data_service", "--sync_replicas=false", "--device=cpu",
+            f"--seed={SEED}", f"--worker_hosts={workers}", f"--batch_size={batch_size}",
+            f"--data_service_hosts=127.0.0.1:{ports['dsvc']}", f"--data_dir={data_dir}", *extra]
+
+
+def _dsvc_stop(port: int) -> dict:
+    """The service's STATS, then its shutdown."""
+    from distributed_tensorflow_examples_tpu_torch.data import data_service
+
+    c = data_service.DataServiceClient("127.0.0.1", port, role="smoke_ds",
+                                       reconnect_deadline_s=10.0)
+    try:
+        stats = c.stats()
+        c.shutdown_server()
+    finally:
+        c.close()
+    return stats
+
+
+def _resnet_from_dsvc(card: str, shards: dict, phase5: dict, device: str) -> tuple[dict, dict]:
+    import os
+
+    from distributed_tensorflow_examples_tpu_torch.utils.multiprocess import free_port
+
+    ports = {"dsvc": free_port()}
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="4")
+    # The task serves batch_size // workers rows (at least 2 workers, as in
+    # JAX): 2 x RESNET_BATCH over 2 gives the one training process its batch.
+    cmds = {"data_service": _dsvc_cmd(ports, shards["npz"], 2 * RESNET_BATCH, "a:1,b:1")}
+    got: dict = {}
+
+    def during(cluster) -> None:
+        cluster.wait_until(lambda: _listening(ports["dsvc"]))
+        got["run"] = _resnet_streamed(card, "dsvc", f"dsvc://127.0.0.1:{ports['dsvc']}", shards,
+                                      phase5, device)
+        got["stats"] = _dsvc_stop(ports["dsvc"])
+
+    outs = _run_cluster("resnet_dsvc", cmds, env, during=during)
+    if f"DSVC_DONE port={ports['dsvc']}" not in outs["data_service"]:
+        raise SystemExit("the ResNet data service printed no DSVC_DONE")
+    st = got["stats"]
+    log(f"    data service task: {st['batches_served']} batches served from {st['num_splits']} "
+        f"splits, {st['epochs_completed']} epoch(s) completed, {st['requests']} requests")
+    launches, r = got["run"]
+    r["batches_served"] = st["batches_served"]
+    return launches, r
+
+
+def _listening(port: int) -> bool:
+    import socket
+
+    try:
+        socket.create_connection(("127.0.0.1", port), timeout=2.0).close()
+    except OSError:
+        return False
+    return True
+
+
+def _w2_from_dsvc(card: str, phase10: dict, root: Path, device: str, steps: int) -> dict:
+    """W2 (CIFAR-10 CNN at its CLI defaults, async) as a supervised PS task,
+    the chief and 2 workers reading ``dsvc://`` from one supervised
+    data_service task, killed once by ``DTX_FAULT_PLAN``."""
+    import os
+    import re
+
+    from distributed_tensorflow_examples_tpu_torch.data import datasets, filestream
+    from distributed_tensorflow_examples_tpu_torch.utils.multiprocess import free_ports
+
+    name = "w2_async_dsvc"
+    n_rows = D13_W2_SHARD_ROWS * D13_W2_SHARDS
+    ds = datasets.cifar10(None, seed=SEED)
+    rows = {k: np.concatenate([ds.train[k], ds.test[k]])[-n_rows:] for k in ("image", "label")}
+    filestream.write_array_shards(str(root / "cifar"), {"image": _quantise_u8(rows["image"]),
+                                                        "label": rows["label"].astype(np.int32)},
+                                  rows_per_shard=D13_W2_SHARD_ROWS)
+    ps_port, dport = free_ports(2)
+    ports = {"dsvc": dport}
+    common = _ps_common("cifar10_cnn", [ps_port], steps, "--sync_replicas=false",
+                        "--max_staleness=4", f"--data_dir=dsvc://127.0.0.1:{dport}")
+    dsvc_task = _dsvc_cmd(ports, root / "cifar", 128, PS_WORKERS,
+                          f"--ps_hosts=127.0.0.1:{ps_port}")
+    trainers = {"ps": [*common, "--job_name=ps"],
+                "chief": [*common, "--job_name=chief", f"--device={device}"],
+                **{f"worker{w}": [*common, "--job_name=worker", f"--task_index={w}",
+                                  f"--device={device}"] for w in range(2)}}
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               DTX_FAULT_PLAN=f"die:role=data_service0,after_reqs={DSVC_KILL_AFTER_REQS}")
+    got: dict = {}
+
+    def during(cluster) -> None:
+        cluster.wait_until(lambda: _listening(dport))
+        for k, c in trainers.items():
+            cluster.spawn(k, c, env=env, cwd=str(ROOT))
+        cluster.finish(list(trainers))
+        got["stats"] = _dsvc_stop(dport)
+
+    t0 = time.perf_counter()
+    outs = _run_cluster(name, {"data_service": dsvc_task}, env, during=during)
+    wall_s = time.perf_counter() - t0
+    match, cstats, wstats = _cluster_checks(name, outs, "async", steps, device)
+    dsvc_out = outs["data_service"]
+    restarts = len(re.findall(r"child exited 43", dsvc_out))
+    if restarts != 1 or "supervisor_healed_plan" not in dsvc_out:
+        raise SystemExit(f"{name}: the data service was not killed and restarted once "
+                         f"({restarts} fault exits)")
+    if f"DSVC_DONE port={dport}" not in dsvc_out:
+        raise SystemExit(f"{name}: the data service printed no DSVC_DONE")
+    reinc = [outs[f"worker{w}"].count("event=dsvc_reincarnation") for w in range(2)]
+    if min(reinc) < 1:
+        raise SystemExit(f"{name}: a worker's client logged no dsvc_reincarnation: {reinc}")
+    st = got["stats"]
+    if st["epochs_completed"] < 1 or st["last_epoch_min_visits"] < 1:
+        raise SystemExit(f"{name}: no epoch of the restarted service visited every split: {st}")
+    hand = [cstats["hand_kernel_launches"], *(w["hand_kernel_launches"] for w in wstats)]
+    if any(hand):
+        raise SystemExit(f"{name}: hand kernels launched (chief, workers): {hand}")
+    gaps = np.diff(cstats["apply_done_s"]) * 1e3
+    sps = cstats["applies_per_s_second_half"]
+    p10 = phase10.get("w2_async", {})
+    r = {"applied_steps_per_s": sps, "apply_wall_ms": 1e3 / sps,
+         "stale_dropped": int(match.group(3)), "test_accuracy": float(match.group(4)),
+         "contributed": [w["contributed"] for w in wstats], "reincarnations_seen": reinc,
+         "longest_apply_gap_ms": float(gaps.max()), "median_apply_gap_ms": float(np.median(gaps)),
+         "longest_gap_after_apply": int(np.argmax(gaps)) + 1,
+         "dsvc_epochs_completed": st["epochs_completed"],
+         "dsvc_batches_served": st["batches_served"], "dsvc_reassigned": st["reassigned"],
+         **{f"worker{w}_{k}": ws[f"median_{k}"]
+            for w, ws in enumerate(wstats) for k in ("pull_ms", "grad_ms", "push_ms")},
+         "wall_s": wall_s}
+    log(f"  {name}: {match.group(0)}")
+    log(f"    1 PS task, the chief and 2 workers on {device} reading dsvc:// from 1 supervised "
+        f"data_service task ({D13_W2_SHARDS - 1} splits of {D13_W2_SHARD_ROWS} CIFAR rows, local "
+        f"batch 64), killed after {DSVC_KILL_AFTER_REQS} requests and restarted once; "
+        f"{wall_s:.1f} s wall [{card}]")
+    log(f"    second half of the applies: {sps:.1f} applied steps/s ({r['apply_wall_ms']:.3f} ms "
+        f"an applied step); phase 10's in-memory W2 in this run: "
+        f"{p10.get('applied_steps_per_s', float('nan')):.1f} applied steps/s")
+    log(f"    the kill: the longest gap between two applies {r['longest_apply_gap_ms']:.1f} ms "
+        f"(after apply {r['longest_gap_after_apply']}; median {r['median_apply_gap_ms']:.3f} ms); "
+        f"dsvc_reincarnation logged by the workers {reinc}; the restarted service completed "
+        f"{st['epochs_completed']} epoch(s), every split visited (least visits "
+        f"{st['last_epoch_min_visits']}), {st['batches_served']} batches served, "
+        f"{st['reassigned']} reassigned; contributed {r['contributed']}")
+    for w, ws in enumerate(wstats):
+        log(f"    worker {w} medians: pull {ws['median_pull_ms']:.3f} ms, H2D + gradient + D2H "
+            f"{ws['median_grad_ms']:.3f} ms, push {ws['median_push_ms']:.3f} ms")
+    return r
+
+
+def _cnn_canary_deploy(card: str, root: Path, device: str) -> dict:
+    """A canary deploy and a rollback of the W2 CNN on port replicas on the
+    card, a client predicting throughout (phase 13 (e))."""
+    from distributed_tensorflow_examples_tpu_torch import bridge, serve
+    from distributed_tensorflow_examples_tpu_torch.data import datasets
+    from distributed_tensorflow_examples_tpu_torch.models import cnn
+    from distributed_tensorflow_examples_tpu_torch.train import optim, state, step
+
+    cfg = cnn.Config()
+    init = cnn.init_numpy(cfg, SEED)
+    ds = datasets.cifar10(None, seed=SEED)
+    opt = optim.SGD(0.05)
+    st = state.create_state(lambda seed: init, opt, SEED, device)
+    train_step = step.build_train_step(cnn.loss_fn(cfg), opt)
+    for i in range(DEPLOY_TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v[i * 128:(i + 1) * 128]).to(device)
+                 for k, v in ds.train.items()}
+        st, m = train_step(st, batch)
+        float(m["loss"])
+    flats = {1: bridge.flat_params_of(init), 2: bridge.flat_params_of(st.params)}
+    reg = serve.ModelRegistry(str(root / "registry"))
+    for v in (1, 2):
+        reg.publish("default", flats[v], step=0 if v == 1 else DEPLOY_TRAIN_STEPS, version=v)
+    predict = lambda p, b: cnn.apply(cfg, p, b["image"])  # noqa: E731
+    x = ds.test["image"][:DEPLOY_ROWS].astype(np.float32)
+    # Each version's own apply on the card at the replica's padded batch.
+    max_batch = 32
+    _total, unflatten = bridge.flat_param_spec(init)
+    padded = np.zeros((max_batch, *x.shape[1:]), np.float32)
+    padded[:DEPLOY_ROWS] = x
+    with torch.inference_mode():
+        want = {v: predict(unflatten(flats[v], device),
+                           {"image": torch.from_numpy(padded).to(device)})[:DEPLOY_ROWS]
+                .float().cpu().numpy() for v in (1, 2)}
+    make = serve.make_pinned_factory(init, predict, [], registry_dir=str(root / "registry"),
+                                     device=device, membership=False, max_batch=max_batch,
+                                     max_wait_ms=1.0)
+    pool = serve.ServePool([("127.0.0.1", 1)], role="canary_sv", op_timeout_s=10.0,
+                           deadline_s=60.0)
+    answers: list = []
+    failures: list = []
+    stop = threading.Event()
+
+    def client() -> None:
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                _step, out = pool.predict({"image": x})
+            except Exception as e:  # noqa: BLE001 — every failure is counted
+                failures.append(repr(e))
+                return
+            answers.append((pool.last_version, (time.perf_counter() - t0) * 1e3,
+                            next(iter(out.values()))))
+
+    def wait_for(pred, what: str) -> None:
+        end = time.monotonic() + 60.0
+        while not pred():
+            if failures or time.monotonic() > end:
+                raise SystemExit(f"canary deploy: no {what} ({len(failures)} failed predicts: "
+                                 f"{failures[:2]})")
+            time.sleep(0.005)
+
+    dep = serve.RollingDeploy(make, replicas=2, version=1, on_change=pool.set_addrs)
+    asker = threading.Thread(target=client, daemon=True)
+    asker.start()
+    try:
+        wait_for(lambda: len(answers) >= DEPLOY_MIN_ANSWERS, "version 1 answers")
+        dep.canary(2)
+        pool.set_canary(2, 0.5)
+        wait_for(lambda: pool.version_stats().get(2, {}).get("ok", 0) >= DEPLOY_MIN_ANSWERS,
+                 "canary evidence")
+        vs = pool.version_stats()
+        verdict = serve.canary_verdict(vs.get(1), vs.get(2))
+        gate = serve.canary_verdict(vs.get(1), vs.get(2), p99_factor=float("inf"))
+        if gate != "promote":
+            raise SystemExit(f"canary deploy: verdict {gate} on {vs}")
+        pool.clear_canary()
+        t0 = time.perf_counter()
+        replaced = dep.promote(2)
+        flip_s = time.perf_counter() - t0
+        promoted_at = len(answers)
+        if sorted(dep.versions().values()) != [2, 2, 2] or replaced != 2:
+            raise SystemExit(f"canary deploy: after the promote {dep.versions()}")
+        wait_for(lambda: len(answers) >= promoted_at + DEPLOY_MIN_ANSWERS, "promoted answers")
+        second_at = len(answers)
+        # A second deploy (version 1 again), then its rollback.
+        dep.canary(1)
+        pool.set_canary(1, 0.5)
+        before = pool.version_stats().get(1, {}).get("ok", 0)
+        wait_for(lambda: pool.version_stats().get(1, {}).get("ok", 0) >= before + 5,
+                 "second canary answers")
+        pool.clear_canary()
+        t0 = time.perf_counter()
+        stopped = dep.rollback(1)
+        rollback_s = time.perf_counter() - t0
+        rolled_at = len(answers)
+        wait_for(lambda: len(answers) >= rolled_at + DEPLOY_MIN_ANSWERS, "answers after rollback")
+    finally:
+        stop.set()
+        asker.join(60)
+    vs = pool.version_stats()
+    left = dep.versions()
+    dep.close()
+    pool.close()
+    if failures:
+        raise SystemExit(f"canary deploy: {len(failures)} predicts failed: {failures[:3]}")
+    if stopped != 1 or not left or set(left.values()) != {2}:
+        raise SystemExit(f"canary deploy: the rollback left {left} (stopped {stopped})")
+    versions = [v for v, _ms, _o in answers]
+    if set(versions) != {1, 2}:
+        raise SystemExit(f"canary deploy: answers carried versions {set(versions)}")
+    if 1 in versions[promoted_at:second_at] or versions[-1] != 2:
+        raise SystemExit("canary deploy: a version 1 answer after the promote (before the "
+                         "second deploy) or after the rollback")
+    errs = {1: 0.0, 2: 0.0}
+    for v, _ms, out in answers:
+        # bfloat16 logits arrive as a CPU tensor (numpy has no bfloat16).
+        got = out.float().numpy() if isinstance(out, torch.Tensor) else np.asarray(out, np.float32)
+        errs[v] = max(errs[v], float(np.abs(got - want[v]).max()))
+    if max(errs.values()) > TOL_DEPLOY_LOGITS:
+        raise SystemExit(f"canary deploy: logits off their version's apply: {errs}")
+    lat = {v: np.array([ms for vv, ms, _o in answers if vv == v]) for v in (1, 2)}
+    r = {"predicts": len(answers), "failed": len(failures), "flip_s": flip_s,
+         "rollback_s": rollback_s, "verdict": verdict,
+         **{f"v{v}_predicts": int(len(lat[v])) for v in (1, 2)},
+         **{f"v{v}_p50_ms": float(np.percentile(lat[v], 50)) for v in (1, 2)},
+         **{f"v{v}_p99_ms": float(np.percentile(lat[v], 99)) for v in (1, 2)},
+         **{f"v{v}_max_abs_err": errs[v] for v in (1, 2)}}
+    log(f"  canary deploy of the W2 CNN ({DEPLOY_ROWS}-row predicts, replicas pinned on "
+        f"{device}, max_batch {max_batch}): 2 replicas at v1 -> canary v2 (weight 0.5) -> "
+        f"verdict {verdict} (latency factor left out of the gate: {gate}) -> promote in "
+        f"{flip_s:.2f} s -> canary v1 -> rollback in {rollback_s:.2f} s; {len(answers)} "
+        f"predicts, 0 failed; left {sorted(left.values())} [{card}]")
+    log("    per version: " + "; ".join(
+        f"v{v} {len(lat[v])} predicts, client p50 {r[f'v{v}_p50_ms']:.3f} ms, p99 "
+        f"{r[f'v{v}_p99_ms']:.3f} ms, logits within {errs[v]:.2e} of its apply "
+        f"(tol {TOL_DEPLOY_LOGITS:g})" for v in (1, 2)))
+    return r
+
+
+def data_planes_end_to_end(card: str, phase5: dict | None = None, phase10: dict | None = None,
+                           device: str = "cuda") -> dict:
+    """Phase 13 of the module docstring: ResNet-50 from ``.dtxr``, ``.npz``
+    and ``dsvc://``, W2's PS cluster reading a data service that is killed
+    once, and a canary deploy of the W2 CNN.  ``phase5``/``phase10``: the
+    in-memory numbers printed beside (measured here when not given)."""
+    import shutil as shutil_lib
+    import tempfile
+
+    from distributed_tensorflow_examples_tpu_torch.data import datasets
+    from distributed_tensorflow_examples_tpu_torch.examples import resnet50 as cli
+    from distributed_tensorflow_examples_tpu_torch.models import resnet
+
+    base = dict(phase5 or {})
+    if "start" not in base:
+        args = cli.build_parser().parse_args(["--num_classes=1000", f"--seed={SEED}"])
+        init = resnet.init_numpy(cli.config_from_args(args), SEED)
+        base["start"] = math.log(1000) + 1e-4 * float(sum(
+            np.sum(np.square(k, dtype=np.float64)) for k in resnet._kernels(init[0])))
+        base.setdefault("step_ms", float("nan"))
+        del init
+    root = Path(tempfile.mkdtemp(prefix="dtx_dataplanes_"))
+    results: dict = {}
+    launches: dict = {}
+    try:
+        t0 = time.perf_counter()
+        ds = datasets.imagenet_synthetic(
+            image_size=RESNET_IMAGE, n_train=D13_TRAIN_SHARDS * D13_SHARD_RECORDS,
+            n_test=D13_SHARD_RECORDS, num_classes=1000, seed=SEED)
+        shards = _write_image_shards(root, ds, D13_SHARD_RECORDS)
+        del ds
+        log(f"  data: imagenet_synthetic {RESNET_IMAGE}^2 x 1000 classes, "
+            f"{(D13_TRAIN_SHARDS + 1) * D13_SHARD_RECORDS} images as uint8 "
+            f"({shards['bytes'] / 1e6:.0f} MB), {shards['shards']} shards of "
+            f"{D13_SHARD_RECORDS} ({D13_TRAIN_SHARDS} train, 1 held out) in each format: .dtxr "
+            f"written in {shards['dtxr_write_s']:.1f} s, .npz in {shards['npz_write_s']:.1f} s; "
+            f"{time.perf_counter() - t0:.1f} s with the draw")
+        for kind, fmt in (("native", "dtxr"), ("stream", "npz")):
+            launches[kind], results[f"resnet_{kind}"] = _resnet_streamed(
+                card, kind, str(shards[fmt]), shards, base, device)
+        launches["dsvc"], results["resnet_dsvc"] = _resnet_from_dsvc(card, shards, base, device)
+        results["w2_dsvc"] = _w2_from_dsvc(card, phase10 or {}, root, device, PS_STEPS)
+        results["deploy"] = _cnn_canary_deploy(card, root, device)
+    finally:
+        shutil_lib.rmtree(root, ignore_errors=True)
+    results["launches"] = {name: [launches[k].get(name, 0) for k in ("native", "stream", "dsvc")]
+                           for name in ("bn_stats", "bn_bwd_stats")}
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
@@ -3831,6 +4466,15 @@ def main() -> int:
                                        for k, r in model_axis.items()})
         + f"; phase 12 took {time.perf_counter() - t12:.1f} s")
 
+    log("phase 13: the data planes (ResNet-50 from .dtxr, .npz and dsvc://; W2's PS cluster "
+        "reading a data service killed once) and a canary deploy of the W2 CNN")
+    t13 = time.perf_counter()
+    planes = data_planes_end_to_end(card, resnet_run, cluster)
+    log("  data_planes: " + json.dumps({k: {m: (round(v, 6) if isinstance(v, float) else v)
+                                            for m, v in r.items()}
+                                        for k, r in planes.items() if k != "launches"})
+        + f"; phase 13 took {time.perf_counter() - t13:.1f} s")
+
     csrc = "distributed_tensorflow_examples_tpu_torch/ops/csrc"
     tpu = "distributed_tensorflow_examples_tpu/ops/flash_attention.py"
     record = {"kernels": [
@@ -3872,11 +4516,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"{csrc}/bn_stats.cu",
             "replaces": f"distributed_tensorflow_examples_tpu/ops/bn.py:{line}",
             "launches": resnet_launches.get(name, 0) + sum(dp_launches[name])
-            + nccl_launches[name] + sum(zero_launches[name]),
+            + nccl_launches[name] + sum(zero_launches[name]) + sum(planes["launches"][name]),
             "launches_by_path": {"train_resnet50": resnet_launches.get(name, 0),
                                  "train_resnet50_dp2_by_rank": dp_launches[name],
                                  "train_resnet50_nccl1": nccl_launches[name],
-                                 "train_resnet50_zero1_dp2_by_rank": zero_launches[name]},
+                                 "train_resnet50_zero1_dp2_by_rank": zero_launches[name],
+                                 "train_resnet50_dtxr_npz_dsvc": planes["launches"][name]},
             "max_abs_err": max(e[name] for e in bn_errs), **bn_times[name],
         } for name, line in (("bn_stats", 166), ("bn_bwd_stats", 239))),
     ]}

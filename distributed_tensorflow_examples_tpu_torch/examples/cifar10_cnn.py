@@ -3,10 +3,13 @@
 device, or its PS emulation.
 
 The CNN from the JAX init's weights, plain SGD at ``--learning_rate``,
-CIFAR-10 from ``--data_dir`` (``cifar10.npz`` or ``cifar-10-batches-py/``)
-or the synthetic splits through ``data.streams`` (the JAX CLI's source
-resolution), evaluation on the test split and the ``FINAL ...
-test_accuracy=`` line.  Runs on the card unless ``--device=cpu``::
+CIFAR-10 through ``data.streams`` (the JAX CLI's source resolution): a
+``dsvc://host:port`` data service, ``shard-*.dtxr`` records through the
+native loader, ``shard-*.npz`` chunks through ``FileStreamPipeline`` (the
+last shard held out as the test split), else ``cifar10.npz`` /
+``cifar-10-batches-py/`` under ``--data_dir`` or the synthetic splits;
+evaluation on the test split and the ``FINAL ... test_accuracy=`` line.
+Runs on the card unless ``--device=cpu``::
 
     python -m distributed_tensorflow_examples_tpu_torch.examples.cifar10_cnn \\
         --batch_size=256 --train_steps=1000
@@ -35,8 +38,14 @@ parameters may be sharded and replicated (``--ps_shards``,
 answers ``{"image": [N, 32, 32, 3]}`` predicts with the CNN's logits (the
 MNIST CLI's docstring has the commands).  ``--job_name=ps`` without a
 PS-emulation mode prints and exits 0 and the TF-1 cluster flags are mapped
-(``utils/flags.py``); streamed shard directories and ``dsvc://`` sources
-wait for the port's data planes (A10).
+(``utils/flags.py``).  ``--job_name=data_service`` (with
+``--sync_replicas=false``) hosts the data service over ``--data_dir``'s
+``.npz`` shards at ``--data_service_hosts``, at the workers' local batch,
+and the workers read it with ``--data_dir=dsvc://host:port``::
+
+    python -m distributed_tensorflow_examples_tpu_torch.examples.cifar10_cnn \
+        --job_name=data_service --sync_replicas=false --worker_hosts=a:1,b:1 \
+        --data_service_hosts=127.0.0.1:7070 --data_dir=/data/cifar_shards
 """
 
 from __future__ import annotations
@@ -65,10 +74,11 @@ def run_training(args, *, extra_hooks=()):
     ``--ps_emulation``, the PS emulation instead: returns its trainer
     (``trainer.metrics`` the eval's; None from a PS or worker task of a
     cross-process launch), and takes no hooks."""
+    tenant = getattr(args, "tenant", "default") or "default"
     src = streams.resolve_image_source(
         args.data_dir,
         fallback=lambda: datasets.cifar10(args.data_dir, seed=args.seed),
-        name="cifar10",
+        seed=args.seed, num_classes=10, name="cifar10", tenant=tenant,
     )
     cfg = cnn.Config()
     if not args.sync_replicas or args.ps_emulation:
@@ -84,7 +94,8 @@ def run_training(args, *, extra_hooks=()):
             loss_fn=cnn.loss_fn(cfg),
             optimizer=optim.SGD(lr),
             batches_for_worker=lambda w, bs, nw: streams.train_iter(
-                src, batch_size=bs, seed=args.seed, worker=w, n_workers=nw),
+                src, batch_size=bs, seed=args.seed, worker=w, n_workers=nw,
+                tenant=tenant),
             FLAGS=args,
             mode="sync_replicas" if args.sync_replicas else "async",
             eval_fn=ps_experiment.array_eval_fn(
@@ -105,7 +116,8 @@ def run_training(args, *, extra_hooks=()):
     )
     exp.source = src
     exp.run(streams.train_iter(src, batch_size=args.batch_size, seed=args.seed,
-                               microbatches=args.grad_accum, mesh=exp.mesh))
+                               tenant=tenant, microbatches=args.grad_accum,
+                               mesh=exp.mesh))
     exp.test_metrics = exp.evaluate(src.ds.test)
     exp.finish(test_accuracy=exp.test_metrics.get("accuracy", 0.0))
     return exp

@@ -2,10 +2,15 @@
 the reference's MirroredStrategy workload), with the JAX CLI's flag names.
 
 SGD with momentum, the stepwise decay at 60% and 80% of the run (x0.1
-each), L2 1e-4 on every conv/dense kernel, bf16 compute; an ImageNet-shaped
-synthetic dataset (``--synthetic_examples`` train images, 256 test
-images); evaluation on the test split and the ``FINAL ... test_accuracy=``
-line at the end.  Runs on the card unless ``--device=cpu``::
+each), L2 1e-4 on every conv/dense kernel, bf16 compute.  The data comes
+through ``data.streams`` as in the JAX CLI: a ``dsvc://host:port`` data
+service, ``shard-*.dtxr`` records through the native C++ loader,
+``shard-*.npz`` chunks through ``FileStreamPipeline`` (the last shard held
+out as the test split), else an ImageNet-shaped synthetic dataset
+(``--synthetic_examples`` train images, 256 test images); evaluation on
+the test split and the ``FINAL ... test_accuracy=`` line at the end.
+Shards come from the port's writers (``data/native_loader.py::
+write_raw_shards``, ``data/filestream.py::write_array_shards``).  Runs on the card unless ``--device=cpu``::
 
     python -m distributed_tensorflow_examples_tpu_torch.examples.resnet50 \\
         --batch_size=256 --train_steps=500 --image_size=224 --learning_rate=0.1
@@ -18,8 +23,7 @@ every BatchNorm through the statistics kernels (``ops/bn.py``).
 TF-1 cluster flags are accepted and mapped (``utils/flags.py``): the JAX
 CLI has no PS branch, so ``--ps_emulation`` and ``--sync_replicas=false``
 train as usual, and so does a cross-process PS task role, as there; ghost-batch BN
-(``--bn_ghost_slices``) and streamed ``--data_dir`` sources wait for the
-port's items A8b and A10.  ``--zero_opt`` keeps each data rank's block of
+(``--bn_ghost_slices``) waits for the port's item A8b.  ``--zero_opt`` keeps each data rank's block of
 the momentum of every leaf of 65536 elements or more (ZeRO-1,
 ``train/state.py``), with the replicated run's numbers.
 
@@ -28,7 +32,8 @@ one process per rank, ``utils/multiprocess.py``) each rank trains on its
 strided share of every global batch (``--batch_size / N`` rows), the
 gradients mean-all-reduced, BatchNorm synchronised over the ranks (the
 plain path's sums, or the fused path's B6/B7 partial sums), and the
-chief prints FINAL::
+chief prints FINAL.  A streamed source gives rank r the JAX package's
+split of worker r of N at ``--batch_size / N`` rows (``data/streams.py``)::
 
     TF_CONFIG='{"cluster": {"worker": ["localhost:7000", "localhost:7000"]},
                 "task": {"type": "worker", "index": 0}}' \
@@ -95,13 +100,14 @@ def run_training(args, *, loss_fn_factory=None, extra_hooks=()) -> Experiment:
     data as ``exp.source`` and the eval's metrics as ``exp.test_metrics``."""
     cfg = config_from_args(args)
     rules = resnet.sharding_rules(cfg)  # ghost-batch BN raises here (A8b)
+    tenant = getattr(args, "tenant", "default") or "default"
     src = streams.resolve_image_source(
         args.data_dir,
         fallback=lambda: datasets.imagenet_synthetic(
             image_size=args.image_size, n_train=args.synthetic_examples,
             num_classes=args.num_classes, seed=args.seed,
         ),
-        name="imagenet",
+        seed=args.seed, num_classes=args.num_classes, name="imagenet", tenant=tenant,
     )
     exp = Experiment(
         init_fn=lambda seed: resnet.init_numpy(cfg, seed),
@@ -115,7 +121,8 @@ def run_training(args, *, loss_fn_factory=None, extra_hooks=()) -> Experiment:
     )
     exp.source = src
     exp.run(streams.train_iter(src, batch_size=args.batch_size, seed=args.seed,
-                               microbatches=args.grad_accum, mesh=exp.mesh))
+                               tenant=tenant, microbatches=args.grad_accum,
+                               mesh=exp.mesh))
     exp.test_metrics = exp.evaluate(src.ds.test, eval_fn=eval_fn_for(cfg))
     exp.finish(test_accuracy=exp.test_metrics.get("accuracy", 0.0))
     return exp

@@ -3,16 +3,18 @@ the C++ component slots D5/D12 — gradient accumulator, token queue,
 gradient queue and param store, and the cross-process PS server that hosts
 them on a socket), the twin of the JAX package's ``native`` bindings.
 
-``accumulator.cc`` and ``ps_server.cc`` beside this file are the port's own
-copies of the JAX package's sources (standard library only).  The server
-calls the accumulator's C ABI, so both link into ONE shared library, which
-compiles on first use, never at import time::
+``accumulator.cc``, ``ps_server.cc`` and ``dataloader.cc`` beside this file
+are the port's own copies of the JAX package's sources (standard library
+only).  The server calls the accumulator's C ABI, and the data loader
+(``data/native_loader.py``'s ``dtx_dl_*`` bindings) rides along, so all
+three link into ONE shared library, which compiles on first use, never at
+import time::
 
     g++ -O2 -std=c++17 -fPIC -shared -o build/native/libdtx_ps-<hash>.so \\
-        native/accumulator.cc native/ps_server.cc -lpthread
+        native/accumulator.cc native/ps_server.cc native/dataloader.cc -lpthread
 
 into ``build/native/`` at the root of the checkout (listed in
-``.gitignore``), under a name that carries a hash of both sources, so an
+``.gitignore``), under a name that carries a hash of the three sources, so an
 edited source is rebuilt and a stale library is never loaded.  The
 compiler writes a temporary file that ``os.replace`` moves into place, so
 processes that build at once never load half a library.  A failed build
@@ -39,6 +41,7 @@ import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "accumulator.cc"
 SERVER_SOURCE = Path(__file__).resolve().parent / "ps_server.cc"
+LOADER_SOURCE = Path(__file__).resolve().parent / "dataloader.cc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 
@@ -107,28 +110,42 @@ _SIGNATURES = {
     "ps_server_resync_port": (ctypes.c_int, [ctypes.c_int, _i64]),
     "ps_server_set_partitioned": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
     "ps_server_diverged_port": (ctypes.c_int, [ctypes.c_int]),
+    # The data loader (dataloader.cc; data/native_loader.py wraps it).
+    "dtx_dl_new": (_p, [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_uint64, ctypes.c_int, ctypes.c_int]),
+    "dtx_dl_schema": (ctypes.c_int, [_p, ctypes.c_char_p, ctypes.c_int]),
+    "dtx_dl_batch_bytes": (_i64, [_p]),
+    "dtx_dl_next": (ctypes.c_int, [_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int]),
+    "dtx_dl_error": (ctypes.c_int, [_p, ctypes.c_char_p, ctypes.c_int]),
+    "dtx_dl_produced": (_i64, [_p]),
+    "dtx_dl_free": (None, [_p]),
 }
 
 
+def _sources() -> tuple[Path, ...]:
+    return (SOURCE, SERVER_SOURCE, LOADER_SOURCE)
+
+
 def library_path() -> Path:
-    """Where the library of the current ``accumulator.cc`` and
-    ``ps_server.cc`` lives."""
+    """Where the library of the current ``accumulator.cc``, ``ps_server.cc``
+    and ``dataloader.cc`` lives."""
     h = hashlib.sha256()
-    for src in (SOURCE, SERVER_SOURCE):
+    for src in _sources():
         h.update(src.read_bytes())
     return BUILD_DIR / f"libdtx_ps-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile ``accumulator.cc`` and ``ps_server.cc`` into one library
-    unless it exists; returns the library's path.  Raises with the
+    """Compile ``accumulator.cc``, ``ps_server.cc`` and ``dataloader.cc``
+    into one library unless it exists; returns the library's path.  Raises with the
     compiler's output when g++ fails."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE), str(SERVER_SOURCE), "-lpthread"]
+    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), *map(str, _sources()), "-lpthread"]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

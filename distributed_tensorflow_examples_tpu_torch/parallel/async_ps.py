@@ -972,7 +972,7 @@ class RemotePSChief(AsyncPSTrainer):
             if n >= 4 else None,
             # When each apply ended (s from the first), for gap analyses.
             "apply_done_s": [round(t - done[0], 6) for t in done] if n else [],
-            **_wire_bytes(),
+            **_wire_bytes(), **_hand_kernel_launches(),
         }))
         return self.params
 
@@ -1566,7 +1566,7 @@ def remote_worker_loop(
             "task": wid, "device": str(dev), "contributed": contributed,
             "reshards_followed": reshards_followed, "contributed_by_epoch": by_epoch,
             **{f"median_{k}": float(np.median(v)) if v else None for k, v in times.items()},
-            **_wire_bytes(),
+            **_wire_bytes(), **_hand_kernel_launches(),
         }))
     finally:
         if writer is not None:
@@ -1575,6 +1575,14 @@ def remote_worker_loop(
             heartbeat.close()  # releases the lease: the clean leave signal
         E.close()
     return contributed
+
+
+def _hand_kernel_launches() -> dict:
+    """This process's launches of the port's hand kernels (``ops.LAUNCHES``),
+    for the stats lines: a run whose models use none reads 0."""
+    from .. import ops
+
+    return {"hand_kernel_launches": int(sum(ops.LAUNCHES.values()))}
 
 
 def _wire_bytes() -> dict:

@@ -179,7 +179,12 @@ class ServeClient:
         """One send/recv round trip; severs the socket on ANY transport
         failure.  ``payload_bufs``: a pre-encoded batch buffer list (wire
         codec) sent zero-copy via scatter/gather ``sendmsg``."""
-        if self._sock is None:
+        # One reference for the whole round trip: a pool's set_addrs may
+        # close this client from another thread mid-attempt, which must
+        # fail the attempt as a transport error (OSError: the pool retries
+        # on a peer), never as an AttributeError on a vanished socket.
+        sock = self._sock
+        if sock is None:
             raise ConnectionError("not connected")
         # The ONE client-side tagging point (r20): every data-plane op of
         # a non-default tenant carries its tenant in the name operand —
@@ -188,7 +193,7 @@ class ServeClient:
         if self.tenant != tenancy.DEFAULT_TENANT and op != wire.HELLO_OP:
             name = tenancy.tag_name(name, self.tenant)
         try:
-            self._sock.settimeout(self._op_timeout)
+            sock.settimeout(self._op_timeout)
             nbytes = wire.encoded_nbytes(payload_bufs) if payload_bufs else 0
             # Deadline propagation (r18): the remaining per-op budget
             # rides in the frame header, so the replica sheds a predict
@@ -202,16 +207,16 @@ class ServeClient:
                     else max(1, int(self._op_timeout * 1000))
                 ),
             )
-            wire.send_frames(self._sock, [hdr] + (payload_bufs or []))
+            wire.send_frames(sock, [hdr] + (payload_bufs or []))
             head = memoryview(self._hdr)
-            wire.recv_exact(self._sock, head)
+            wire.recv_exact(sock, head)
             status, rbytes = wire.RESP_HDR.unpack(self._hdr)
             if not rbytes:
                 return status, None
             if batch:
-                return status, wire.read_batch(self._sock, rbytes)
+                return status, wire.read_batch(sock, rbytes)
             buf = bytearray(rbytes)
-            wire.recv_exact(self._sock, memoryview(buf))
+            wire.recv_exact(sock, memoryview(buf))
             return status, bytes(buf)
         except OSError:
             self._sever()

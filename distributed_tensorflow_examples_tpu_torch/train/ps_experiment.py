@@ -26,8 +26,9 @@ chief hosting every server itself (``--ps_tasks=0``); the chief prints
 ``CHIEF_PLATFORM=`` and the JAX cluster FINAL line
 (``mode=sync_replicas_cluster`` or ``async_cluster``).  A ``--ps_reshard_to``
 PS task joins a live reshard, and ``--job_name=serve`` hosts a replica
-that hot-tracks the PS the run trains (or pins a registry version).  The
-data service role waits for the port's item A10.
+that hot-tracks the PS the run trains (or pins a registry version), and
+``--job_name=data_service`` serves ``--data_dir``'s shards to workers
+reading ``--data_dir=dsvc://host:port``.
 
 Note on model_state: the emulation keeps non-parameter state at its initial
 value — the reference's async-PS scripts hosted only *variables* on PS
@@ -310,6 +311,46 @@ def _supervised_reexec(FLAGS, *, child_env_flag: str) -> int | None:
                                 mutate_env=heal_fault_plan)
 
 
+def _data_service_task(FLAGS, local_bs: int) -> None:
+    """The ``data_service`` role: serve ready batches of ``--data_dir``'s
+    ``shard-*.npz`` files to training workers that resolve
+    ``--data_dir=dsvc://host:port`` (``data/data_service.py``), at the
+    workers' local batch.  Host-only, and supervised like the PS task
+    (``DTX_DSVC_SUPERVISED``): a killed data server comes back on the same
+    port and the clients re-claim their in-flight splits mid-epoch.  With
+    ``--ps_hosts`` it watches the coordinator shard's lease registry, so a
+    departed worker's splits reassign on the membership signal.  Prints
+    ``DSVC_DONE port=``."""
+    from ..data import data_service as dsvc_lib
+    from ..parallel.membership import coordinator_addrs
+    from ..utils.flags import parse_hostports, ps_shard_topology
+
+    ds_hosts = getattr(FLAGS, "data_service_hosts", "") or ""
+    if not ds_hosts:
+        raise ValueError("--job_name=data_service needs --data_service_hosts "
+                         "(host:port this task binds)")
+    ds_entries = parse_hostports(ds_hosts, "--data_service_hosts")
+    my_host, my_port = ds_entries[min(FLAGS.task_index, len(ds_entries) - 1)]
+    listen_all = _resolve_listen_all(FLAGS, my_host, "--data_service_hosts")
+    rc = _supervised_reexec(FLAGS, child_env_flag="DTX_DSVC_SUPERVISED")
+    if rc is not None:
+        if rc != 0:
+            raise SystemExit(rc)
+        return None
+    lease_addrs = None
+    if getattr(FLAGS, "ps_hosts", "") and bool(getattr(FLAGS, "membership_leases", True)):
+        entries, n_shards, n_replicas = ps_shard_topology(FLAGS)
+        lease_addrs = coordinator_addrs(entries, n_shards, n_replicas)
+    bound = dsvc_lib.host_data_service_task(
+        FLAGS.data_dir, int(my_port), batch_size=local_bs, seed=FLAGS.seed,
+        loopback_only=not listen_all, ps_addrs=lease_addrs,
+        ps_layout_version=int(getattr(FLAGS, "ps_layout_version", 0) or 0),
+        tenant_quotas=_tenant_quotas(FLAGS),
+    )
+    print(f"DSVC_DONE port={bound}", flush=True)
+    return None
+
+
 def run_ps_cluster_task(
     *, init_fn, loss_fn, optimizer, batches_for_worker, FLAGS, mode, eval_fn=None,
     model_state=None, predict_fn=None,
@@ -343,12 +384,17 @@ def run_ps_cluster_task(
                   (or pins ``--serve_model_version`` of ``--registry_dir``);
                   supervised like the PS task (``DTX_SERVE_SUPERVISED``).
                   Prints ``SERVE_DONE port=``.
+    - ``data_service``: serves ``--data_dir``'s ``.npz`` shards as ready
+                  batches of ``batch_size // workers`` rows at
+                  ``--data_service_hosts[task_index]``, supervised
+                  (``DTX_DSVC_SUPERVISED``); host-only.  Prints
+                  ``DSVC_DONE port=`` (:func:`_data_service_task`).
 
     The topology: shard i's primary is ``--ps_hosts`` entry i, replica r of
     shard i entry ``r * shards + i``; shard 0 is the coordinator (tokens,
-    leases, the reshard record).  ``data_service`` waits for the port's item
-    A10.  Each task gets a fault role (``ps0``, ``chief0``, ``worker<i>``,
-    ``serve<i>``) for ``DTX_FAULT_PLAN`` matching.
+    leases, the reshard record).  Each task gets a fault role (``ps0``,
+    ``chief0``, ``worker<i>``, ``serve<i>``, ``data_service<i>``) for
+    ``DTX_FAULT_PLAN`` matching.
     """
     from ..parallel import async_ps
     from ..parallel.membership import coordinator_addrs
@@ -357,10 +403,6 @@ def run_ps_cluster_task(
     from ..utils.flags import parse_hostports, parse_reshard_to, ps_shard_topology
 
     job = FLAGS.job_name
-    if job == "data_service":
-        raise NotImplementedError(
-            "--job_name=data_service (the disaggregated input service) waits for the "
-            "port's data planes (A10)")
     n_workers = worker_count(FLAGS)
     local_bs = max(1, FLAGS.batch_size // n_workers)
     if not faults.current_role():
@@ -369,6 +411,9 @@ def run_ps_cluster_task(
     obs_dir = getattr(FLAGS, "obs_events_dir", "") or ""
     if obs_dir and not os.environ.get(telemetry.EVENTS_DIR_ENV):
         os.environ[telemetry.EVENTS_DIR_ENV] = obs_dir
+
+    if job == "data_service":
+        return _data_service_task(FLAGS, local_bs)
     entries, n_shards, n_replicas = ps_shard_topology(FLAGS)
     shard_addrs = entries[: n_shards * n_replicas]
     primary_addrs = entries[:n_shards]

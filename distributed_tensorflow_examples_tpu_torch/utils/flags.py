@@ -29,8 +29,9 @@ chief, worker and serve roles over the port's socket service, at
 ``--ps_shards`` x ``--ps_replicas`` (:func:`ps_shard_topology`, the JAX
 validation), pinned to ``--ps_layout_version``, with ``--ps_reshard_to``
 joiners (:func:`parse_reshard_to`) and the ``--tenant`` /
-``--tenant_quotas`` pair; the data service waits for A10; the other CLIs
-train, as the JAX ones do.  ``--serve_max_batch``, ``--serve_max_wait_ms``,
+``--tenant_quotas`` pair, and the ``data_service`` task that serves
+``--data_dir``'s shards to workers reading ``dsvc://host:port``; the
+other CLIs train, as the JAX ones do.  ``--serve_max_batch``, ``--serve_max_wait_ms``,
 ``--serve_queue_depth``, ``--serve_queue_deadline_ms``,
 ``--serve_refresh_ms``, ``--registry_dir`` and ``--serve_model_version``
 are accepted with the JAX defaults (the transformer's pinned replica
@@ -158,8 +159,8 @@ def add_legacy_cluster_flags(parser: argparse.ArgumentParser) -> None:
         help="Comma-separated host:port list where --job_name=serve replicas "
              "listen (entry --task_index is this task's bind address).")
     add("--data_service_hosts", default="",
-        help="host:port list where --job_name=data_service tasks listen (the "
-             "port's data service, A10).")
+        help="host:port list where --job_name=data_service tasks listen; workers "
+             "read them with --data_dir=dsvc://host:port.")
     add("--serve_max_batch", type=int, default=32,
         help="Serving replicas: max rows coalesced into one apply.")
     add("--serve_max_wait_ms", type=float, default=5.0,

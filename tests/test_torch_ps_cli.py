@@ -25,12 +25,14 @@ import pytest
 import torch
 
 from distributed_tensorflow_examples_tpu import train as jax_train
+from distributed_tensorflow_examples_tpu.data import data_service as jax_dsvc
 from distributed_tensorflow_examples_tpu.data import datasets as jax_datasets
 from distributed_tensorflow_examples_tpu.data import streams as jax_streams
 from distributed_tensorflow_examples_tpu.models import cnn as jax_cnn
 from distributed_tensorflow_examples_tpu.models import mlp as jax_mlp
 from distributed_tensorflow_examples_tpu.parallel import async_ps as jax_async_ps
 from distributed_tensorflow_examples_tpu.utils import flags as jax_flags
+from distributed_tensorflow_examples_tpu_torch.data import data_service as dsvc
 from distributed_tensorflow_examples_tpu_torch.data import datasets, streams
 from distributed_tensorflow_examples_tpu_torch.examples import mnist_mlp
 from distributed_tensorflow_examples_tpu_torch.models import cnn
@@ -240,7 +242,8 @@ def test_cross_process_task_waits_for_a9b(monkeypatch):
     ``run_ps_cluster_task`` wires them on the same flags (the arguments of
     ``host_ps_task``, ``remote_worker_loop`` and ``host_serve_task``, with
     their defaults, equal; the two signatures' names and defaults equal
-    too).  The data service (A10) still raises, naming its item."""
+    too).  The data service role, refused until the data planes came,
+    dispatches to ``host_data_service_task`` with JAX's arguments."""
     from distributed_tensorflow_examples_tpu import serve as jax_serve
     from distributed_tensorflow_examples_tpu.utils import faults as jax_faults
     from distributed_tensorflow_examples_tpu_torch import serve
@@ -260,9 +263,6 @@ def test_cross_process_task_waits_for_a9b(monkeypatch):
     monkeypatch.undo()
     fl = _flags(job_name="data_service", data_service_hosts="127.0.0.1:1")
     assert jax_flags.is_cross_process_ps(fl) and flags.is_cross_process_ps(fl)
-    with pytest.raises(NotImplementedError, match="A10"):
-        ps_experiment.run_ps_emulation(init_fn=None, loss_fn=None, optimizer=None,
-                                       batches_for_worker=None, FLAGS=fl, mode="async")
 
     for fn, ref in ((async_ps.host_ps_task, jax_async_ps.host_ps_task),
                     (serve.host_serve_task, jax_serve.host_serve_task)):
@@ -274,6 +274,30 @@ def test_cross_process_task_waits_for_a9b(monkeypatch):
     # Roles are set only where none is (the tasks run in this process here).
     monkeypatch.setattr(faults, "current_role", lambda: "test")
     monkeypatch.setattr(jax_faults, "current_role", lambda: "test")
+    dsvc_calls = {"port": [], "jax": []}
+    for mod, key in ((dsvc, "port"), (jax_dsvc, "jax")):
+        monkeypatch.setattr(mod, "host_data_service_task",
+                            _bound_call(mod.host_data_service_task, dsvc_calls[key]))
+    for extra in ({}, dict(ps_hosts="127.0.0.1:7301,127.0.0.1:7302", ps_shards=1, ps_replicas=2,
+                           ps_layout_version=3, tenant_quotas="a=2", task_index=1,
+                           data_service_hosts="127.0.0.1:7310,127.0.0.1:7311")):
+        fl = _flags(**{**dict(job_name="data_service", data_service_hosts="127.0.0.1:7310",
+                              data_dir="/shards", ps_restarts=0, batch_size=48, seed=5,
+                              task_index=0), **extra})
+        for run in (ps_experiment.run_ps_emulation, jax_train.run_ps_emulation):
+            assert run(init_fn=None, loss_fn=None, optimizer=None, batches_for_worker=None,
+                       FLAGS=fl, mode="async") is None
+    assert len(dsvc_calls["port"]) == len(dsvc_calls["jax"]) == 2
+    for ours, theirs in zip(dsvc_calls["port"], dsvc_calls["jax"]):
+        assert ours.keys() == theirs.keys()
+        assert {k: v for k, v in ours.items() if k != "tenant_quotas"} == \
+            {k: v for k, v in theirs.items() if k != "tenant_quotas"}
+        assert (ours["tenant_quotas"] is None) == (theirs["tenant_quotas"] is None)
+    first, second = dsvc_calls["port"]
+    assert (first["port"], first["batch_size"], first["ps_addrs"]) == (7310, 24, None)
+    assert second["port"] == 7311 and second["ps_layout_version"] == 3
+    assert second["ps_addrs"] == [("127.0.0.1", 7301), ("127.0.0.1", 7302)]
+    assert second["tenant_quotas"]["a"].weight == 2.0
     got = {"port": [], "jax": []}
     for mod, key in ((async_ps, "port"), (jax_async_ps, "jax")):
         for name in ("host_ps_task", "remote_worker_loop"):

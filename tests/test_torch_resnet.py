@@ -42,8 +42,10 @@ import torch
 from jax import lax
 from jax.sharding import Mesh
 
+from distributed_tensorflow_examples_tpu.data import data_service as jax_dsvc
 from distributed_tensorflow_examples_tpu.data import datasets as jax_datasets
 from distributed_tensorflow_examples_tpu.data import pipeline as jax_pipeline
+from distributed_tensorflow_examples_tpu.data import streams as jax_streams
 from distributed_tensorflow_examples_tpu.models import resnet as jax_resnet
 from distributed_tensorflow_examples_tpu.ops import bn as jax_bn
 from distributed_tensorflow_examples_tpu.train import state as jax_state
@@ -52,7 +54,14 @@ from distributed_tensorflow_examples_tpu.train.checkpoint import (
     flat_params_of as jax_flat_params_of,
 )
 from distributed_tensorflow_examples_tpu_torch import bridge
-from distributed_tensorflow_examples_tpu_torch.data import datasets, pipeline, streams
+from distributed_tensorflow_examples_tpu_torch.data import data_service as dsvc
+from distributed_tensorflow_examples_tpu_torch.data import (
+    datasets,
+    filestream,
+    native_loader,
+    pipeline,
+    streams,
+)
 from distributed_tensorflow_examples_tpu_torch.examples import resnet50 as cli
 from distributed_tensorflow_examples_tpu_torch.models import layers, resnet
 from distributed_tensorflow_examples_tpu_torch.parallel import mesh as mesh_lib
@@ -365,22 +374,47 @@ def test_cli_trains_evaluates_and_prints_final(tmp_path, capsys):
     [
         (["--bn_ghost_slices=2"], NotImplementedError, "A8b"),
         (["--mesh=data=2"], ValueError, "needs 2 devices, have 1"),
-        (["--data_dir=dsvc://127.0.0.1:1"], NotImplementedError, "A10"),
+        (["--data_dir=dsvc://127.0.0.1:1"], dsvc.DSVCDeadlineError, "unreachable"),
     ],
     # Stable case ids: the data=2 case raised NotImplementedError (A5)
-    # while the port ran on one device only.
+    # while the port ran on one device only, and the dsvc:// case raised
+    # NotImplementedError (A10) until the data planes came.
     ids=["extra0-NotImplementedError-A8", "extra1-NotImplementedError-A5",
          "extra2-NotImplementedError-A10"],
 )
-def test_cli_refuses_what_later_slices_bring(extra, error, match, tmp_path):
+def test_cli_refuses_what_later_slices_bring(extra, error, match, tmp_path, monkeypatch):
+    """An unreachable data service fails as JAX's client fails, once the
+    client's reconnect deadline (cut to half a second in both packages
+    here; 60 s by default) passes: never on fallback data."""
+    for mod in (dsvc, jax_dsvc):
+        monkeypatch.setattr(mod.RemoteDatasetSource, "__init__", functools.partialmethod(
+            mod.RemoteDatasetSource.__init__, reconnect_deadline_s=0.5))
     with pytest.raises(error, match=match):
         cli.main(["--device=cpu", "--image_size=32", "--num_classes=10", "--batch_size=4",
                   "--train_steps=1", "--synthetic_examples=8", *extra])
+    if error is dsvc.DSVCDeadlineError:
+        with pytest.raises(jax_dsvc.DSVCDeadlineError, match=match):
+            jax_streams.resolve_image_source(extra[0].split("=", 1)[1], fallback=None, seed=0,
+                                             num_classes=10)
 
 
 def test_cli_ps_job_exits_zero_and_shard_dirs_refuse(tmp_path, capsys):
+    """A ``--job_name=ps`` task exits 0; a shard directory, refused until
+    the data planes came, resolves to its branch as JAX's does, its last
+    shard held out as the test split."""
     assert cli.main(["--job_name=ps"]) == 0
     assert "job_name=ps" in capsys.readouterr().out
-    (tmp_path / "shard-00000.npz").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A10"):
-        streams.resolve_image_source(str(tmp_path), fallback=lambda: None)
+    rng = np.random.default_rng(0)
+    x = {"image": rng.integers(0, 256, size=(24, 8, 8, 3)).astype(np.uint8),
+         "label": rng.integers(0, 10, size=24).astype(np.int32)}
+    native_loader.write_raw_shards(str(tmp_path / "dtxr"), x, shard_records=8)
+    filestream.write_array_shards(str(tmp_path / "npz"), x, rows_per_shard=8)
+    for sub, kind in (("dtxr", "native"), ("npz", "stream")):
+        src = streams.resolve_image_source(str(tmp_path / sub), fallback=None, seed=0,
+                                           num_classes=10)
+        ref = jax_streams.resolve_image_source(str(tmp_path / sub), fallback=None, seed=0,
+                                               num_classes=10)
+        assert src.kind == ref.kind == kind and src.train_shards == ref.train_shards
+        assert len(src.train_shards) == 2 and src.ds.train == {}
+        assert src.ds.test["image"].dtype == np.float32 and len(src.ds.test["image"]) == 8
+        assert src.ds.test["image"].tobytes() == ref.ds.test["image"].tobytes()
