@@ -348,6 +348,35 @@ it fails:
    collectives a step (calls, MB, host ms), each rank's profiled device
    busy ms and idle share, launches a step by rank.
 
+15. The MoE flagship of the JAX package's ``bench_moe`` (vocab 32000, dim
+   1024, 12 layers, 8 heads, 8 experts, top-2, capacity factor 1.25,
+   routing groups of 1024, T 2048, batch 4, bf16, clip 1.0 + AdamW 1e-3;
+   924M parameters from JAX ``init``'s numbers for seed 0), depth not
+   cut.  (a) ``MOE_STEPS`` steps through
+   ``examples.transformer_lm.run_training`` on one process, published to
+   a registry: step 1's loss within 0.5 of ln(32000) (the loss trained is
+   the cross-entropy plus 0.01 aux), aux finite, the loss falling; B1, B2
+   and B3 each launched 12 times a step, all on the tensor cores; one
+   step from the initial weights against ``attention="xla"``, routed by
+   the flash step's decisions (``TOL_TRAIN_LOSS``, ``TOL_TRAIN_GRAD``;
+   routed freely, the share of decisions that differ is printed beside).
+   Printed: step ms, tokens/s, each layer's share of (token, choice)
+   pairs past capacity at step 1, peak memory, one profiled step's device
+   ms for the flash kernels, the experts' matmuls and the routing,
+   dispatch and combine, and its idle share.  (b) ``--mesh=data=1,
+   expert=2`` on 2 gloo ranks sharing the card (``moe_rank``), 3 steps:
+   each rank holds 4 experts a layer; steps 1-3 against one process on
+   the same global batches and weights (``TOL_MOE_EP_LOSS``,
+   ``TOL_MOE_EP_LOSS_LATER``, with that process's flash-against-xla gaps
+   as the noise floor); B1-B3 12 times a step a rank on the tensor cores.
+   Printed: step ms, tokens/s, the ``expert_a2a`` and other collectives a
+   step (calls, MB, host ms), each rank's busy and idle share.  (c) (a)'s
+   published weights on a registry-pinned replica: one [1, 2048] predict
+   (12 tensor-core B1 launches; its logits against ``transformer.apply``
+   on the card within ``TOL_LOGITS``) and one decode session of 16 prompt
+   and 32 greedy tokens on one slot, whose tokens equal ``generate``'s on
+   the card, with no flash launch.
+
 Phase 4 still runs the split kernels: at T 2048 the blocks give
 nq = nk = 2, under the fused regime.  No path is cut in depth.
 
@@ -4674,6 +4703,507 @@ def seq_axis_end_to_end(card: str, phase6_losses: list | None = None,
     return result
 
 
+
+# ----------------------------------------------------------------------------
+# Phase 15: the MoE flagship and the expert axis
+# ----------------------------------------------------------------------------
+
+#: The MoE flagship of the JAX package's ``bench_moe``: 12 layers of 8
+#: experts, top-2, capacity factor 1.25, routing groups of 1024 tokens, at
+#: T 2048 and batch 4, bf16, clip 1.0 + AdamW 1e-3 from JAX ``init``'s
+#: weights for seed 0.
+MOE_BATCH, MOE_T, MOE_LAYERS, MOE_EXPERTS = 4, 2048, 12, 8
+MOE_FLAGS = [f"--batch_size={MOE_BATCH}", f"--seq_len={MOE_T}", "--vocab_size=32000",
+             "--dim=1024", f"--n_layers={MOE_LAYERS}", "--n_heads=8",
+             f"--moe_experts={MOE_EXPERTS}", "--moe_capacity_factor=1.25",
+             "--moe_group_size=1024", "--learning_rate=1e-3", "--clip_norm=1.0",
+             "--log_every_steps=1", f"--seed={SEED}", "--attention=auto", "--device=cuda"]
+#: (a): steps of the one-process run, and the step it profiles.
+MOE_STEPS, MOE_PROFILE_STEP = 4, 3
+#: (b): the expert mesh on 2 gloo ranks sharing the card, its steps and
+#: profiled step; steps 1-3 against one process's steps on the same
+#: global batches (each rank reads its row shard's block of the corpus)
+#: from the same weights: the same routing groups (8 groups of 1024
+#: tokens, 4 a rank), so only bf16 roundings of other matmul shapes
+#: differ.  Step 1 is held to 2e-3 (phase 14's gate).  From step 2 on the
+#: weights carry step 1's gradients, and a bf16 rounding flips routing
+#: decisions (the flash and the xla step of one process route 6.3% of
+#: their (token, choice) pairs apart at step 1 on an H100), each flip an
+#: O(1) change of its token: steps 2-3 are held to 1.5e-2, and one
+#: process's flash-against-xla gaps over the same steps are printed
+#: beside them as the noise floor.
+MOE_EP_MESH, MOE_EP_STEPS, MOE_EP_PROFILE_STEP = "data=1,expert=2", 3, 3
+TOL_MOE_EP_LOSS, TOL_MOE_EP_LOSS_LATER = 2e-3, 1.5e-2
+#: (c): one decode session on the pinned replica (one slot, a cache of
+#: exactly the session's length, as ``generate``'s).
+MOE_DECODE_PROMPT, MOE_DECODE_NEW = 16, 32
+MOE_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+#: The aten ops of the routing, dispatch and combine (``ops/moe.py``: the
+#: top-k sort, the places' running count, the slot copies both ways); the
+#: experts' products are its only batched matmuls (``aten::bmm``).
+MOE_DISPATCH_OPS = ("aten::sort", "aten::cumsum", "aten::one_hot", "aten::index_copy_",
+                    "aten::index_select")
+
+
+def moe_step_hook():
+    """A training hook that records each step's ``moe_aux`` and, over step
+    1, each MoE layer's share of (token, choice) pairs past capacity."""
+    from distributed_tensorflow_examples_tpu_torch.ops import moe as moe_ops
+    from distributed_tensorflow_examples_tpu_torch.train import hooks
+
+    class MoEStep(hooks.Hook):
+        def __init__(self):
+            self.aux: list = []
+            self.drops: list = []
+            self._ctx = None
+
+        def before_step(self, loop):
+            if loop.step == 0:
+                self._ctx = moe_ops.record_drops()
+                self._seen = self._ctx.__enter__()
+
+        def after_step(self, loop, metrics):
+            self.aux.append(float(metrics["moe_aux"]))
+            if self._ctx is not None:
+                self._ctx.__exit__(None, None, None)
+                self._ctx = None
+                self.drops = [float(d) for d in self._seen]
+
+    return MoEStep()
+
+
+def _moe_profile_split(prof) -> dict:
+    """A profiled MoE step's device ms: the flash kernels (by kernel name),
+    the experts' products (``aten::bmm``) and the routing, dispatch and
+    combine (``MOE_DISPATCH_OPS``), each op's own kernels."""
+    from torch.autograd import DeviceType
+
+    split = {"attention_ms": 0.0, "expert_matmul_ms": 0.0, "dispatch_combine_ms": 0.0}
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if us <= 0:
+            continue
+        name = e.key.lower()
+        if e.device_type == DeviceType.CUDA:
+            if any(f + "_kernel" in name or f + "_tc_kernel" in name for f in FLASH_FAMILIES):
+                split["attention_ms"] += us / 1e3
+        elif e.key == "aten::bmm":
+            split["expert_matmul_ms"] += us / 1e3
+        elif e.key in MOE_DISPATCH_OPS:
+            split["dispatch_combine_ms"] += us / 1e3
+    return split
+
+
+def _moe_global_batches(cfg, shards: int, n: int) -> list:
+    """The CLI's first ``n`` global batches over ``shards`` row shards
+    (each shard's block of the corpus, its rows in shard order), on the
+    card."""
+    from distributed_tensorflow_examples_tpu_torch.data import datasets
+    from distributed_tensorflow_examples_tpu_torch.parallel import sharding
+
+    ids, _vocab, _src = datasets.text_corpus(
+        None, vocab_size=cfg.vocab_size,
+        synth_tokens=max(2_000_000, MOE_BATCH * (MOE_T + 1) * 50), seed=SEED)
+    its = [datasets.lm_batches(block, batch_size=rows, seq_len=MOE_T)
+           for block, rows in (sharding.stream_block(ids, MOE_BATCH, j, shards)
+                               for j in range(shards))]
+    out = []
+    for _ in range(n):
+        parts = [next(it) for it in its]
+        out.append({k: torch.from_numpy(np.concatenate([p[k] for p in parts])).cuda()
+                    for k in parts[0]})
+    return out
+
+
+def _routing_replay(decisions: list, replay: bool):
+    """A stand-in for ``ops.moe.route`` that records each call's routing
+    decisions (expert, place, kept) into ``decisions`` or, with
+    ``replay``, routes by the recorded ones, the gates taken from this
+    call's own probabilities at the recorded experts."""
+    from distributed_tensorflow_examples_tpu_torch.ops import moe as moe_ops
+
+    route, calls = moe_ops.route, []
+
+    def replaying(tok32, router, moe, C):
+        probs, idx, gates, pos, keep = route(tok32, router, moe, C)
+        if not replay:
+            decisions.append((idx, pos, keep))
+            return probs, idx, gates, pos, keep
+        idx, pos, keep = decisions[len(calls)]
+        calls.append(idx)
+        vals = probs.gather(-1, idx)
+        gates = vals / torch.clamp(vals.sum(dim=-1, keepdim=True), min=1e-9) * keep
+        return probs, idx, gates, pos, keep
+
+    return replaying
+
+
+def _moe_reference(cfg, batches) -> dict:
+    """From the initial weights: one step's loss and per-leaf gradients on
+    ``batches[0]``, the flash kernels against plain mha
+    (``attention="xla"``), routed freely and then by the flash step's
+    routing decisions (bf16 roundings flip single choices near a tie or
+    the capacity edge, and a flipped choice moves its token by O(1):
+    the gate is the replayed routing's, the free one is printed with the
+    share of decisions that differ); then one process's losses over
+    ``batches`` (clip 1.0 + AdamW 1e-3, the CLI's optimizer): (b)'s
+    yardstick."""
+    from distributed_tensorflow_examples_tpu_torch import bridge
+    from distributed_tensorflow_examples_tpu_torch.models import transformer
+    from distributed_tensorflow_examples_tpu_torch.ops import moe as moe_ops
+    from distributed_tensorflow_examples_tpu_torch.train import optim, state, step
+
+    batch = batches[0]
+    init = transformer.init_numpy(cfg, SEED)
+    paths = [p for p, _l in bridge._leaves(init)]
+    flash_routes: list = []
+    xla_routes: list = []
+    result = {}
+    route = moe_ops.route
+    for name, attention, stand_in in (
+            ("flash", "auto", _routing_replay(flash_routes, False)),
+            ("xla", "xla", _routing_replay(xla_routes, False)),
+            ("xla_replayed", "xla", _routing_replay(flash_routes, True))):
+        c = dataclasses.replace(cfg, attention=attention)
+        params = state.as_param_leaves(init, "cuda")
+        moe_ops.route = stand_in
+        try:
+            loss, (_s, metrics) = transformer.loss_fn(c)(params, {}, batch, None)
+            loss.backward()
+        finally:
+            moe_ops.route = route
+        result[name] = (loss.item(), float(metrics["moe_aux"]),
+                        [p.grad for p in state.leaves(params)])
+        del params, loss
+
+    def rel_errors(got, want):
+        return [((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+                for a, b in zip(got, want)]
+
+    l_flash, a_flash, g_flash = result["flash"]
+    free = rel_errors(g_flash, result["xla"][2])
+    rels = rel_errors(g_flash, result["xla_replayed"][2])
+    l_xla, a_xla = result["xla_replayed"][:2]
+    l_free, a_free = result["xla"][:2]
+    del result, g_flash
+    pairs = sum(idx.numel() for idx, _p, _k in flash_routes)
+    flipped = sum(int(((i1 != i2) | (k1 != k2)).sum())
+                  for (i1, _p1, k1), (i2, _p2, k2) in zip(flash_routes, xla_routes))
+    del flash_routes, xla_routes
+    worst = int(np.argmax(rels))
+    runs = {}
+    for attention in ("auto", "xla"):
+        opt = optim.ClippedAdamW(1e-3, 1.0)
+        st = state.create_state(lambda seed: init, opt, SEED, "cuda")
+        train_step = step.build_train_step(
+            transformer.loss_fn(dataclasses.replace(cfg, attention=attention)), opt)
+        runs[attention] = []
+        for b in batches:
+            st, m = train_step(st, b)
+            runs[attention].append(float(m["loss"]))
+        del st, opt, train_step
+        torch.cuda.empty_cache()
+    del init
+    losses = runs["auto"]
+    return {"loss": l_flash, "loss_xla": l_xla, "aux": a_flash, "aux_xla": a_xla,
+            "grad_rel_max": rels[worst], "grad_rel_max_at": paths[worst],
+            "grad_rel_median": float(np.median(rels)), "free_loss_xla": l_free,
+            "free_aux_xla": a_free, "free_grad_rel_max": max(free),
+            "free_grad_rel_median": float(np.median(free)),
+            "free_flipped_share": flipped / pairs, "one_process_losses": losses,
+            "one_process_xla_losses": runs["xla"]}
+
+
+def moe_train(card: str, registry_dir: Path) -> dict:
+    """Phase 15 (a): the MoE flagship through ``run_training`` on one
+    process, published to ``registry_dir``; gates and prints (the module
+    docstring); returns its measurements, launches and published version."""
+    from distributed_tensorflow_examples_tpu_torch import ops
+    from distributed_tensorflow_examples_tpu_torch.examples import transformer_lm as cli
+    from distributed_tensorflow_examples_tpu_torch.train import state
+
+    args = cli.build_parser().parse_args(
+        [*MOE_FLAGS, f"--train_steps={MOE_STEPS}", f"--registry_dir={registry_dir}"])
+    cfg = cli.config_from_args(args)
+    hook = dp_step_hook(kernels=MOE_KERNELS, profile_step=MOE_PROFILE_STEP)
+    moe_hook = moe_step_hook()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()  # every count to 0 just before the main path
+    t0 = time.perf_counter()
+    exp = cli.run_training(args, extra_hooks=[hook, moe_hook])
+    wall = time.perf_counter() - t0
+    launches, tc = dict(ops.LAUNCHES), dict(ops.TENSOR_CORE_LAUNCHES)  # just after
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in state.leaves(exp.state.params))
+    version = exp.published_version
+    del exp
+    torch.cuda.empty_cache()
+
+    losses = [st["loss"] for st in hook.steps]
+    aux = moe_hook.aux
+    ln_v = math.log(cfg.vocab_size)
+    log(f"  (a) {MOE_STEPS} steps of [{MOE_BATCH}, {MOE_T}], {n_params} params "
+        f"({n_params * 16 / 1e9:.2f} GB of f32 parameters, gradients and AdamW moments), "
+        f"in {wall:.1f} s (corpus, init, steps, publish): losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; moe_aux "
+        + ", ".join(f"{a:.4f}" for a in aux)
+        + f"; step 1's loss + 0.01 aux {losses[0] + 0.01 * aux[0]:.4f} against ln(32000) + "
+        f"0.01 aux {ln_v + 0.01 * aux[0]:.4f}")
+    if (len(losses) != MOE_STEPS or not all(math.isfinite(x) for x in losses + aux)
+            or abs(losses[0] - ln_v) > 0.5 or not losses[-1] < losses[0]):
+        raise SystemExit(f"phase 15 (a): the MoE losses do not start near ln(32000) and "
+                         f"fall, or aux is not finite: {losses}, {aux}")
+    for st in hook.steps:
+        got = {k: st["launches"].get(k, 0) for k in MOE_KERNELS}
+        if got != {k: MOE_LAYERS for k in MOE_KERNELS}:
+            raise SystemExit(f"phase 15 (a): step {st['step']} launched {got}, want "
+                             f"{MOE_LAYERS} of each")
+    require_tensor_cores("train_moe", launches, tc)
+    if len(moe_hook.drops) != MOE_LAYERS:
+        raise SystemExit(f"phase 15 (a): step 1 recorded {len(moe_hook.drops)} MoE layers")
+    step_ms = float(np.median([st["ms"] for st in hook.steps[1:]
+                               if not st["profiled"]]))
+    tokens = MOE_BATCH * MOE_T
+    profiled = next(st for st in hook.steps if st["profiled"])
+    prof = _profile_summary(hook.prof, profiled["ms"])
+    split = _moe_profile_split(hook.prof)
+    log(f"  (a) step {step_ms:.1f} ms (median of the unprofiled steps 2-{MOE_STEPS}, host clock "
+        f"to the loss read), {tokens / (step_ms / 1e3):.0f} tokens/s; launches a step "
+        + ", ".join(f"{k} {hook.steps[-1]['launches'][k]}" for k in MOE_KERNELS)
+        + f", every one on the tensor cores; peak device memory {peak_gb:.2f} GB [{card}]")
+    log("  (a) step 1's share of (token, choice) pairs past capacity by layer: "
+        + ", ".join(f"{d:.4f}" for d in moe_hook.drops))
+    log(f"  (a) profiled step {MOE_PROFILE_STEP}: host {prof['step_ms']:.1f} ms, device busy "
+        f"{prof['busy_ms']:.1f} ms (idle share {prof['idle_share']:.1%}, {prof['kernels']} "
+        f"kernels); attention kernels {split['attention_ms']:.1f} ms, expert matmuls "
+        f"{split['expert_matmul_ms']:.1f} ms, routing/dispatch/combine "
+        f"{split['dispatch_combine_ms']:.1f} ms [{card}]")
+
+    cmp = _moe_reference(cfg, _moe_global_batches(cfg, 2, MOE_EP_STEPS))
+    torch.cuda.empty_cache()
+    log(f"  (a) step 1 vs attention=xla (the initial weights, (b)'s first global batch), "
+        f"routed as the flash step routed: loss {cmp['loss']:.5f} vs {cmp['loss_xla']:.5f} (|Δ| "
+        f"{abs(cmp['loss'] - cmp['loss_xla']):.2e}, tol {TOL_TRAIN_LOSS:g}; aux "
+        f"{cmp['aux']:.5f} vs {cmp['aux_xla']:.5f}); per-leaf gradient error max "
+        f"{cmp['grad_rel_max']:.3e} at {cmp['grad_rel_max_at']}, median "
+        f"{cmp['grad_rel_median']:.3e} (tol {TOL_TRAIN_GRAD:g})")
+    log(f"  (a) the same, each routing freely: {cmp['free_flipped_share']:.3%} of the (token, "
+        f"choice) decisions differ (expert or kept); loss {cmp['free_loss_xla']:.5f}, aux "
+        f"{cmp['free_aux_xla']:.5f}; per-leaf gradient error max "
+        f"{cmp['free_grad_rel_max']:.3e}, median {cmp['free_grad_rel_median']:.3e}")
+    if not (abs(cmp["loss"] - cmp["loss_xla"]) <= TOL_TRAIN_LOSS
+            and cmp["grad_rel_max"] <= TOL_TRAIN_GRAD):
+        raise SystemExit("phase 15 (a): the flash MoE step disagrees with the xla-attention step")
+    return {"losses": losses, "aux": aux, "step_ms": step_ms,
+            "tokens_per_s": tokens / (step_ms / 1e3), "peak_gb": peak_gb,
+            "drops": moe_hook.drops, "profile": prof, "split": split, "launches": launches,
+            "tc_launches": tc, "version": version, "vs_xla": cmp}
+
+
+def moe_rank(out_dir: str) -> None:
+    """One rank of phase 15 (b): the MoE flagship through ``run_training``
+    at ``--mesh=MOE_EP_MESH`` (every count to 0 just before it, read just
+    after)."""
+    from distributed_tensorflow_examples_tpu_torch import ops
+    from distributed_tensorflow_examples_tpu_torch.examples import transformer_lm as cli
+    from distributed_tensorflow_examples_tpu_torch.parallel import collectives, dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = cli.build_parser().parse_args(
+        [*MOE_FLAGS, f"--train_steps={MOE_EP_STEPS}", f"--mesh={MOE_EP_MESH}"])
+    hook = dp_step_hook(kernels=MOE_KERNELS, profile_step=MOE_EP_PROFILE_STEP)
+    moe_hook = moe_step_hook()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()  # every count to 0 just before the main path
+    collectives.TRAFFIC.clear()
+    t0 = time.perf_counter()
+    exp = cli.run_training(args, extra_hooks=[hook, moe_hook])
+    wall = time.perf_counter() - t0
+    launches, tc = dict(ops.LAUNCHES), dict(ops.TENSOR_CORE_LAUNCHES)  # just after
+    profiled = next(st for st in hook.steps if st["profiled"])
+    _rank_result(out_dir, {
+        "rank": dist.process_index(), "backend": dist.backend(), "mesh": exp.mesh.shape,
+        "expert": exp.mesh.expert_index, "wall_s": wall, "steps": hook.steps,
+        "aux": moe_hook.aux, "drops": moe_hook.drops, "launches": launches,
+        "tc_launches": tc,
+        "experts_here": [int(exp.state.params[f"block_{i}"]["moe"]["w1"].shape[0])
+                         for i in range(MOE_LAYERS)],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "profile": _profile_summary(hook.prof, profiled["ms"]),
+        "split": _moe_profile_split(hook.prof)})
+
+
+def moe_expert_mesh(card: str, want: list, want_xla: list) -> dict:
+    """Phase 15 (b): the 2 ranks of ``moe_rank``, gated against ``want``,
+    one process's losses on the same global batches from the same weights
+    (``want_xla``: the same with plain attention, the noise floor);
+    returns the step ms, the launches by rank and the traffic."""
+    _c, _o, out = _run_ranks(2, "moe_rank({out!r})", 420)
+    ranks = _read_ranks(out, 2)
+    gaps = [max(abs(r["steps"][i]["loss"] - w) for r in ranks) for i, w in enumerate(want)]
+    floor = [abs(a - b) for a, b in zip(want, want_xla)]
+    tols = [TOL_MOE_EP_LOSS] + [TOL_MOE_EP_LOSS_LATER] * (len(want) - 1)
+    log(f"  (b) {MOE_EP_MESH} ({ranks[0]['backend']}, 2 ranks sharing the card): losses by "
+        f"rank {[[round(st['loss'], 5) for st in r['steps']] for r in ranks]}; (a)'s "
+        f"{[round(x, 5) for x in want]} (worst |Δ| by step "
+        + ", ".join(f"{g:.2e}" for g in gaps) + f", tol {', '.join(f'{t:g}' for t in tols)}; "
+        "one process on the same global batches and weights; that process's flash against "
+        "xla steps by step " + ", ".join(f"{f:.2e}" for f in floor) + "); experts a layer "
+        f"by rank {[sorted(set(r['experts_here'])) for r in ranks]}")
+    for r in ranks:
+        if r["experts_here"] != [MOE_EXPERTS // 2] * MOE_LAYERS:
+            raise SystemExit(f"phase 15 (b): rank {r['rank']} holds {r['experts_here']} experts")
+        for st in r["steps"]:
+            got = {k: st["launches"].get(k, 0) for k in MOE_KERNELS}
+            if got != {k: MOE_LAYERS for k in MOE_KERNELS}:
+                raise SystemExit(f"phase 15 (b): rank {r['rank']} step {st['step']} launched "
+                                 f"{got}")
+        require_tensor_cores(f"train_moe_ep rank {r['rank']}", r["launches"], r["tc_launches"])
+    if not all(math.isfinite(g) and g <= t for g, t in zip(gaps, tols)):
+        raise SystemExit(f"phase 15 (b): the expert mesh's losses disagree with one "
+                         f"process's: {gaps}")
+    step_ms = ranks[0]["steps"][1]["ms"]
+    tokens = MOE_BATCH * MOE_T
+    traffic = ranks[0]["steps"][1]["traffic"]
+    log(f"  (b) step {step_ms:.1f} ms (rank 0, step 2, host clock to the loss read), "
+        f"{tokens / (step_ms / 1e3):.0f} tokens/s; traffic a step (rank 0, step 2): "
+        + _traffic_line(ranks[0]["steps"][1]) + f" [{card}]")
+    for r in ranks:
+        p, s = r["profile"], r["split"]
+        log(f"  (b) rank {r['rank']} (expert {r['expert']}): profiled step {p['step_ms']:.1f} ms, "
+            f"device busy {p['busy_ms']:.1f} ms ({1 - p['idle_share']:.1%}), idle "
+            f"{p['idle_share']:.1%}, {p['kernels']} kernels (attention {s['attention_ms']:.1f}, "
+            f"expert matmuls {s['expert_matmul_ms']:.1f}, routing/dispatch/combine "
+            f"{s['dispatch_combine_ms']:.1f} ms); peak {r['peak_gb']:.2f} GB; run "
+            f"{r['wall_s']:.1f} s")
+    return {"step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3), "loss_gaps": gaps,
+            "noise_floor": floor,
+            "launches": [r["launches"] for r in ranks], "traffic": traffic,
+            "idle_share": [r["profile"]["idle_share"] for r in ranks]}
+
+
+def moe_serve(card: str, registry_dir: Path, version: int) -> dict:
+    """Phase 15 (c): (a)'s published weights on a registry-pinned replica:
+    one [1, MOE_T] predict (its flash launches counted) against
+    ``transformer.apply`` on the card, and one greedy decode session
+    against ``generate`` on the card; returns the predict's launches."""
+    from distributed_tensorflow_examples_tpu_torch import bridge, ops
+    from distributed_tensorflow_examples_tpu_torch.data import datasets
+    from distributed_tensorflow_examples_tpu_torch.examples import transformer_lm as cli
+    from distributed_tensorflow_examples_tpu_torch.models import transformer
+    from distributed_tensorflow_examples_tpu_torch.serve import (
+        ModelRegistry, ServeClient, host_serve_task,
+    )
+
+    cfg = cli.config_from_args(cli.build_parser().parse_args(MOE_FLAGS))
+    session_len = MOE_DECODE_PROMPT + MOE_DECODE_NEW
+    ready, holder, failure = threading.Event(), {}, []
+
+    def host():
+        try:
+            host_serve_task(
+                param_shapes=transformer.param_shapes(cfg),
+                predict_fn=lambda p, b: transformer.apply(cfg, p, b["x"]),
+                decode_fns=transformer.serve_decode_fns(cfg), decode_slots=1,
+                decode_max_len=session_len, port=0, device="cuda", max_batch=1,
+                registry_dir=str(registry_dir), model_name="transformer_lm",
+                model_version=version,
+                on_ready=lambda s: (holder.update(server=s), ready.set()))
+        except BaseException as e:  # noqa: BLE001 — the main thread reports it
+            failure.append(e)
+            ready.set()
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=host, name="moe-serve-task", daemon=True)
+    thread.start()
+    try:
+        if not ready.wait(600) or failure:
+            raise SystemExit(f"phase 15 (c): the replica did not come up: {failure!r}")
+        up_s = time.perf_counter() - t0
+        ids, _vocab, _src = datasets.text_corpus(
+            None, vocab_size=cfg.vocab_size, synth_tokens=2_000_000, seed=SEED)
+        x = np.asarray(ids[:MOE_T], np.int32)[None]
+        prompt = np.asarray(ids[:MOE_DECODE_PROMPT], np.int32)
+        client = ServeClient("127.0.0.1", holder["server"].port, op_timeout_s=300.0)
+        before = _launch_counts(ops)
+        t1 = time.perf_counter()
+        _step, out = client.predict({"x": x})
+        predict_s = time.perf_counter() - t1
+        launches, tc = _launches_since(ops, before)
+        before = _launch_counts(ops)
+        t1 = time.perf_counter()
+        tokens = client.generate(prompt, MOE_DECODE_NEW, deadline_s=300.0)
+        decode_s = time.perf_counter() - t1
+        decode_launches, _tc = _launches_since(ops, before)
+        client.close()
+    finally:
+        if "server" in holder:
+            holder["server"].shutdown_requested.set()
+        thread.join(120)
+    if thread.is_alive() or failure:
+        raise SystemExit(f"phase 15 (c): the serve task did not shut down cleanly: {failure!r}")
+
+    _step, flat, _manifest = ModelRegistry(str(registry_dir)).load("transformer_lm", version)
+    _total, unflatten = bridge.flat_param_spec(transformer.param_shapes(cfg))
+    params = unflatten(flat, "cuda")
+    del flat
+    with torch.inference_mode():
+        want = transformer.apply(cfg, params, torch.from_numpy(x).cuda()).float().cpu()
+        gen = transformer.generate(cfg, params, prompt[None], max_new_tokens=MOE_DECODE_NEW)
+    gen = gen[0, MOE_DECODE_PROMPT:].cpu().numpy()
+    del params
+    torch.cuda.empty_cache()
+    logits = out["output"].float()
+    err = (logits - want).abs().max().item()
+    flash_in_decode = sum(decode_launches.get(k, 0) for k in FLASH_FAMILIES)
+    log(f"  (c) pinned replica of transformer_lm/v{version} up in {up_s:.1f} s; predict "
+        f"[1, {MOE_T}] in {predict_s * 1e3:.1f} ms (client), logits {tuple(logits.shape)}, "
+        f"finite {bool(torch.isfinite(logits).all())}, max |Δ| against transformer.apply on "
+        f"the card {err:.3e} (tol {TOL_LOGITS:g}); launches "
+        + ", ".join(f"{k} {c}" for k, c in launches.items() if c) + f" [{card}]")
+    log(f"  (c) decode session ({MOE_DECODE_PROMPT}-token prompt, {MOE_DECODE_NEW} greedy "
+        f"tokens, one slot) in {decode_s:.2f} s ({MOE_DECODE_NEW / decode_s:.1f} tokens/s): "
+        f"equal to generate on the card {bool(np.array_equal(tokens, gen))}; flash launches "
+        f"during decode {flash_in_decode}")
+    if (tuple(logits.shape) != (1, MOE_T, cfg.vocab_size) or not torch.isfinite(logits).all()
+            or not err <= TOL_LOGITS):
+        raise SystemExit("phase 15 (c): the replica's predict disagrees with transformer.apply")
+    if launches.get("flash_fwd", 0) != MOE_LAYERS:
+        raise SystemExit(f"phase 15 (c): the predict launched flash_fwd "
+                         f"{launches.get('flash_fwd', 0)} times, want {MOE_LAYERS}")
+    require_tensor_cores("serve_moe", launches, tc)
+    if flash_in_decode or not np.array_equal(tokens, gen):
+        raise SystemExit(f"phase 15 (c): decode launched flash {flash_in_decode} times, or its "
+                         f"tokens {tokens.tolist()} differ from generate's {gen.tolist()}")
+    return {"launches": launches, "tc_launches": tc, "predict_ms": predict_s * 1e3,
+            "decode_tokens_per_s": MOE_DECODE_NEW / decode_s}
+
+
+def moe_end_to_end(card: str) -> dict:
+    """Phase 15 (the module docstring): (a), (b) and (c); returns each
+    part's measurements and launches."""
+    registry_dir = ROOT / "build" / "smoke_moe_registry"
+    shutil.rmtree(registry_dir, ignore_errors=True)
+    # Phase 8's --deterministic runs leave torch's deterministic algorithms
+    # on in this process; the MoE paths run as the CLI runs them by default.
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    t0 = time.perf_counter()
+    try:
+        a = moe_train(card, registry_dir)
+        ta = time.perf_counter() - t0
+        torch.cuda.empty_cache()  # the ranks are processes of their own
+        b = moe_expert_mesh(card, a["vs_xla"]["one_process_losses"],
+                            a["vs_xla"]["one_process_xla_losses"])
+        tb = time.perf_counter() - t0 - ta
+        c = moe_serve(card, registry_dir, a["version"])
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+        shutil.rmtree(registry_dir, ignore_errors=True)
+    log(f"  phase 15: (a) {ta:.1f} s, (b) {tb:.1f} s, (c) {time.perf_counter() - t0 - ta - tb:.1f} s")
+    return {"train": a, "expert_mesh": b, "serve": c}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
@@ -4854,6 +5384,30 @@ def main() -> int:
         if sp[name]["total"] == 0:
             raise SystemExit(f"phase 14 launched {name} no time")
 
+    log(f"phase 15: the MoE flagship ({MOE_EXPERTS} experts, top-2, T {MOE_T}) trained on one "
+        f"process and on --mesh={MOE_EP_MESH} (ranks sharing the card), then served from a "
+        "pinned replica")
+    t15 = time.perf_counter()
+    moe = moe_end_to_end(card)
+    log(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
+
+    def moe_launches(name: str) -> dict:
+        """Phase 15's launches of kernel ``name`` by path (the expert mesh's
+        by rank), their sum and the sum on the tensor cores."""
+        by_path = {"train_moe": moe["train"]["launches"].get(name, 0),
+                   "train_moe_ep2_by_rank": [r.get(name, 0)
+                                             for r in moe["expert_mesh"]["launches"]]}
+        if name == "flash_fwd":
+            by_path["serve_moe"] = moe["serve"]["launches"].get(name, 0)
+        total = by_path["train_moe"] + sum(by_path["train_moe_ep2_by_rank"]) + by_path.get(
+            "serve_moe", 0)
+        return {"by_path": by_path, "total": total}
+
+    moe_l = {name: moe_launches(name) for name in MOE_KERNELS}
+    for name in MOE_KERNELS:
+        if moe_l[name]["total"] == 0:
+            raise SystemExit(f"phase 15 launched {name} no time")
+
     csrc = "distributed_tensorflow_examples_tpu_torch/ops/csrc"
     tpu = "distributed_tensorflow_examples_tpu/ops/flash_attention.py"
     record = {"kernels": [
@@ -4862,14 +5416,15 @@ def main() -> int:
             "replaces": f"{tpu}:135",
             "launches": serve_launches.get("flash_fwd", 0)
             + train_launches.get("flash_fwd", 0) + long_launches.get("flash_fwd", 0)
-            + sp["flash_fwd"]["total"],
+            + sp["flash_fwd"]["total"] + moe_l["flash_fwd"]["total"],
             "launches_by_path": {"serve": serve_launches.get("flash_fwd", 0),
                                  "train": train_launches.get("flash_fwd", 0),
                                  "train_t8192": long_launches.get("flash_fwd", 0),
-                                 **sp["flash_fwd"]["by_path"]},
+                                 **sp["flash_fwd"]["by_path"],
+                                 **moe_l["flash_fwd"]["by_path"]},
             "tensor_core_launches": serve_tc.get("flash_fwd", 0)
             + train_tc.get("flash_fwd", 0) + long_tc.get("flash_fwd", 0)
-            + sp["flash_fwd"]["tc"],
+            + sp["flash_fwd"]["tc"] + moe_l["flash_fwd"]["total"],
             "cuda_core_launches": sp["flash_fwd"]["cuda_core"],
             "f32_route_at_hop_shape": hop_routes["flash_fwd"],
             "max_abs_err": max(errs), **main_shape,
@@ -4881,12 +5436,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"{csrc}/flash_bwd.cu",
             "replaces": f"{tpu}:{line}",
             "launches": train_launches.get(name, 0) + long_launches.get(name, 0)
-            + sp[name]["total"],
+            + sp[name]["total"] + moe_l[name]["total"],
             "launches_by_path": {"train": train_launches.get(name, 0),
                                  "train_t8192": long_launches.get(name, 0),
-                                 **sp[name]["by_path"]},
+                                 **sp[name]["by_path"], **moe_l[name]["by_path"]},
             "tensor_core_launches": train_tc.get(name, 0) + long_tc.get(name, 0)
-            + sp[name]["tc"],
+            + sp[name]["tc"] + moe_l[name]["total"],
             "cuda_core_launches": sp[name]["cuda_core"],
             "f32_route_at_hop_shape": hop_routes[name],
             "max_abs_err": max(e[name] for e in bwd_errs), **bwd[name],

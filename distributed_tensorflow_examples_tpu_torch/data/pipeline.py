@@ -65,8 +65,10 @@ class InMemoryPipeline:
         self.n = next(iter(lengths.values()))
         if not 0 < batch_size <= self.n:
             raise ValueError(f"batch_size {batch_size} must be in [1, {self.n}]")
-        self.pidx = collectives.axis_index() if process_index is None else process_index
-        self.pcount = collectives.axis_size() if process_count is None else process_count
+        self.pidx = (collectives.axis_index(sharding.ROWS) if process_index is None
+                     else process_index)
+        self.pcount = (collectives.axis_size(sharding.ROWS) if process_count is None
+                       else process_count)
         if batch_size % self.pcount:
             raise ValueError(f"global batch {batch_size} not divisible by {self.pcount} ranks")
         self.batch_size = batch_size
@@ -101,10 +103,10 @@ def rank_batches(make, microbatches: int = 1, rank: int | None = None,
     rank of the data axis reads; under ``microbatches`` > 1 on several
     ranks, this rank's share of each microbatch of the global batch (every
     rank's ``make(q)`` laid out rank 0's first), which each rank assembles
-    from the deterministic streams alone.  ``rank`` of ``size`` data ranks
-    (default: the calling thread's data axis)."""
-    size = collectives.axis_size() if size is None else size
-    rank = collectives.axis_index() if rank is None else rank
+    from the deterministic streams alone.  ``rank`` of ``size`` row shards
+    (default: the calling thread's, data x expert: ``sharding.ROWS``)."""
+    size = collectives.axis_size(sharding.ROWS) if size is None else size
+    rank = collectives.axis_index(sharding.ROWS) if rank is None else rank
     if microbatches <= 1 or size == 1:
         yield from make(rank)
         return

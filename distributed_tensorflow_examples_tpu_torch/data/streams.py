@@ -19,7 +19,7 @@ eval split (one chunk in RAM) so test accuracy measures the streamed
 distribution; a single-shard directory reuses it for eval with an explicit
 memorization warning.
 
-Ranks of the data axis.  The in-memory branch gives each rank its rows of
+Ranks of the row shards (data x expert).  The in-memory branch gives each rank its rows of
 the JAX one-process global batch (``InMemoryPipeline``).  A streamed source
 gives rank ``r`` of ``N`` the JAX package's own per-worker split instead,
 ``train_iter(worker=r, n_workers=N)`` at the local batch ``batch_size / N``
@@ -39,6 +39,7 @@ from typing import Callable, Iterator
 import numpy as np
 
 from ..parallel import collectives
+from ..parallel.sharding import ROWS
 from . import datasets, filestream, native_loader
 from .pipeline import InMemoryPipeline
 
@@ -121,14 +122,19 @@ def train_iter(
     worker w streams a disjoint shard subset (native) / row stride (stream)
     / its own claims (dsvc) / its own sample stream (memory), each with a
     worker-distinct seed.  Without ``worker``, ``batch_size`` is the global
-    batch of the data axis (``mesh``'s, default the calling thread's): an
-    in-memory source yields this rank's rows of the JAX pipeline's batch
+    batch of the row shards (data x expert; ``mesh``'s, default the calling
+    thread's): an in-memory source yields this rank's rows of the JAX
+    pipeline's batch
     (under ``microbatches`` > 1 on several ranks, its share of each
     microbatch); a streamed source yields rank r of N the split of worker
     r of N at ``batch_size / N`` rows (module docstring)."""
     if worker is None:
-        index, count = ((collectives.axis_index(), collectives.axis_size()) if mesh is None
-                        else (mesh.data_index, mesh.shape["data"]))
+        if mesh is None:
+            index, count = collectives.axis_index(ROWS), collectives.axis_size(ROWS)
+        else:  # the row shards, data major; an expert axis only where it exists
+            x = mesh.shape.get("expert", 1)
+            index = mesh.data_index * x + (mesh.index("expert") if x > 1 else 0)
+            count = mesh.shape["data"] * x
         if src.kind == "memory":
             return iter(InMemoryPipeline(src.ds.train, batch_size=batch_size, seed=seed,
                                          process_index=index, process_count=count,

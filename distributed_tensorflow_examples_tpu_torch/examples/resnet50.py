@@ -23,7 +23,7 @@ every BatchNorm through the statistics kernels (``ops/bn.py``).
 TF-1 cluster flags are accepted and mapped (``utils/flags.py``): the JAX
 CLI has no PS branch, so ``--ps_emulation`` and ``--sync_replicas=false``
 train as usual, and so does a cross-process PS task role, as there; ghost-batch BN
-(``--bn_ghost_slices``) waits for the port's item A8b-2.  ``--zero_opt``
+(``--bn_ghost_slices``) waits for the port's item A8b-2b.  ``--zero_opt``
 keeps each data rank's block of the momentum of every leaf of 65536 elements or more (ZeRO-1,
 ``train/state.py``), with the replicated run's numbers.
 
@@ -62,7 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("--momentum", type=float, default=0.9, help="SGD momentum.")
     add("--synthetic_examples", type=int, default=2048, help="Synthetic train-set size.")
     add("--bn_ghost_slices", type=int, default=0,
-        help=">0 scopes BN statistics to slice-local groups (waits for A8b-2).")
+        help=">0 scopes BN statistics to slice-local groups (waits for A8b-2b).")
     flags.add_legacy_cluster_flags(p)
     return p
 
@@ -99,7 +99,7 @@ def run_training(args, *, loss_fn_factory=None, extra_hooks=()) -> Experiment:
     ``resnet.loss_fn(cfg)``.  Returns the finished Experiment, with its
     data as ``exp.source`` and the eval's metrics as ``exp.test_metrics``."""
     cfg = config_from_args(args)
-    rules = resnet.sharding_rules(cfg)  # ghost-batch BN raises here (A8b-2)
+    rules = resnet.sharding_rules(cfg)  # ghost-batch BN raises here (A8b-2b)
     tenant = getattr(args, "tenant", "default") or "default"
     src = streams.resolve_image_source(
         args.data_dir,

@@ -23,17 +23,25 @@ row-wise logits predict path::
         --serve_hosts=127.0.0.1:7200 --vocab_size=32000 --dim=1024 \\
         --n_layers=12 --n_heads=8 --seq_len=2048
 
-Training takes the JAX CLI's ``--mesh``: ``data`` x ``seq`` x ``model``
-over the ranks of a ``TF_CONFIG`` world (one process a rank), laid out by
-``transformer.sharding_rules`` (Megatron blocks and vocab-parallel tables
-over ``model``), each rank on its rows of the global batch (its data
-index's block of the corpus) and its slice of the sequence (its seq
-index's columns), attention over a seq axis as the ring (the flash
-kernels per hop on the card) or, with ``--attention=ulysses``, as
-all-to-all sequence parallelism::
+Training takes the JAX CLI's ``--mesh``: ``data`` x ``expert`` x ``seq``
+x ``model`` over the ranks of a ``TF_CONFIG`` world (one process a rank),
+laid out by ``transformer.sharding_rules`` (Megatron blocks and
+vocab-parallel tables over ``model``, experts over ``expert``), each rank
+on its rows of the global batch (its data x expert row shard's block of
+the corpus) and its slice of the sequence (its seq index's columns),
+attention over a seq axis as the ring (the flash kernels per hop on the
+card) or, with ``--attention=ulysses``, as all-to-all sequence
+parallelism::
 
     python -m distributed_tensorflow_examples_tpu_torch.examples.transformer_lm \\
         --mesh=data=1,seq=2,model=2 --batch_size=2 --seq_len=8192 ...
+
+``--moe_experts=E`` swaps every block's MLP for a mixture of experts
+(top-2 GShard routing, ``--moe_capacity_factor``, ``--moe_group_size``),
+whose experts shard over ``expert``::
+
+    python -m distributed_tensorflow_examples_tpu_torch.examples.transformer_lm \\
+        --moe_experts=8 --mesh=data=1,expert=2 --batch_size=4 --seq_len=2048 ...
 
 Both run on the card unless ``--device=cpu``.  The reference's TF-1
 cluster flags are accepted and mapped (``utils/flags.py``):
@@ -46,12 +54,13 @@ whatever ``--ps_hosts`` says, at the replica's defaults (32 rows, 5 ms,
 a queue of 128, no queue deadline), which the ``--serve_*`` flags do not
 change, as in JAX.  ``--sample_tokens=N`` greedily
 decodes N tokens after training from the corpus's first 16 tokens and
-logs them.  On a world of N ranks (``TF_CONFIG``) each rank trains on a
-contiguous block of the corpus with ``--batch_size / N`` rows, as the
-JAX CLI shards it over hosts, and, as there, a multi-process run skips
-the registry publish.  Pipeline stages, mixture-of-experts blocks and
-``--sample_tokens`` under a ``seq`` or ``model`` axis (decode under a
-mesh) wait for the port's item A8b-2.
+logs them (on a data x expert mesh, as in JAX, the prompt tiled once per
+row shard and decoded sharded).  On a world of N ranks (``TF_CONFIG``)
+each row shard trains on a contiguous block of the corpus with
+``--batch_size`` / (data x expert) rows, as the JAX CLI shards it over
+hosts, and, as there, a multi-process run skips the registry publish.
+Pipeline stages and ``--sample_tokens`` under a ``seq`` or ``model`` axis
+(decode under a mesh) wait for the port's item A8b-2b.
 """
 
 from __future__ import annotations
@@ -91,9 +100,14 @@ def build_parser() -> argparse.ArgumentParser:
     add("--sample_tokens", type=int, default=0,
         help=">0 greedy-decodes this many tokens after training.")
     add("--pipeline_stages", type=int, default=1,
-        help=">1 waits for the port's pipeline axis (A8b-2).")
+        help=">1 waits for the port's pipeline axis (A8b-2b).")
     add("--moe_experts", type=int, default=0,
-        help=">0 waits for the port's expert axis (A8b-2).")
+        help='>0 swaps every block\'s MLP for a mixture-of-experts FFN sharded over the '
+             'mesh "expert" axis (pass e.g. --mesh "data=2,expert=4"); top-2 routing, '
+             "Switch aux loss.")
+    add("--moe_capacity_factor", type=float, default=1.25, help="Expert capacity factor.")
+    add("--moe_group_size", type=int, default=1024,
+        help="GShard routing-group size G (capacity is per group).")
     # Model.
     add("--vocab_size", type=int, default=8192)
     add("--dim", type=int, default=256)
@@ -114,7 +128,8 @@ def config_from_args(args) -> transformer.Config:
         vocab_size=args.vocab_size, dim=args.dim, n_layers=args.n_layers,
         n_heads=args.n_heads, max_seq_len=args.seq_len,
         attention=args.attention, pipeline_stages=args.pipeline_stages,
-        moe_experts=args.moe_experts, remat=args.remat,
+        moe_experts=args.moe_experts, moe_capacity_factor=args.moe_capacity_factor,
+        moe_group_size=args.moe_group_size, remat=args.remat,
         loss_chunks=args.loss_chunks,
     )
 
@@ -180,12 +195,12 @@ def run_training(args, *, extra_hooks=()) -> Experiment:
     line.  Returns the finished Experiment (``exp.published_version``
     when ``--registry_dir`` was given)."""
     cfg = config_from_args(args)
-    transformer.param_shapes(cfg)  # pipeline stages / MoE raise here (A8b-2)
+    transformer.param_shapes(cfg)  # pipeline stages raise here (A8b-2b)
     spec = MeshSpec.parse(args.mesh)
     if args.sample_tokens > 0 and (spec.seq != 1 or spec.model != 1):
         raise NotImplementedError(
             "--sample_tokens under a 'seq' or 'model' mesh axis (decode under a mesh) "
-            "waits for the port's item A8b-2"
+            "waits for the port's item A8b-2b"
         )
     if args.sample_tokens > 0 and PROMPT_LEN + args.sample_tokens > args.seq_len:
         # Refused before training: generate() would raise after the whole
@@ -211,20 +226,20 @@ def run_training(args, *, extra_hooks=()) -> Experiment:
         rules=transformer.sharding_rules(cfg),
     )
     mesh = exp.mesh
-    data = mesh.shape["data"]
+    shards = mesh.row_shards
 
     def rank_stream(rank):
-        block, rows = sharding.stream_block(ids, args.batch_size, rank, data)
+        block, rows = sharding.stream_block(ids, args.batch_size, rank, shards)
         return datasets.lm_batches(block, batch_size=rows, seq_len=args.seq_len)
 
-    batches = pipeline.rank_batches(rank_stream, args.grad_accum, mesh.data_index, data)
+    batches = pipeline.rank_batches(rank_stream, args.grad_accum, mesh.row_index, shards)
     exp.run(pipeline.seq_columns(batches, mesh.seq_index, mesh.shape.get("seq", 1)))
     if args.sample_tokens > 0:
-        # KV-cache greedy decode from a corpus prompt.
-        out = transformer.generate(
-            cfg, exp.state.params, np.asarray(ids[:PROMPT_LEN], np.int32)[None],
-            max_new_tokens=args.sample_tokens,
-        )
+        # KV-cache greedy decode from a corpus prompt, its rows covering the
+        # row shards (data x expert), decoded on the training mesh.
+        prompt = np.tile(np.asarray(ids[:PROMPT_LEN], np.int32)[None], (shards, 1))
+        out = transformer.generate(cfg, exp.state.params, prompt,
+                                   max_new_tokens=args.sample_tokens, mesh=mesh)
         logging.info("sampled token ids: %s", out[0, PROMPT_LEN:].tolist())
     if args.registry_dir:
         exp.published_version = _publish_to_registry(args, exp)

@@ -207,11 +207,11 @@ def batchnorm(
     (the reverse of ``nn.BatchNorm2d``'s convention, and with the biased
     variance).  ``relu`` applies ReLU inside the layer; on the fused path
     the backward then recomputes the mask in the kernel.  Ghost-batch
-    training waits for the port's item A8b-2."""
+    training waits for the port's item A8b-2b."""
     if train and ghost_slices > 0:
         raise NotImplementedError(
             "ghost-batch BN training (bn_ghost_slices > 0, statistics scoped to "
-            "a 'slice' mesh axis) waits for the port's item A8b-2"
+            "a 'slice' mesh axis) waits for the port's item A8b-2b"
         )
     if train:
         if mesh is not None:

@@ -14,7 +14,7 @@ between the packages as they are.
 fused statistics path, the B6/B7 kernels on the card (``ops/bn.py``;
 SyncBN when its ``data`` axis is larger than 1), as the JAX ``mesh=``
 does; without it BatchNorm is plain torch.  Ghost-batch BN training
-(``bn_ghost_slices > 0``) waits for the port's item A8b-2.
+(``bn_ghost_slices > 0``) waits for the port's item A8b-2b.
 """
 
 from __future__ import annotations
@@ -213,10 +213,10 @@ def loss_fn(cfg: Config, *, l2: float = 1e-4, mesh=None):
 def sharding_rules(cfg: Config) -> tuple:
     """No rules without ghost BN (every leaf replicated; ``--zero_opt``
     shards the slots); ghost-batch BN's per-slice stats, sharded over a
-    'slice' axis, wait for the port's item A8b-2."""
+    'slice' axis, wait for the port's item A8b-2b."""
     if cfg.bn_ghost_slices > 0:
         raise NotImplementedError(
             "ghost-batch BN (bn_ghost_slices > 0) shards its running stats over a "
-            "'slice' mesh axis: the port's item A8b-2"
+            "'slice' mesh axis: the port's item A8b-2b"
         )
     return ()

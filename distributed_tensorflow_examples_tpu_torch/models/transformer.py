@@ -37,13 +37,22 @@ runs its block of the step, laid out by :func:`sharding_rules`:
   ``layers.vocab_parallel_cross_entropy``); :func:`apply` then returns
   this rank's vocab block of the logits.
 
+- ``expert`` (``moe_experts > 0``): every block's MLP is a mixture of
+  experts (``ops/moe.py``, JAX ``_moe_tail``), the batch's rows split over
+  data x expert (:func:`batch_spec`, JAX ``Config.data_axes``), each
+  rank holding its ``E/X`` experts (``ops.moe.SHARDING_RULES``, which
+  compose with ``model`` as the Megatron MLP does); the tokens cross the
+  expert group by all-to-all, and :func:`loss_fn` adds
+  ``moe_aux_weight`` times the layers' Switch loss (``metrics["moe_aux"]``).
+
 A block runs its collectives only where its leaves are blocks: whole
 leaves (a one-rank step beside a model mesh) run none.  KV-cache decode
 (:func:`decode_step`, the per-row-position :func:`decode_step_batch` a
 serving replica steps, :func:`generate`) keeps its attention in plain
-PyTorch, as the reference keeps it outside Pallas, on whole parameters.
-Pipeline stages, mixture-of-experts blocks and decode under a mesh come
-with the port's item A8b-2.
+PyTorch, as the reference keeps it outside Pallas; MoE blocks decode
+through the training layer, on one device or on a data x expert mesh.
+Pipeline stages and decode under a ``seq`` or ``model`` mesh come with
+the port's item A8b-2b.
 """
 
 from __future__ import annotations
@@ -59,7 +68,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import attention as attn_ops
 from ..ops import flash_attention as flash_ops
-from ..parallel import collectives
+from ..ops import moe as moe_ops
+from ..parallel import collectives, sharding
 from ..parallel.partitioner import PartitionSpec as P
 from ..utils import device as device_lib
 from ..utils import threefry
@@ -70,9 +80,9 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """The JAX ``Config``: the same fields and defaults (the pipeline and
-    MoE fields are carried so a config reads the same in both packages;
-    see the module docstring for what the port runs)."""
+    """The JAX ``Config``: the same fields and defaults (the pipeline
+    fields are carried so a config reads the same in both packages; see
+    the module docstring for what the port runs)."""
 
     vocab_size: int = 32000
     dim: int = 512
@@ -106,18 +116,31 @@ class Config:
     def head_dim(self) -> int:
         return self.dim // self.n_heads
 
+    @property
+    def data_axes(self) -> tuple:
+        """The mesh axes the batch's rows shard over: ``("data", "expert")``
+        for a mixture of experts (tokens leave their rank for their
+        experts' ranks), else ``("data",)``."""
+        return ("data", "expert") if self.moe_experts > 0 else ("data",)
+
 
 def _check_supported(cfg: Config) -> None:
+    if cfg.moe_experts > 0 and cfg.pipeline_stages > 1:
+        raise ValueError("moe_experts and pipeline_stages>1 do not compose (v1)")
     if cfg.pipeline_stages > 1:
         raise NotImplementedError(
-            "pipeline_stages > 1 waits for the port's model-parallel slice A8b-2 "
+            "pipeline_stages > 1 waits for the port's model-parallel slice A8b-2b "
             "(the pipeline axis)"
         )
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "moe_experts > 0 waits for the port's model-parallel slice A8b-2 "
-            "(the expert axis)"
-        )
+
+
+def _moe_cfg(cfg: Config) -> moe_ops.MoEConfig:
+    return moe_ops.MoEConfig(
+        n_experts=cfg.moe_experts,
+        top_k=cfg.moe_top_k,
+        capacity_factor=cfg.moe_capacity_factor,
+        group_size=cfg.moe_group_size,
+    )
 
 
 def param_shapes(cfg: Config) -> dict:
@@ -132,15 +155,21 @@ def param_shapes(cfg: Config) -> dict:
         "ln_f": dict(ln),
         "head": {"kernel": (d, cfg.vocab_size)},
     }
+    e = cfg.moe_experts
     for i in range(cfg.n_layers):
-        shapes[f"block_{i}"] = {
+        b = {
             "ln1": dict(ln),
             "qkv": {"kernel": (d, 3 * d)},
             "proj": {"kernel": (d, d)},
             "ln2": dict(ln),
-            "mlp_in": {"kernel": (d, h), "bias": (h,)},
-            "mlp_out": {"kernel": (h, d), "bias": (d,)},
         }
+        if e > 0:
+            b["moe"] = {"router": {"kernel": (d, e)}, "w1": (e, d, h), "b1": (e, h),
+                        "w2": (e, h, d), "b2": (e, d)}
+        else:
+            b["mlp_in"] = {"kernel": (d, h), "bias": (h,)}
+            b["mlp_out"] = {"kernel": (h, d), "bias": (d,)}
+        shapes[f"block_{i}"] = b
     return shapes
 
 
@@ -148,9 +177,10 @@ def init_numpy(cfg: Config, seed: int, *, device=None) -> dict:
     """The JAX ``init(cfg, jax.random.key(seed))`` as a tree of float32
     numpy arrays: the same keys (``split(key(seed), 4n + 3)``: the
     embedding, the 0.02-normal positions, the head, then four per block
-    for qkv, proj, mlp_in and mlp_out), the same initialisers
-    (``layers``), so uniform leaves equal JAX's bit for bit and the normal
-    positions within a few float32 ulps.  Drawn on ``device``
+    for qkv, proj, mlp_in and mlp_out, or for qkv, proj and the experts
+    from the third, ``moe.init``), the same initialisers (``layers``), so
+    uniform leaves equal JAX's bit for bit and the normal positions within
+    a few float32 ulps.  Drawn on ``device``
     (``utils.device.for_drawing``: the card when there is one)."""
     _check_supported(cfg)
     dev = device_lib.for_drawing(device)
@@ -169,14 +199,18 @@ def init_numpy(cfg: Config, seed: int, *, device=None) -> dict:
     }
     for i in range(cfg.n_layers):
         r = rngs[3 + 4 * i : 3 + 4 * (i + 1)]
-        params[f"block_{i}"] = {
+        b = {
             "ln1": ln(),
             "qkv": layers.dense_init(r[0], d, 3 * d, use_bias=False, device=dev),
             "proj": layers.dense_init(r[1], d, d, use_bias=False, device=dev),
             "ln2": ln(),
-            "mlp_in": layers.dense_init(r[2], d, h, device=dev),
-            "mlp_out": layers.dense_init(r[3], h, d, device=dev),
         }
+        if cfg.moe_experts > 0:
+            b["moe"] = moe_ops.init(r[2], d, h, _moe_cfg(cfg), device=dev)
+        else:
+            b["mlp_in"] = layers.dense_init(r[2], d, h, device=dev)
+            b["mlp_out"] = layers.dense_init(r[3], h, d, device=dev)
+        params[f"block_{i}"] = b
     return layers.as_numpy(params)
 
 
@@ -229,8 +263,10 @@ def _row_parallel(p, y, dtype):
 
 
 def _block(cfg: Config, p, h, mesh=None):
-    """One pre-norm decoder block: attention + dense MLP, Megatron
-    tensor-parallel where the kernels are ``model`` blocks."""
+    """One pre-norm decoder block: attention + (dense | MoE) FFN, Megatron
+    tensor-parallel where the kernels are ``model`` blocks.  Returns
+    ``(h, aux)``, ``aux`` the MoE layer's load-balance loss (None for the
+    dense MLP)."""
     B, T = h.shape[0], h.shape[1]
     tp = _sharded(p, "qkv", 3 * cfg.dim)
     y = _layernorm(p["ln1"], h)
@@ -248,7 +284,19 @@ def _block(cfg: Config, p, h, mesh=None):
         h = h + _row_parallel(p["proj"], o, cfg.dtype)
     else:
         h = h + layers.dense(p["proj"], o, dtype=cfg.dtype)
-    return _mlp_tail(cfg, p, h)
+    return _ffn_tail(cfg, p, h, mesh)
+
+
+def _ffn_tail(cfg: Config, p, h, mesh):
+    """(h after the block's FFN, its aux loss): the MoE layer (JAX
+    ``_moe_tail``: ln2, the experts, the residual) or the dense MLP (aux
+    None)."""
+    if "moe" not in p:
+        return _mlp_tail(cfg, p, h), None
+    y = _layernorm(p["ln2"], h)
+    y, aux = moe_ops.apply(p["moe"], y, _moe_cfg(cfg), dtype=cfg.dtype, mesh=mesh,
+                           hidden=cfg.dim * cfg.mlp_ratio)
+    return h + y, aux
 
 
 def _mlp_tail(cfg: Config, p, h):
@@ -266,20 +314,25 @@ def _mlp_tail(cfg: Config, p, h):
 
 
 def _trunk(cfg: Config, params, x, mesh=None):
-    """x [B, T] (this rank's rows and sequence slice under a mesh) -> h
-    [B, T, D], up to and including ln_f.  Positions start at the slice's
-    global offset, ``seq_index * T``."""
+    """x [B, T] (this rank's rows and sequence slice under a mesh) -> (h
+    [B, T, D], up to and including ln_f; the blocks' summed aux loss).
+    Positions start at the slice's global offset, ``seq_index * T``."""
     T = x.shape[1]
     off = collectives.axis_index("seq") * T if mesh is not None else 0
     h = layers.embedding_lookup(params["emb"], x, dtype=cfg.dtype, vocab_size=cfg.vocab_size)
     h = h + params["pos"]["table"][off:off + T].to(cfg.dtype)[None]
+    aux_total = None
     for i in range(cfg.n_layers):
         block_fn = functools.partial(_block, cfg, params[f"block_{i}"], mesh=mesh)
         if cfg.remat and torch.is_grad_enabled():
-            h = checkpoint(_under_axes(mesh, block_fn), h, use_reentrant=False)
+            h, aux = checkpoint(_under_axes(mesh, block_fn), h, use_reentrant=False)
         else:
-            h = block_fn(h)
-    return _layernorm(params["ln_f"], h)
+            h, aux = block_fn(h)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    if aux_total is None:  # a dense model's: 0, as in JAX
+        aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _layernorm(params["ln_f"], h), aux_total
 
 
 def _under_axes(mesh, fn):
@@ -311,12 +364,15 @@ def _ce(cfg: Config, logits, y):
     return layers.softmax_cross_entropy(logits, y.reshape(-1))
 
 
-def apply(cfg: Config, params, x, *, mesh=None):
-    """x: [B, T] integer ids -> logits [B, T, V] in the compute dtype.
-    Under a ``mesh``: this rank's rows and sequence slice, and its vocab
-    block of the logits where the head is column-sharded."""
+def apply(cfg: Config, params, x, *, mesh=None, return_aux=False):
+    """x: [B, T] integer ids -> logits [B, T, V] in the compute dtype (or
+    ``(logits, moe_aux)`` with ``return_aux``).  Under a ``mesh``: this
+    rank's rows and sequence slice, and its vocab block of the logits
+    where the head is column-sharded."""
     _check_supported(cfg)
-    return _head(cfg, params, _trunk(cfg, params, x, mesh))
+    h, aux = _trunk(cfg, params, x, mesh)
+    logits = _head(cfg, params, h)
+    return (logits, aux) if return_aux else logits
 
 
 # ----------------------------------------------------------------------------
@@ -338,7 +394,7 @@ def init_cache(cfg: Config, batch: int, max_len: int, *, device="cpu") -> dict:
     }
 
 
-def _block_decode(cfg: Config, p, h, layer_cache, pos, visible):
+def _block_decode(cfg: Config, p, h, layer_cache, pos, visible, mesh=None):
     """One block for ONE new token per row: h [B, 1, D].  ``pos`` is one
     position shared by every row (an int: the reference's
     ``_block_decode``) or a [B] tensor of a position per row (its
@@ -349,12 +405,15 @@ def _block_decode(cfg: Config, p, h, layer_cache, pos, visible):
     positions (the values the reference's ``dynamic_update_slice`` and
     one-hot ``where`` write), and the causal mask bounds each row at its
     own position, so a row reads only cache entries its session wrote:
-    a freed slot needs no reset, and a row's numbers do not depend on the
-    other rows.  Scores come from the compute-dtype operands in float32
-    (a product of two bf16 values is exact there, as under the
+    a freed slot needs no reset, and a row's attention does not depend on
+    the other rows.  Scores come from the compute-dtype operands in
+    float32 (a product of two bf16 values is exact there, as under the
     reference's ``preferred_element_type=f32``), then the mask, the
     float32 softmax, and the probabilities cast to the compute dtype for
-    the product with v."""
+    the product with v.  An MoE block routes its rows through the training
+    layer (``ops/moe.py``; ``mesh``: this rank's rows of a data x expert
+    mesh), its aux loss unused; the rows share the experts' capacity, as
+    in JAX, which drops none while a group holds no more tokens than C."""
     B = h.shape[0]
     y = _layernorm(p["ln1"], h)
     qkv = layers.dense(p["qkv"], y, dtype=cfg.dtype)
@@ -374,7 +433,7 @@ def _block_decode(cfg: Config, p, h, layer_cache, pos, visible):
     o = torch.matmul(w, cv)
     o = o.movedim(1, 2).reshape(B, 1, cfg.dim)
     h = h + layers.dense(p["proj"], o, dtype=cfg.dtype)
-    return _mlp_tail(cfg, p, h)
+    return _ffn_tail(cfg, p, h, mesh)[0]
 
 
 def _visible(cache_len: int, pos, device) -> torch.Tensor:
@@ -387,33 +446,47 @@ def _visible(cache_len: int, pos, device) -> torch.Tensor:
     return (t_idx[None, :] <= pos[:, None])[:, None, None, :]
 
 
-def _decode(cfg: Config, params, cache, h, pos):
+def _decode(cfg: Config, params, cache, h, pos, mesh):
     visible = _visible(cache["block_0"]["k"].shape[2], pos, h.device)
     for i in range(cfg.n_layers):
-        h = _block_decode(cfg, params[f"block_{i}"], h, cache[f"block_{i}"], pos, visible)
+        h = _block_decode(cfg, params[f"block_{i}"], h, cache[f"block_{i}"], pos, visible,
+                          mesh)
     h = _layernorm(params["ln_f"], h)
     return layers.dense(params["head"], h, dtype=cfg.dtype)[:, 0], cache
 
 
-def decode_step(cfg: Config, params, cache, token, pos):
+def _check_decode_mesh(mesh) -> None:
+    """Decode runs on one device or on a data x expert mesh; a ``seq`` or
+    ``model`` axis (JAX ``_decode_constrain``) waits for A8b-2b."""
+    if mesh is not None and (mesh.shape.get("seq", 1) > 1 or mesh.shape.get("model", 1) > 1):
+        raise NotImplementedError(
+            f"decode under mesh {mesh.shape}: a 'seq' or 'model' axis waits for the port's "
+            "item A8b-2b (decode under a mesh)")
+
+
+def decode_step(cfg: Config, params, cache, token, pos, *, mesh=None):
     """token [B] at the one position ``pos`` -> (logits [B, V] in the
-    compute dtype, cache), the cache updated in place."""
+    compute dtype, cache), the cache updated in place.  ``mesh``: a data x
+    expert mesh, of which ``token`` and the cache are this rank's rows
+    (run under its axes)."""
     _check_supported(cfg)
+    _check_decode_mesh(mesh)
     pos = int(pos)
     h = layers.embedding_lookup(params["emb"], token[:, None], dtype=cfg.dtype)
     h = h + params["pos"]["table"][pos : pos + 1].to(cfg.dtype)[None]
-    return _decode(cfg, params, cache, h, pos)
+    return _decode(cfg, params, cache, h, pos, mesh)
 
 
-def decode_step_batch(cfg: Config, params, cache, token, pos):
+def decode_step_batch(cfg: Config, params, cache, token, pos, *, mesh=None):
     """token [B], pos [B] (a position PER ROW) -> (logits [B, V], cache):
     the sequence-slot step, in which row b advances its own session at
     ``pos[b]``.  Row for row the same numbers as :func:`decode_step`."""
     _check_supported(cfg)
+    _check_decode_mesh(mesh)
     pos = pos.long()
     h = layers.embedding_lookup(params["emb"], token[:, None], dtype=cfg.dtype)
     h = h + params["pos"]["table"][pos].to(cfg.dtype)[:, None]
-    return _decode(cfg, params, cache, h, pos)
+    return _decode(cfg, params, cache, h, pos, mesh)
 
 
 def serve_decode_fns(cfg: Config):
@@ -433,7 +506,7 @@ def serve_decode_fns(cfg: Config):
 
 
 def generate(cfg: Config, params, prompt, *, max_new_tokens: int,
-             temperature: float = 0.0, rng=None) -> torch.Tensor:
+             temperature: float = 0.0, rng=None, mesh=None) -> torch.Tensor:
     """Autoregressive generation: prompt [B, Tp] -> int32 [B, Tp +
     max_new_tokens] on the params' device.
 
@@ -443,25 +516,46 @@ def generate(cfg: Config, params, prompt, *, max_new_tokens: int,
     float32 logits / temperature.  The key (``rng``, a threefry key,
     ``threefry.key(0)`` by default) is split once per position, prompt
     positions included, as the reference's scan does, so the same key
-    samples the same tokens in both packages."""
+    samples the same tokens in both packages.  ``mesh`` (a data x expert
+    mesh over which ``params`` are laid out: JAX's sharded ``generate``):
+    each rank decodes its rows of the prompt, the experts' tokens cross
+    the expert group, and every rank returns the whole batch (a
+    temperature draw is over the whole batch's logits, as in JAX)."""
+    _check_decode_mesh(mesh)
     device = params["emb"]["table"].device
     prompt = torch.as_tensor(prompt, device=device).to(torch.int32)
-    B, Tp = prompt.shape
-    total = Tp + max_new_tokens
+    total = prompt.shape[1] + max_new_tokens
     if total > cfg.max_seq_len:
         raise ValueError(f"{total} tokens > max_seq_len={cfg.max_seq_len}")
+    if mesh is None:
+        return _generate(cfg, params, prompt, total, temperature, rng, None)
+    with mesh.axes():
+        rows = sharding.rank_rows(prompt.shape[0], mesh.row_index, mesh.row_shards)
+        out = _generate(cfg, params, prompt[rows], total, temperature, rng, mesh)
+        return collectives.all_gather(out, 0, axis_name="batch", tag="decode")
+
+
+def _generate(cfg: Config, params, prompt, total: int, temperature: float, rng, mesh):
+    B, Tp = prompt.shape
+    spread = mesh is not None and mesh.row_shards > 1
     rng = threefry.key(0) if rng is None else rng
     with torch.inference_mode():
-        cache = init_cache(cfg, B, total, device=device)
+        cache = init_cache(cfg, B, total, device=prompt.device)
         tok = prompt[:, 0]
         out = [tok]
         for pos in range(total - 1):
-            logits, cache = decode_step(cfg, params, cache, tok, pos)
+            logits, cache = decode_step(cfg, params, cache, tok, pos, mesh=mesh)
             rng, sub = threefry.split(rng)
             if pos + 1 < Tp:
                 tok = prompt[:, pos + 1]  # teacher-force the prompt
             elif temperature > 0:
-                tok = threefry.categorical(sub, logits.float() / temperature)
+                scaled = logits.float() / temperature
+                if spread:  # the draw over the whole batch, this rank's rows kept
+                    whole = collectives.all_gather(scaled, 0, axis_name="batch", tag="decode")
+                    tok = threefry.categorical(sub, whole)[
+                        sharding.rank_rows(whole.shape[0], mesh.row_index, mesh.row_shards)]
+                else:
+                    tok = threefry.categorical(sub, scaled)
             else:
                 tok = torch.argmax(logits, dim=-1)
             tok = tok.to(torch.int32)
@@ -497,34 +591,43 @@ def _chunked_ce(cfg: Config, params, h, y, mesh=None):
 
 def loss_fn(cfg: Config, *, mesh=None):
     """The train step's loss: ``f(params, model_state, batch, rng) ->
-    (loss, (model_state, metrics))`` with metrics ``loss`` and
-    ``perplexity`` (detached), as the JAX ``loss_fn`` builds it.  Under a
-    ``mesh`` the loss is this rank's token mean (the step averages it over
-    the data x seq ranks), and, as in JAX, ``loss_chunks`` falls back to
-    the dense path when the sequence is sharded."""
+    (loss, (model_state, metrics))`` with metrics ``loss`` (the
+    cross-entropy) and ``perplexity`` (detached), as the JAX ``loss_fn``
+    builds it; an MoE model's loss adds ``moe_aux_weight`` times the
+    blocks' aux loss, reported as ``moe_aux``.  Under a ``mesh`` the loss
+    is this rank's token mean (the step averages it over the data x expert
+    x seq ranks; the aux loss is the global batch's on every rank), and,
+    as in JAX, ``loss_chunks`` falls back to the dense path when the
+    sequence is sharded."""
     _check_supported(cfg)
     seq_sharded = mesh is not None and mesh.shape.get("seq", 1) > 1
 
     def f(params, model_state, batch, rng):
-        del rng  # the dense transformer draws no noise
+        del rng  # the transformer draws no noise
         x, y = batch["x"], batch["y"]
         T = x.shape[1]
         if cfg.loss_chunks > 1 and T % cfg.loss_chunks == 0 and not seq_sharded:
-            h = _trunk(cfg, params, x, mesh)
+            h, aux = _trunk(cfg, params, x, mesh)
             ce = _chunked_ce(cfg, params, h, y, mesh)
         else:
-            ce = _ce(cfg, apply(cfg, params, x, mesh=mesh), y)
+            logits, aux = apply(cfg, params, x, mesh=mesh, return_aux=True)
+            ce = _ce(cfg, logits, y)
         d = ce.detach()
-        return ce, (model_state, {"loss": d, "perplexity": torch.exp(d)})
+        metrics = {"loss": d, "perplexity": torch.exp(d)}
+        loss = ce
+        if cfg.moe_experts > 0:
+            loss = ce + cfg.moe_aux_weight * aux
+            metrics["moe_aux"] = aux.detach()
+        return loss, (model_state, metrics)
 
     return f
 
 
 def batch_spec(cfg: Config | None = None) -> P:
-    """[B, T] batches shard the batch over ``data`` and the sequence over
-    ``seq`` (JAX ``batch_spec``; the ``expert`` entry comes with MoE,
-    A8b-2)."""
-    return P("data", "seq")
+    """[B, T] batches shard the batch over ``data`` (``("data", "expert")``
+    for a mixture of experts, ``Config.data_axes``) and the sequence over
+    ``seq`` (JAX ``batch_spec``)."""
+    return P(cfg.data_axes if cfg is not None else "data", "seq")
 
 
 #: Megatron TP rules for ONE block (JAX ``_BLOCK_RULES``): qkv/mlp_in
@@ -551,7 +654,9 @@ SHARDING_RULES: tuple = (
 
 
 def sharding_rules(cfg: Config) -> tuple:
-    """The rule table of ``cfg`` (JAX ``sharding_rules``); pipeline stages
-    and MoE raise (A8b-2)."""
+    """The rule table of ``cfg`` (JAX ``sharding_rules``): the experts'
+    rules first for an MoE model; pipeline stages raise (A8b-2b)."""
     _check_supported(cfg)
+    if cfg.moe_experts > 0:
+        return moe_ops.SHARDING_RULES + SHARDING_RULES
     return SHARDING_RULES

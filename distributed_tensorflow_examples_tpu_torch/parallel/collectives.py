@@ -1,28 +1,34 @@
-"""Collectives over the mesh's ``data``, ``seq`` and ``model`` axes: the
-port of ``distributed_tensorflow_examples_tpu/parallel/collectives.py``
-and of the collectives that data, sequence and tensor parallelism use.
+"""Collectives over the mesh's ``data``, ``expert``, ``seq`` and ``model``
+axes: the port of
+``distributed_tensorflow_examples_tpu/parallel/collectives.py`` and of
+the collectives that data, expert, sequence and tensor parallelism use.
 
 In the JAX package GSPMD emits the all-reduces of a sharded step; here
 they are explicit.  Each axis is a group of ranks.  The world's rank r
-sits at ``(data, seq, model) = (r // (S M), r // M % S, r % M)``
-(``model`` innermost, the JAX ``DEFAULT_AXES`` order): an axis's group
-is the ranks that differ only in that axis's index.  :func:`mesh_groups`
+sits at ``(data, expert, seq, model)`` in the JAX ``DEFAULT_AXES`` order,
+``model`` innermost: ``r = ((d X + x) S + s) M + m``.  An axis's group is
+the ranks that differ only in that axis's index.  :func:`mesh_groups`
 makes them (``torch.distributed.new_group``, called by every rank in one
 order; an axis that spans the world is the world itself, and an axis of
-1 has no group), with the ``data`` x ``seq`` group over which the train
-step averages its gradients (a seq shard holds a slice of the global
-token mean).  ``build_mesh`` attaches them to the mesh.  Code reads an
-axis's group from the calling thread: ``build_train_step`` installs its
-mesh's groups for the whole step (:func:`use_group`), so the step,
-SyncBN, plain BN, the LSTM's dropout rows, the vocab-parallel layers
-and the sequence-parallel attention all read the same ones, and code
-outside a step (the input streams, the checkpoint, evaluation) runs
-under ``Mesh.axes()``, which installs them likewise.  With none
-installed the ``data`` axis is the world (the process group, or one
-rank) and the ``seq`` and ``model`` axes one rank.
+1 has no group), with two more: the ``batch`` group, the data x expert
+x seq ranks over which the train step averages its gradients (each holds
+its own tokens of the global batch: rows over data x expert, a slice of
+the sequence over seq), and the ``expert_grad`` group, the data x seq
+ranks of one expert index, over which an expert-sharded leaf's gradient
+sums.  ``build_mesh`` attaches them to the mesh.  Code reads an axis's
+group from the calling thread: ``build_train_step`` installs its mesh's
+groups for the whole step (:func:`use_group`), so the step, SyncBN,
+plain BN, the LSTM's dropout rows, the vocab-parallel layers, the
+sequence-parallel attention and the experts all read the same ones, and
+code outside a step (the input streams, the checkpoint, evaluation)
+runs under ``Mesh.axes()``, which installs them likewise.  With none
+installed the ``data`` and ``batch`` axes are the world (the process
+group, or one rank) and the others one rank.
 
 :func:`axis_size` and :func:`axis_index` are an axis's size and this
-rank's place on it; :func:`psum` sums a tensor over an axis with
+rank's place on it (over a tuple of axes, as ``lax.axis_index`` takes
+one, their product, the first axis major: ``("data", "expert")`` is the
+batch rows' shards); :func:`psum` sums a tensor over an axis with
 autograd (its backward sums the cotangent likewise, as JAX's ``psum``
 transposes); :func:`all_reduce_sum_` sums in place without autograd
 (gradients, SyncBN's partial sums).  The two operators a vocab-parallel
@@ -51,14 +57,16 @@ seconds a call holds the host: the whole exchange on gloo, the enqueue
 on nccl); the model axis's sums count under ``model_fwd`` (forward) and
 ``model_bwd`` (backward), the ring's permutations under ``seq_ring`` and
 the all-to-alls under ``seq_a2a`` (the bytes of the tiles sent to the
-other ranks: a rank's own tile stays where it is).  The ``slice``, ``pipe`` and
-``expert`` axes, and ``shard_map``, wait for the port's item A8b-2.
+other ranks: a rank's own tile stays where it is), and the experts'
+all-to-alls under ``expert_a2a``.  The ``slice`` and ``pipe`` axes, and
+``shard_map``, wait for the port's item A8b-2b.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import math
 import threading
 import time
 
@@ -166,20 +174,23 @@ def _pinned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _coords(rank: int, shape: tuple) -> tuple:
-    """(data, seq, model) of ``rank`` on a mesh of ``shape``, model
-    innermost."""
-    _d, s, m = shape
-    return rank // (s * m), rank // m % s, rank % m
+    """The coordinates of ``rank`` on a mesh of ``shape`` (the axes'
+    sizes, outermost first; the last axis innermost)."""
+    out = []
+    for n in reversed(shape):
+        out.append(rank % n)
+        rank //= n
+    return tuple(reversed(out))
 
 
 def _axis_group(rank: int, shape: tuple, varying: tuple, make):
     """Make, with ``make(ranks)``, every group of the ranks of a ``shape``
-    = (data, seq, model) mesh that share their indices outside the axes
-    ``varying`` (positions into ``shape``), in the order of their lowest
-    rank, each group's ranks ascending; return the one that holds
+    = (data, expert, seq, model) mesh that share their indices outside
+    the axes ``varying`` (positions into ``shape``), in the order of their
+    lowest rank, each group's ranks ascending; return the one that holds
     ``rank``."""
     groups: dict = {}
-    for r in range(shape[0] * shape[1] * shape[2]):
+    for r in range(math.prod(shape)):
         c = _coords(r, shape)
         groups.setdefault(tuple(x for a, x in enumerate(c) if a not in varying), []).append(r)
     made = {key: make(ranks) for key, ranks in groups.items()}
@@ -190,7 +201,10 @@ def _axis_group(rank: int, shape: tuple, varying: tuple, make):
 _PROCESS_GROUP = ProcessGroup()
 _local = threading.local()
 _UNSET = object()  # no group installed on this thread
-AXES = ("data", "seq", "model")
+AXES = ("data", "expert", "seq", "model")
+#: The axes, and the groups over more than one of them that code reads:
+#: ``batch`` (data x expert x seq) and ``expert_grad`` (data x seq).
+GROUPS = AXES + ("batch", "expert_grad")
 
 
 def world():
@@ -205,51 +219,60 @@ def world():
 
 
 def group(axis_name: str = "data"):
-    """The calling thread's group along ``axis_name``: the one installed by
-    :func:`use_group` (``None``: one rank), else the world for ``data``
-    and None for ``seq`` and ``model``."""
+    """The calling thread's group along ``axis_name`` (an axis or one of
+    ``GROUPS``): the one installed by :func:`use_group` (``None``: one
+    rank), else the world for ``data`` and ``batch`` and None for the
+    others."""
     installed = getattr(_local, "groups", _UNSET)
     if installed is not _UNSET:
         return installed.get(axis_name)
-    return world() if axis_name == "data" else None
+    return world() if axis_name in ("data", "batch") else None
 
 
-def mesh_groups(base, data: int, seq: int, model: int) -> tuple:
-    """(data group, seq group, model group, data x seq group) of a
-    ``data`` x ``seq`` x ``model`` mesh over the group ``base`` (None: one
-    rank).  The data group is ``base`` when it spans it (a world of one
-    too); any other axis of 1 has no group, an axis that spans ``base`` is
-    ``base`` itself, and the others are subgroups.  The data x seq group is
-    the data group when ``seq`` is 1 and the seq group when ``data`` is."""
+def mesh_groups(base, data: int, expert: int, seq: int, model: int) -> dict:
+    """The groups of a ``data`` x ``expert`` x ``seq`` x ``model`` mesh
+    over the group ``base`` (None: one rank), by name: one per axis, then
+    ``batch`` (data x expert x seq) and ``expert_grad`` (data x seq, None
+    without an expert axis).  The data group is ``base`` when it spans it
+    (a world of one too); any other group of one rank is None, a group
+    that spans ``base`` is ``base`` itself, and the others are
+    subgroups; the batch group is the data group when ``expert`` and
+    ``seq`` are 1, and a group over one axis of size > 1 is that axis's
+    group."""
     n = 1 if base is None else base.size
-    shape = (data, seq, model)
+    shape = (data, expert, seq, model)
+    made: dict = {}
 
-    def axis(varying: tuple, size: int):
+    def over(varying: tuple):
+        varying = tuple(a for a in varying if shape[a] > 1)
+        size = math.prod(shape[a] for a in varying)
         if size == 1:
             return None
         if size == n:
             return base
-        return base.axis_group(shape, varying)
+        if varying not in made:
+            made[varying] = base.axis_group(shape, varying)
+        return made[varying]
 
-    data_g = base if data == n else axis((0,), data)
-    seq_g, model_g = axis((1,), seq), axis((2,), model)
-    if seq == 1:
-        batch_g = data_g
-    elif data == 1:
-        batch_g = seq_g
-    else:
-        batch_g = axis((0, 1), data * seq)
-    return data_g, seq_g, model_g, batch_g
+    data_g = base if data == n else over((0,))
+    if data_g is not None and data > 1:
+        made[(0,)] = data_g
+    return {"data": data_g, "expert": over((1,)), "seq": over((2,)), "model": over((3,)),
+            "batch": data_g if expert == seq == 1 else over((0, 1, 2)),
+            "expert_grad": over((0, 2)) if expert > 1 else None}
 
 
 @contextlib.contextmanager
-def use_group(g, model=None, seq=None):
+def use_group(g, model=None, seq=None, expert=None, batch=_UNSET, expert_grad=None):
     """Run the block with ``g`` as this thread's ``data`` group, ``model``
-    as its ``model`` group and ``seq`` as its ``seq`` group (each with
-    ``size``, ``rank``, ``all_reduce_sum_``, ...; ``None`` for one
-    rank)."""
+    as its ``model`` group, ``seq`` as its ``seq`` group and ``expert`` as
+    its ``expert`` group (each with ``size``, ``rank``,
+    ``all_reduce_sum_``, ...; ``None`` for one rank); ``batch`` and
+    ``expert_grad`` (``GROUPS``) likewise, the batch group ``g`` unless
+    given."""
     old = getattr(_local, "groups", _UNSET)
-    _local.groups = {"data": g, "model": model, "seq": seq}
+    _local.groups = {"data": g, "model": model, "seq": seq, "expert": expert,
+                     "batch": g if batch is _UNSET else batch, "expert_grad": expert_grad}
     if old is not _UNSET and "world" in old:
         _local.groups["world"] = old["world"]
     try:
@@ -262,22 +285,32 @@ def use_group(g, model=None, seq=None):
 
 
 def _check_axis(axis_name: str) -> None:
-    if axis_name not in AXES:
+    if axis_name not in GROUPS:
         raise NotImplementedError(
-            f"collectives over mesh axis {axis_name!r} wait for the port's expert, "
-            "pipeline and slice axes (A8b-2); the port has 'data', 'seq' and 'model'"
+            f"collectives over mesh axis {axis_name!r} wait for the port's pipeline and "
+            "slice axes (A8b-2b); the port has 'data', 'expert', 'seq' and 'model'"
         )
 
 
-def axis_size(axis_name: str = "data") -> int:
-    """Ranks along the axis (1 without a group)."""
+def axis_size(axis_name="data") -> int:
+    """Ranks along the axis, or the product over a tuple of axes (1
+    without a group)."""
+    if isinstance(axis_name, tuple):
+        return math.prod(axis_size(a) for a in axis_name)
     _check_axis(axis_name)
     g = group(axis_name)
     return g.size if g is not None else 1
 
 
-def axis_index(axis_name: str = "data") -> int:
-    """This rank's position along the axis (0 without a group)."""
+def axis_index(axis_name="data") -> int:
+    """This rank's position along the axis (0 without a group); over a
+    tuple of axes, the position in their product, the first axis major
+    (JAX's ``lax.axis_index`` of a tuple)."""
+    if isinstance(axis_name, tuple):
+        index = 0
+        for a in axis_name:
+            index = index * axis_size(a) + axis_index(a)
+        return index
     _check_axis(axis_name)
     g = group(axis_name)
     return g.rank if g is not None else 0
@@ -325,6 +358,33 @@ def all_gather(t: torch.Tensor, dim: int, *, axis_name: str, tag: str = "other")
     parts = g.all_gather(t.detach())
     _count(tag, t, t0)
     return torch.cat(parts, dim=dim)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, dim, tag):
+        ctx.g, ctx.dim, ctx.tag, ctx.size = g, dim, tag, x.shape[dim]
+        t0 = time.perf_counter()
+        parts = g.all_gather(x.detach().contiguous())
+        _count(tag, x, t0)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, gy):
+        gx = gy.detach().contiguous().clone()
+        with use_group(ctx.g):
+            all_reduce_sum_(gx, tag=ctx.tag)
+        return gx.narrow(ctx.dim, ctx.g.rank * ctx.size, ctx.size), None, None, None
+
+
+def gather_blocks(t: torch.Tensor, dim: int, axis_name: str, *, tag: str = "other"):
+    """The ranks' ``t`` concatenated along ``dim`` in axis order,
+    differentiable: a rank's gradient is its block of the cotangents
+    summed over the axis (JAX's ``all_gather`` transposes to a
+    ``psum_scatter``).  ``t`` itself without a group."""
+    _check_axis(axis_name)
+    g = group(axis_name)
+    return t if g is None else _GatherBlocks.apply(t, g, dim, tag)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -524,7 +584,7 @@ class ThreadRanks:
         def body(rank):
             try:
                 me = _ThreadRank(self, rank)
-                _local.groups = {"world": me, "data": me, "model": None, "seq": None}
+                _local.groups = {"world": me, "data": me, "batch": me}
                 results[rank] = fn(rank)
             except BaseException as e:  # handed to the caller below
                 errors[rank] = e

@@ -1,27 +1,31 @@
 """The device mesh over the process world: the port of the ``data``,
-``seq`` and ``model`` axes of
+``expert``, ``seq`` and ``model`` axes of
 ``distributed_tensorflow_examples_tpu/parallel/mesh.py``.
 
 :class:`MeshSpec` parses the JAX package's ``--mesh`` text (``""``,
-``"data=2"``, ``"data=2,seq=2,model=2"``, ...) with the same axes and
-defaults, and :meth:`MeshSpec.resolved` is the JAX one: the single
-``-1`` axis takes the rest of the devices, and a product other than the
-device count raises ``ValueError``.  :func:`build_mesh` resolves the
-spec against the world (one process is one rank and one device,
+``"data=2"``, ``"data=2,expert=2"``, ``"data=2,seq=2,model=2"``, ...) with
+the same axes and defaults, and :meth:`MeshSpec.resolved` is the JAX one:
+the single ``-1`` axis takes the rest of the devices, and a product other
+than the device count raises ``ValueError``.  :func:`build_mesh` resolves
+the spec against the world (one process is one rank and one device,
 ``parallel/dist.py``) and returns a :class:`Mesh` whose ``shape`` is
-``{"data": D}``, with ``seq`` and ``model`` entries for those axes when
-they are larger than 1, and which carries one group per axis
+``{"data": D}``, with ``expert``, ``seq`` and ``model`` entries for those
+axes when they are larger than 1, and which carries one group per axis
 (``parallel/collectives.py``): ``group``, the data group (the ranks of
-this rank's seq and model indices), which SyncBN sums over;
-``seq_group`` (the ranks of its data and model indices), around which
-ring attention rotates k/v and Ulysses trades sequence for heads;
-``model_group`` (the ranks of its data and seq indices), over which the
-Megatron blocks and the vocab-parallel tables sum; and
-``batch_group``, the data x seq ranks of its model index, over
-which the train step averages the gradients and metrics.  Rank r sits at
-``(data, seq, model) = (r // (S M), r // M % S, r % M)``: ``model`` is
-the innermost axis, then ``seq``, as in JAX's ``DEFAULT_AXES``.  The
-``slice``, ``pipe`` and ``expert`` axes wait for the port's item A8b-2.
+this rank's other indices), which SyncBN sums over; ``expert_group``,
+over which the mixture-of-experts layers trade tokens for experts
+(``ops/moe.py``); ``seq_group``, around which ring attention rotates k/v
+and Ulysses trades sequence for heads; ``model_group``, over which the
+Megatron blocks and the vocab-parallel tables sum; ``batch_group``, the
+data x expert x seq ranks of its model index, over which the train step
+averages the gradients and metrics; and ``expert_grad_group``, the data x
+seq ranks of its expert and model indices, over which an expert-sharded
+leaf's gradient sums.  Rank r sits at ``(data, expert, seq, model)`` in
+JAX's ``DEFAULT_AXES`` order, ``model`` innermost: ``r = ((d X + x) S +
+s) M + m``.  The batch's rows split over data x expert jointly, data
+major (:attr:`Mesh.row_index`, :attr:`Mesh.row_shards`), as JAX's
+``P(("data", "expert"))`` places them.  The ``slice`` and ``pipe`` axes
+wait for the port's item A8b-2b.
 """
 
 from __future__ import annotations
@@ -93,16 +97,17 @@ class MeshSpec:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This rank's device, the mesh's axes and one group per axis:
-    ``shape`` maps ``data`` (and ``seq`` and ``model`` when they are larger
-    than 1) to its size, as ``jax.sharding.Mesh.shape`` reads for the
-    axes the port's models ask about; ``group`` is what the data axis
-    sums over, ``seq_group`` the seq axis and ``model_group`` the model
-    axis (``None``: one rank); ``batch_group`` the data x seq ranks of
-    this rank's model index, over which the train step averages the
-    gradients and metrics: each of them takes the gradient of its local
-    token mean (the data group without a seq axis, the seq group without a
-    data axis).  An axis other than its group's size raises
-    ``ValueError``."""
+    ``shape`` maps ``data`` (and ``expert``, ``seq`` and ``model`` when
+    they are larger than 1) to its size, as ``jax.sharding.Mesh.shape``
+    reads for the axes the port's models ask about; ``group`` is what the
+    data axis sums over, ``expert_group`` the expert axis, ``seq_group``
+    the seq axis and ``model_group`` the model axis (``None``: one rank);
+    ``batch_group`` the data x expert x seq ranks of this rank's model
+    index, over which the train step averages the gradients and metrics:
+    each of them takes the gradient of its local token mean (the data
+    group when the others are 1); ``expert_grad_group`` the data x seq
+    ranks of its expert and model indices (None without an expert axis).
+    A group other than its axes' size raises ``ValueError``."""
 
     device: torch.device
     shape: dict = dataclasses.field(default_factory=lambda: {AXIS_DATA: 1})
@@ -110,13 +115,17 @@ class Mesh:
     model_group: object = dataclasses.field(default=None, compare=False, repr=False)
     seq_group: object = dataclasses.field(default=None, compare=False, repr=False)
     batch_group: object = dataclasses.field(default=None, compare=False, repr=False)
+    expert_group: object = dataclasses.field(default=None, compare=False, repr=False)
+    expert_grad_group: object = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
-        batch = self.shape.get(AXIS_DATA, 1) * self.shape.get(AXIS_SEQ, 1)
-        for axis, g, n in ((AXIS_DATA, self.group, self.shape.get(AXIS_DATA, 1)),
-                           (AXIS_SEQ, self.seq_group, self.shape.get(AXIS_SEQ, 1)),
+        d, x, s = (self.shape.get(a, 1) for a in (AXIS_DATA, AXIS_EXPERT, AXIS_SEQ))
+        for axis, g, n in ((AXIS_DATA, self.group, d),
+                           (AXIS_EXPERT, self.expert_group, x),
+                           (AXIS_SEQ, self.seq_group, s),
                            (AXIS_MODEL, self.model_group, self.shape.get(AXIS_MODEL, 1)),
-                           ("data x seq", self.batch_group, batch)):
+                           ("data x expert x seq", self.batch_group, d * x * s),
+                           ("data x seq", self.expert_grad_group, d * s if x > 1 else 1)):
             have = 1 if g is None else g.size
             if n != have:
                 raise ValueError(
@@ -130,19 +139,36 @@ class Mesh:
 
     def index(self, axis: str) -> int:
         """This rank's position along ``axis`` (0 on an axis of 1)."""
-        g = {AXIS_DATA: self.group, AXIS_SEQ: self.seq_group,
+        g = {AXIS_DATA: self.group, AXIS_EXPERT: self.expert_group, AXIS_SEQ: self.seq_group,
              AXIS_MODEL: self.model_group}.get(axis)
         return 0 if g is None else g.rank
 
     def axes(self):
-        """A context in which the calling thread's ``data``, ``seq`` and
-        ``model`` axes are this mesh's (``collectives.use_group``): code
-        outside a step that reads an axis runs in it."""
-        return collectives.use_group(self.group, model=self.model_group, seq=self.seq_group)
+        """A context in which the calling thread's axes and groups are
+        this mesh's (``collectives.use_group``): code outside a step that
+        reads an axis runs in it."""
+        return collectives.use_group(
+            self.group, model=self.model_group, seq=self.seq_group, expert=self.expert_group,
+            batch=self.batch_group, expert_grad=self.expert_grad_group)
 
     @property
     def data_index(self) -> int:
         return self.index(AXIS_DATA)
+
+    @property
+    def expert_index(self) -> int:
+        return self.index(AXIS_EXPERT)
+
+    @property
+    def row_shards(self) -> int:
+        """The shards the batch's rows split over: data x expert."""
+        return self.shape.get(AXIS_DATA, 1) * self.shape.get(AXIS_EXPERT, 1)
+
+    @property
+    def row_index(self) -> int:
+        """This rank's shard of the batch's rows, data major (JAX's
+        ``P(("data", "expert"))``)."""
+        return self.data_index * self.shape.get(AXIS_EXPERT, 1) + self.expert_index
 
     @property
     def seq_index(self) -> int:
@@ -157,29 +183,31 @@ def build_mesh(spec: MeshSpec | None, device) -> Mesh:
     """The mesh of ``spec`` over the calling thread's world (the process
     group; one rank without a group), seen from the rank on ``device``.
     Raises ``ValueError`` when the spec does not tile the world, and
-    ``NotImplementedError`` for a ``slice``, ``pipe`` or ``expert`` axis
-    larger than 1 (A8b-2)."""
+    ``NotImplementedError`` for a ``slice`` or ``pipe`` axis larger than 1
+    (A8b-2b)."""
     spec = spec or MeshSpec()
     bad = {a: s for a, s in spec.sizes().items() if s < 1 and s != -1}
     if bad:
         raise ValueError(f"mesh axis sizes must be >= 1 (or -1 for the rest), got {bad}")
-    _data_seq_model_only(spec.sizes())
+    _no_slice_or_pipe(spec.sizes())
     base = collectives.world()
     sizes = spec.resolved(1 if base is None else base.size)
-    _data_seq_model_only(sizes)
-    data, seq, model = sizes[AXIS_DATA], sizes[AXIS_SEQ], sizes[AXIS_MODEL]
-    data_g, seq_g, model_g, batch_g = collectives.mesh_groups(base, data, seq, model)
-    shape = {AXIS_DATA: data, **({AXIS_SEQ: seq} if seq > 1 else {}),
-             **({AXIS_MODEL: model} if model > 1 else {})}
-    return Mesh(device=torch.device(device), shape=shape, group=data_g,
-                model_group=model_g, seq_group=seq_g, batch_group=batch_g)
+    _no_slice_or_pipe(sizes)
+    data, expert = sizes[AXIS_DATA], sizes[AXIS_EXPERT]
+    seq, model = sizes[AXIS_SEQ], sizes[AXIS_MODEL]
+    groups = collectives.mesh_groups(base, data, expert, seq, model)
+    shape = {AXIS_DATA: data, **{a: n for a, n in ((AXIS_EXPERT, expert), (AXIS_SEQ, seq),
+                                                  (AXIS_MODEL, model)) if n > 1}}
+    return Mesh(device=torch.device(device), shape=shape, group=groups["data"],
+                model_group=groups["model"], seq_group=groups["seq"],
+                batch_group=groups["batch"], expert_group=groups["expert"],
+                expert_grad_group=groups["expert_grad"])
 
 
-def _data_seq_model_only(sizes: dict[str, int]) -> None:
-    big = {a: s for a, s in sizes.items()
-           if a not in (AXIS_DATA, AXIS_SEQ, AXIS_MODEL) and s > 1}
+def _no_slice_or_pipe(sizes: dict[str, int]) -> None:
+    big = {a: s for a, s in sizes.items() if a in (AXIS_SLICE, AXIS_PIPE) and s > 1}
     if big:
         raise NotImplementedError(
-            f"mesh {big}: the port runs the 'data', 'seq' and 'model' axes; the expert "
-            "and pipeline axes and ghost BN's 'slice' wait for its item A8b-2"
+            f"mesh {big}: the port runs the 'data', 'expert', 'seq' and 'model' axes; the "
+            "pipeline axis and ghost BN's 'slice' wait for its item A8b-2b"
         )

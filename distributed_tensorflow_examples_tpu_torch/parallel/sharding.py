@@ -12,8 +12,10 @@ JAX lays a leaf out over the mesh, a port rank holds its block as a
 local tensor.  :func:`block` and :func:`sharded_dim` serve the
 checkpoint's gathers and restores.
 
-Batch rows: JAX lays a global batch out with its leading dim split over ``data``:
-rank r holds rows ``[r * B/N, (r + 1) * B/N)``.  The port's ranks hold
+Batch rows: JAX lays a global batch out with its leading dim split over
+``("data", "expert")`` (``ROWS``; the expert axis is 1 outside a
+mixture-of-experts mesh), data major: row shard r holds rows
+``[r * B/N, (r + 1) * B/N)``.  The port's ranks hold
 those rows as local tensors, so the global batch is rank 0's rows, then
 rank 1's, and so on.  :func:`rank_rows` is the slice of a rank's rows;
 :func:`local_rows` takes them from a global tensor (a random draw shaped
@@ -21,9 +23,9 @@ by the global batch, an evaluation batch); :func:`global_batch` is the
 global row count of a local batch; :func:`stream_block` is a rank's
 block of a token stream (the LM CLIs' host shard);
 :func:`microbatch_rows` is a rank's share of each microbatch of a global
-batch under gradient accumulation.  Every one of them reads the ``data``
-axis: the ranks of one data group (``seq`` and ``model`` ranks of one
-data index) hold the same rows.  A ``seq`` axis then splits the
+batch under gradient accumulation.  Every one of them reads the row
+shards: the ranks of one row shard (the ``seq`` and ``model`` ranks of
+one data and expert index) hold the same rows.  A ``seq`` axis then splits the
 sequence: :func:`seq_block` is a rank's columns ``[s T/S, (s + 1) T/S)``
 of a [B, T] batch field (JAX's ``batch_spec``, ``P("data", "seq")``).
 """
@@ -43,6 +45,9 @@ P = PartitionSpec
 ShardingRules = Sequence[tuple[str, PartitionSpec]]
 
 REPLICATED = P()
+#: The axes the batch's rows split over, data major (JAX ``Config.data_axes``
+#: of a mixture-of-experts model; the expert axis is 1 elsewhere).
+ROWS = ("data", "expert")
 
 
 def path_of(key_path) -> str:
@@ -155,9 +160,10 @@ def _get(tree, path):
 
 def rank_rows(n_global: int, rank: int | None = None, size: int | None = None) -> slice:
     """The rows of ``rank`` (default: this one) in a global batch of
-    ``n_global`` rows over ``size`` ranks (default: the data axis)."""
-    size = collectives.axis_size() if size is None else size
-    rank = collectives.axis_index() if rank is None else rank
+    ``n_global`` rows over ``size`` ranks (default: the row shards,
+    ``ROWS``)."""
+    size = collectives.axis_size(ROWS) if size is None else size
+    rank = collectives.axis_index(ROWS) if rank is None else rank
     if n_global % size:
         raise ValueError(f"global batch {n_global} not divisible by {size} ranks")
     n = n_global // size
@@ -171,19 +177,19 @@ def local_rows(x):
 
 def global_batch(n_local: int) -> int:
     """The global row count of a batch with ``n_local`` rows on each rank."""
-    return n_local * collectives.axis_size()
+    return n_local * collectives.axis_size(ROWS)
 
 
 def stream_block(ids, batch_size: int, rank: int | None = None, size: int | None = None):
     """(the contiguous block of a token stream of ``rank``, default this
     one, its local rows of a global ``batch_size``) over ``size`` ranks
-    (default: the data axis): the JAX LM CLIs' per-host shard, each rank
-    a disjoint block of the stream and of the batch rows."""
-    n = collectives.axis_size() if size is None else size
+    (default: the row shards, ``ROWS``): the JAX LM CLIs' per-host shard,
+    each rank a disjoint block of the stream and of the batch rows."""
+    n = collectives.axis_size(ROWS) if size is None else size
     if batch_size % n:
         raise ValueError(f"--batch_size={batch_size} not divisible by {n} ranks")
     block = len(ids) // n
-    r = collectives.axis_index() if rank is None else rank
+    r = collectives.axis_index(ROWS) if rank is None else rank
     return ids[r * block : (r + 1) * block], batch_size // n
 
 

@@ -23,12 +23,12 @@ over the ranks (the LSTM's carry, which JAX's rules shard over
 ``data``): ``save`` gathers it into the global layout, rank 0's rows
 first, and a restore takes the rank's rows back.  Sharded leaves
 (``create_sharded_state``) are saved as their global arrays too: with
-``param_specs`` the leaves sharded over ``model`` are gathered over the
-model group, and a ``ShardedOptState`` hands over global slots (its
-ZeRO-1 blocks gathered over ``data``); a restore takes this rank's
-blocks.  So a step saved at one mesh shape resumes at another (a
-``model`` of 2 at 1, and back), as JAX's restore re-shards into the
-target layout.  The gathers are collectives, so every rank builds the
+``param_specs`` the leaves sharded over ``model`` or ``expert`` are
+gathered over those groups, and a ``ShardedOptState`` hands over global
+slots (its ZeRO-1 blocks gathered over ``data``); a restore takes this
+rank's blocks.  So a step saved at one mesh shape resumes at another (a
+``model`` or ``expert`` of 2 at 1, and back), as JAX's restore re-shards
+into the target layout.  The gathers are collectives, so every rank builds the
 payload and the chief writes it.
 """
 
@@ -76,10 +76,11 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.row_sharded_state = row_sharded_state
-        #: path -> the dim of the leaf sharded over ``model``.
-        self.model_dims = {} if param_specs is None else {
-            path: d for path, spec in _leaves(param_specs)
-            if (d := sharding.sharded_dim(spec, "model")) is not None}
+        #: path -> ((axis, the dim of the leaf sharded over it), ...).
+        self.sharded_dims = {} if param_specs is None else {
+            path: dims for path, spec in _leaves(param_specs)
+            if (dims := tuple((a, d) for a in ("expert", "model")
+                              if (d := sharding.sharded_dim(spec, a)) is not None))}
         os.makedirs(self.directory, exist_ok=True)
 
     def all_steps(self) -> list[int]:
@@ -103,9 +104,10 @@ class CheckpointManager:
             model_state = _gather_rows(model_state)
         params = {}
         for path, p in _leaves(state.params):
-            dim = self.model_dims.get(path)
-            params[path] = p.detach() if dim is None else collectives.all_gather(
-                p, dim, axis_name="model", tag="ckpt")
+            p = p.detach()
+            for axis, dim in self.sharded_dims.get(path, ()):
+                p = collectives.all_gather(p, dim, axis_name=axis, tag="ckpt")
+            params[path] = p
         opt_state = state.opt_state.state_dict()
         wrote = False
         if dist.is_chief() and self.latest_step() != step:
@@ -184,10 +186,9 @@ class CheckpointManager:
         with torch.no_grad():
             for path, p in params.items():
                 saved = blob["params"][path]
-                dim = self.model_dims.get(path)
-                if dim is not None:
+                for axis, dim in self.sharded_dims.get(path, ()):
                     n = p.shape[dim]
-                    saved = saved.narrow(dim, collectives.axis_index("model") * n, n)
+                    saved = saved.narrow(dim, collectives.axis_index(axis) * n, n)
                 p.copy_(saved)
         template.opt_state.load_state_dict(blob["opt_state"])
         model_state = blob["model_state"]

@@ -41,14 +41,16 @@ all-reduce and a slice, not a reduce-scatter: gloo has none), the torch
 optimizer updates this rank's chunk of the parameter in place, through a
 view, and an all-gather of the chunks rebuilds the rest of the
 parameter, so the numbers are the replicated step's (the update is
-elementwise).  The chunk is the rank's contiguous 1/D of the leaf's
+elementwise).  An expert leaf (``ops/moe.py``'s rules) holds this rank's
+experts over ``expert``, and so do its slots; ZeRO-1 is not taken on an
+expert mesh (A8b-2b).  The chunk is the rank's contiguous 1/D of the leaf's
 elements, not its block along the dim the JAX rule names: torch's fused
 optimizers read a strided view as if it were dense, and so update the
 wrong elements of a block along an inner dim.  The rule still decides
 which leaves are sharded, and a checkpoint holds the global slots.  The clip
-takes the global norm over the global gradient: a ``model``-sharded
-leaf's squares are summed over the model group, every other leaf counts
-once.
+takes the global norm over the global gradient: a leaf sharded over
+``expert`` or ``model`` has its squares summed over those groups, every
+other leaf counts once.
 """
 
 from __future__ import annotations
@@ -64,18 +66,24 @@ from .state import leaves
 B1, B2, EPS, WEIGHT_DECAY = 0.9, 0.999, 1e-8, 1e-4
 
 
-def clip_by_global_norm_(grads: list, max_norm: float, model_sharded=None) -> None:
+def clip_by_global_norm_(grads: list, max_norm: float, sharded=None) -> None:
     """Scale ``grads`` in place by ``max_norm / norm`` when their global
     norm (f32) is at or above ``max_norm``; below it they are unchanged.
-    ``model_sharded[i]``: grads[i] is this rank's block of a leaf sharded
-    over ``model``, whose squares the model group sums."""
+    ``sharded[i]``: the axes (``"expert"``, ``"model"``) over which
+    grads[i] is this rank's block, whose groups sum its squares."""
     norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads])
-    if model_sharded is not None and any(model_sharded):
-        mask = torch.tensor(model_sharded, device=norms.device)
+    if sharded is not None and any(sharded):
         sq = norms * norms
-        shard_sq = torch.where(mask, sq, torch.zeros_like(sq)).sum().reshape(1)
-        collectives.all_reduce_sum_(shard_sq, tag="model_clip", axis_name="model")
-        norm = torch.sqrt(torch.where(mask, torch.zeros_like(sq), sq).sum() + shard_sq[0])
+        zeros = torch.zeros_like(sq)
+        total = torch.where(torch.tensor([not a for a in sharded], device=sq.device),
+                            sq, zeros).sum()
+        for axes in sorted({tuple(a) for a in sharded if a}):
+            mask = torch.tensor([tuple(a) == axes for a in sharded], device=sq.device)
+            part = torch.where(mask, sq, zeros).sum().reshape(1)
+            for axis in axes:
+                collectives.all_reduce_sum_(part, tag=f"{axis}_clip", axis_name=axis)
+            total = total + part[0]
+        norm = torch.sqrt(total)
     else:
         norm = torch.linalg.vector_norm(norms)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
@@ -102,7 +110,7 @@ class ClippedAdamW:
         drives the bias correction."""
         ps = _grads_or_zeros(params)
         clip_by_global_norm_([p.grad for p in ps], self.clip_norm,
-                             getattr(opt_state, "model_sharded", None))
+                             getattr(opt_state, "sharded_axes", None))
         opt_state.step()
 
 
@@ -180,7 +188,7 @@ class SGD:
         ps = _grads_or_zeros(params)
         if self.clip_norm is not None:
             clip_by_global_norm_([p.grad for p in ps], self.clip_norm,
-                                 getattr(opt_state, "model_sharded", None))
+                                 getattr(opt_state, "sharded_axes", None))
         lr = self.schedule(int(step))
         for group in opt_state.param_groups:
             group["lr"] = lr
@@ -189,12 +197,20 @@ class SGD:
 
 @dataclasses.dataclass(frozen=True)
 class LeafPlan:
-    """How one leaf is laid out: ``model_dim``, the dim of which this rank
-    holds a block over ``model`` (the leaf and its slots; None: not
-    sharded so); ``zero``, its slots hold this data rank's chunk (ZeRO-1)."""
+    """How one leaf is laid out: ``model_dim`` and ``expert_dim``, the dims
+    of which this rank holds a block over ``model`` and ``expert`` (the
+    leaf and its slots; None: not sharded so); ``zero``, its slots hold
+    this data rank's chunk (ZeRO-1)."""
 
     model_dim: int | None = None
     zero: bool = False
+    expert_dim: int | None = None
+
+    @property
+    def axes(self) -> tuple:
+        """The axes over which this rank holds a block of the leaf."""
+        return tuple(a for a, d in (("expert", self.expert_dim), ("model", self.model_dim))
+                     if d is not None)
 
 
 def _block(t: torch.Tensor, dim: int, index: int, count: int) -> torch.Tensor:
@@ -218,12 +234,16 @@ class ShardedOptState:
     ranks' blocks gathered), the layout of the replicated optimizer, so a
     checkpoint moves between mesh shapes."""
 
-    def __init__(self, optimizer, params, plan: list, *, data_group, model_group):
+    def __init__(self, optimizer, params, plan: list, *, data_group, model_group,
+                 expert_group=None):
         self.plan = list(plan)
         self.data_group, self.model_group = data_group, model_group
+        self.expert_group = expert_group
         self.params = leaves(params)
         self._data = (0, 1) if data_group is None else (data_group.rank, data_group.size)
         self._model = (0, 1) if model_group is None else (model_group.rank, model_group.size)
+        self._expert = (0, 1) if expert_group is None else (expert_group.rank,
+                                                            expert_group.size)
         #: leaf index -> the view of its chunk that the optimizer updates
         self.chunks = {i: _chunk(p.detach(), *self._data)
                        for i, (p, lp) in enumerate(zip(self.params, self.plan)) if lp.zero}
@@ -231,15 +251,24 @@ class ShardedOptState:
             [self.chunks.get(i, p) for i, p in enumerate(self.params)])
 
     @property
-    def model_sharded(self) -> list[bool]:
-        return [lp.model_dim is not None for lp in self.plan]
+    def sharded_axes(self) -> list[tuple]:
+        """Each leaf's ``LeafPlan.axes`` (the clip sums its squares over
+        them)."""
+        return [lp.axes for lp in self.plan]
+
+    @property
+    def expert_sharded(self) -> list[bool]:
+        """Whether each leaf is this rank's block of experts (the step sums
+        its gradient over the data x seq ranks only)."""
+        return [lp.expert_dim is not None for lp in self.plan]
 
     @property
     def param_groups(self):
         return self.inner.param_groups
 
     def _groups(self):
-        return collectives.use_group(self.data_group, model=self.model_group)
+        return collectives.use_group(self.data_group, model=self.model_group,
+                                     expert=self.expert_group)
 
     @torch.no_grad()
     def step(self) -> None:
@@ -274,6 +303,8 @@ class ShardedOptState:
                     v = collectives.all_gather(v, 0, axis_name="data", tag="ckpt").view(p.shape)
                 if lp.model_dim is not None:
                     v = collectives.all_gather(v, lp.model_dim, axis_name="model", tag="ckpt")
+                if lp.expert_dim is not None:
+                    v = collectives.all_gather(v, lp.expert_dim, axis_name="expert", tag="ckpt")
             return v
 
         return self._slots(self.inner.state_dict(), gather)
@@ -285,6 +316,8 @@ class ShardedOptState:
             lp = self.plan[i]
             if lp.model_dim is not None:
                 v = _block(v, lp.model_dim, *self._model)
+            if lp.expert_dim is not None:
+                v = _block(v, lp.expert_dim, *self._expert)
             if lp.zero:
                 v = _chunk(v.contiguous(), *self._data)
             return v.clone()  # the rank's own slot, not a view of the caller's

@@ -8,10 +8,11 @@ full-split ``evaluate`` and the ``FINAL`` line the scrapers read.
 
 The world comes from ``parallel.dist.initialize`` (``TF_CONFIG`` or
 nothing: one process); a ``ps``/``evaluator`` task prints and exits 0.
-``--mesh`` must tile the world with its ``data``, ``seq`` and ``model``
-axes (the others raise, A8b-2); the state is laid out by the model's rule table
-(``rules``, ``train/state.py::create_sharded_state``), with the
-optimizer slots ZeRO-1 sharded under ``--zero_opt``.  ``--profile``
+``--mesh`` must tile the world with its ``data``, ``expert``, ``seq`` and
+``model`` axes (``pipe`` and ``slice`` raise, A8b-2b); the state is laid
+out by the model's rule table (``rules``,
+``train/state.py::create_sharded_state``), with the optimizer slots
+ZeRO-1 sharded under ``--zero_opt``.  ``--profile``
 raises (A12) through ``utils.flags.check_training_flags``.  On a
 world of 2 or more, ``--watchdog`` starts the peer watchdog; the metrics
 writer and the ``FINAL`` line are the chief's; ``evaluate`` splits each
@@ -91,9 +92,10 @@ class Experiment:
             mesh if mesh is not None
             else build_mesh(MeshSpec.parse(getattr(flags, "mesh", "")), self.device)
         )
-        log.info("mesh: %s over %d rank(s); this rank %d (data %d, seq %d, model %d) on %s",
-                 self.mesh.shape, self.mesh.size, dist.process_index(), self.mesh.data_index,
-                 self.mesh.seq_index, self.mesh.model_index, self.device)
+        log.info("mesh: %s over %d rank(s); this rank %d (data %d, expert %d, seq %d, "
+                 "model %d) on %s", self.mesh.shape, self.mesh.size, dist.process_index(),
+                 self.mesh.data_index, self.mesh.expert_index, self.mesh.seq_index,
+                 self.mesh.model_index, self.device)
         if loss_fn is None:
             if loss_fn_factory is None:
                 raise ValueError("pass loss_fn or loss_fn_factory")
@@ -162,7 +164,7 @@ class Experiment:
     ) -> dict[str, float]:
         """Full-split eval of numpy ``arrays``: metrics averaged over the
         complete batches of ``batch_size`` (default ``--batch_size``)
-        rounded down to a multiple of the data axis (the ragged tail is
+        rounded down to a multiple of the row shards (the ragged tail is
         left out).  Each rank evaluates its rows of every batch and the
         ranks' means are averaged: the batch's.  ``eval_fn(params,
         model_state, batch) -> metrics``; by default the loss's own
@@ -175,12 +177,12 @@ class Experiment:
 
         step = build_eval_step(eval_fn)
         n = len(next(iter(arrays.values())))
-        dp = self.mesh.shape.get("data", 1)
+        dp = self.mesh.row_shards
         ebs = min(batch_size or self.flags.batch_size, n // dp * dp)
         ebs = (ebs // dp) * dp
         if ebs <= 0:
             return {}
-        rows = sharding.rank_rows(ebs, self.mesh.data_index, dp)
+        rows = sharding.rank_rows(ebs, self.mesh.row_index, dp)
         sums: dict[str, float] = {}
         count = 0
         for i in range(0, (n // ebs) * ebs, ebs):
@@ -188,7 +190,7 @@ class Experiment:
             with self.mesh.axes():
                 metrics = step(self.state, pipeline_lib.to_device(local, self.device))
                 if dp > 1:
-                    metrics = {k: collectives.pmean(v.detach().float(), tag="eval")
+                    metrics = {k: collectives.pmean(v.detach().float(), "batch", tag="eval")
                                for k, v in metrics.items()}
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + float(v)

@@ -111,6 +111,9 @@ def create_sharded_state(
     Returns ``(state, specs)``: ``specs["params"]`` the tree of each
     leaf's spec, ``specs["opt_state"]`` of its slots' global layout, JAX's
     (one per leaf; the ZeRO-1 ones over ``data``)."""
+    if zero_opt_sharding and mesh.shape.get("expert", 1) > 1:
+        raise NotImplementedError(
+            "--zero_opt on an 'expert' mesh axis waits for the port's item A8b-2b")
     out = init_params_fn(seed)
     params, model_state = out if isinstance(out, tuple) else (out, {})
     default_fn = None
@@ -129,13 +132,15 @@ def create_sharded_state(
         if zero_opt_sharding else spec, params, param_specs)
     params = as_param_leaves(local, device)
     sharded_model = mesh.shape.get("model", 1) > 1
-    plan = [_leaf_plan(ps, os_, sharded_model)
+    sharded_expert = mesh.shape.get("expert", 1) > 1
+    plan = [_leaf_plan(ps, os_, sharded_model, sharded_expert)
             for ps, os_ in zip(leaves(param_specs), leaves(opt_specs))]
-    if any(lp.model_dim is not None or lp.zero for lp in plan):
+    if any(lp.axes or lp.zero for lp in plan):
         from .optim import ShardedOptState
 
         opt_state = ShardedOptState(optimizer, params, plan, data_group=mesh.group,
-                                    model_group=mesh.model_group)
+                                    model_group=mesh.model_group,
+                                    expert_group=getattr(mesh, "expert_group", None))
     else:
         opt_state = optimizer.init(params)
     state = TrainState(step=0, params=params, opt_state=opt_state,
@@ -165,11 +170,12 @@ def _zero_spec(shape, spec, data: int, min_elements: int):
     return spec
 
 
-def _leaf_plan(param_spec, opt_spec, sharded_model: bool):
+def _leaf_plan(param_spec, opt_spec, sharded_model: bool, sharded_expert: bool = False):
     from .optim import LeafPlan
 
     model_dim = sharding.sharded_dim(param_spec, "model") if sharded_model else None
-    return LeafPlan(model_dim=model_dim, zero=opt_spec != param_spec)
+    expert_dim = sharding.sharded_dim(param_spec, "expert") if sharded_expert else None
+    return LeafPlan(model_dim=model_dim, zero=opt_spec != param_spec, expert_dim=expert_dim)
 
 
 def params_sha256(params) -> str:

@@ -7,23 +7,30 @@ compiled; the step consumes its input state (parameters and moments are
 updated in place, the analog of the JAX step's donated buffers) and
 returns the next one.
 
-Data and sequence parallelism (a ``mesh`` whose groups are up,
+Data, expert and sequence parallelism (a ``mesh`` whose groups are up,
 ``parallel/mesh.py``): the step runs under the mesh's groups (no mesh, or
 a mesh without a group: one rank), so plain BN and the LSTM's dropout
 rows read the data group, the vocab-parallel and Megatron layers the
-mesh's ``model`` group and the sequence-parallel attention its ``seq``
-group.  The gradients are averaged over the ``data`` x ``seq`` ranks
-(``Mesh.batch_group``): each of them holds its own tokens of the global
-batch (rows over ``data``, a slice of the sequence over ``seq``), and
-takes the gradient of its local token mean, the cross-shard terms of
-attention arriving through the ring's or the all-to-all's backward.  The
-model ranks of one data and seq index hold replicated leaves whose
-gradients are equal already (the loss is replicated over ``model``), and
-their own blocks of the sharded ones.  :func:`sync_gradients`
-mean-all-reduces the gradients in one flat float32 bucket; only then
-does the optimizer run, so a global-norm clip sees the global gradient,
-as in the JAX step whose loss is the global-batch mean.  The metrics are
-averaged over the same ranks: the global batch's.
+mesh's ``model`` group, the sequence-parallel attention its ``seq``
+group and the experts its ``expert`` group.  The gradients are averaged
+over the ``data`` x ``expert`` x ``seq`` ranks (``Mesh.batch_group``):
+each of them holds its own tokens of the global batch (rows over data x
+expert, a slice of the sequence over ``seq``), and takes the gradient of
+its local token mean, the cross-shard terms of attention and of the
+experts arriving through the ring's or the all-to-alls' backward.  An
+expert leaf is different: this rank holds its block of the experts, and
+its gradient already sums the tokens the all-to-all brought from every
+rank of its expert group, so it is summed over the data x seq ranks
+alone (``Mesh.expert_grad_group``) and divided by the whole batch
+group's size (a mean over the data ranks alone would be X times too
+large).  The model ranks of one data, expert and seq index hold
+replicated leaves whose gradients are equal already (the loss is
+replicated over ``model``), and their own blocks of the sharded ones.
+:func:`sync_gradients` mean-all-reduces the gradients in flat float32
+buckets; only then does the optimizer run, so a global-norm clip sees
+the global gradient, as in the JAX step whose loss is the global-batch
+mean.  The metrics are averaged over the same ranks: the global
+batch's.
 
 - ``grad_accum=k``: the batch splits into k microbatches along dim 0;
   their gradients are summed (autograd accumulates into ``.grad``) and
@@ -65,21 +72,28 @@ def _zero_grads(params) -> None:
         p.grad = None
 
 
-def sync_gradients(params, group) -> None:
+def sync_gradients(params, group, expert_sharded=None, expert_group=None) -> None:
     """Replace every leaf's ``.grad`` (zeros where autograd left none) by
     its mean over the ranks of ``group``: one all-reduce of one flat
-    float32 bucket."""
+    float32 bucket.  The leaves ``expert_sharded`` marks are summed over
+    ``expert_group`` (None: this rank alone) in a second bucket and
+    divided by ``group``'s size too."""
     ps = leaves(params)
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in ps]
-    flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
-    with collectives.use_group(group):
-        collectives.all_reduce_sum_(flat, tag="grads")
-    flat.div_(group.size)
-    offset = 0
-    for p in ps:
-        n = p.numel()
-        p.grad = flat[offset : offset + n].view_as(p).to(p.dtype)
-        offset += n
+    marks = expert_sharded or [False] * len(ps)
+    for experts, sum_group in ((False, group), (True, expert_group)):
+        mine = [p for p, m in zip(ps, marks) if m == experts]
+        if not mine:
+            continue
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in mine]
+        flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
+        with collectives.use_group(sum_group):
+            collectives.all_reduce_sum_(flat, tag="expert_grads" if experts else "grads")
+        flat.div_(group.size)
+        offset = 0
+        for p in mine:
+            n = p.numel()
+            p.grad = flat[offset : offset + n].view_as(p).to(p.dtype)
+            offset += n
 
 
 def mean_metrics(metrics: dict, group) -> dict:
@@ -103,6 +117,7 @@ def build_train_step(
     if unroll < 1:
         raise ValueError(f"unroll must be >= 1, got {unroll}")
     group = mesh.batch_group if mesh is not None else None
+    expert_group = getattr(mesh, "expert_grad_group", None)
     axes = mesh.axes if mesh is not None else (lambda: collectives.use_group(None))
 
     def one_step(state: TrainState, batch) -> tuple[TrainState, dict]:
@@ -139,7 +154,8 @@ def build_train_step(
                 for k in per_micro[0]
             }
         if group is not None:
-            sync_gradients(params, group)
+            sync_gradients(params, group, getattr(state.opt_state, "expert_sharded", None),
+                           expert_group)
             metrics = mean_metrics(metrics, group)
         optimizer.update(state.opt_state, params, state.step)
         _zero_grads(params)

@@ -5,8 +5,8 @@ flags, accepted and mapped.
 define_training_flags`` in the JAX package, on argparse, with its names
 and defaults; :func:`check_training_flags` refuses, naming the port's
 item that brings it, what the port cannot run yet (``--profile`` A12;
-a ``--mesh`` axis other than ``data``, ``seq`` and ``model`` A8b-2
-through ``parallel.mesh``).  ``--zero_opt`` shards the optimizer slots (ZeRO-1,
+a ``--mesh`` axis other than ``data``, ``expert``, ``seq`` and ``model``
+A8b-2b through ``parallel.mesh``).  ``--zero_opt`` shards the optimizer slots (ZeRO-1,
 ``train/state.py``).  ``--watchdog`` starts the peer watchdog on a world
 of 2 or more (``parallel/dist.py``); ``--deterministic`` turns on
 ``utils.determinism``.
@@ -76,9 +76,9 @@ def add_training_flags(parser: argparse.ArgumentParser, default_batch_size: int 
     add("--grad_accum", type=int, default=1,
         help="Gradient-accumulation microbatches per step.")
     add("--mesh", default="",
-        help='Mesh spec over the ranks, e.g. "data=2", "data=1,model=2" or '
-             '"data=1,seq=2,model=2" ("" = data over every rank; the model axis shards '
-             'the leaves a model\'s rules name, the seq axis the sequence).')
+        help='Mesh spec over the ranks, e.g. "data=2", "data=1,model=2", "data=2,expert=2" '
+             'or "data=1,seq=2,model=2" ("" = data over every rank; the model and expert '
+             "axes shard the leaves a model's rules name, the seq axis the sequence).")
     add("--profile", type=parse_bool, nargs="?", const=True, default=False,
         help="Profiler trace window (waits for the port's tools, A12).")
     add("--obs_events_dir", default="", help="Flight-recorder dump directory.")

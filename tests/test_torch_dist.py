@@ -131,8 +131,8 @@ def test_build_mesh_over_the_world():
     with pytest.raises(ValueError, match="needs 4 devices, have 2"):
         _on_two_ranks("data=4")
     # The model axis builds (model innermost: rank r at data r // M, model
-    # r % M), and so does the sequence axis; the expert, pipeline and
-    # slice axes raise (A8b-2).
+    # r % M), and so do the sequence and expert axes; the pipeline and
+    # slice axes raise (A8b-2b).
     for text in ("model=2", "data=1,model=-1"):
         for r, m in enumerate(_on_two_ranks(text)):
             assert m.shape == {"data": 1, "model": 2} and m.size == 2
@@ -140,7 +140,11 @@ def test_build_mesh_over_the_world():
     for r, m in enumerate(_on_two_ranks("data=1,seq=2")):
         assert m.shape == {"data": 1, "seq": 2} and m.seq_index == r
         assert m.group is None and m.model_group is None and m.batch_group is m.seq_group
-    for text in ("slice=2", "pipe=2", "expert=2"):
+    for r, m in enumerate(_on_two_ranks("data=1,expert=2")):
+        assert m.shape == {"data": 1, "expert": 2} and m.expert_index == r
+        assert m.row_shards == 2 and m.row_index == r and m.batch_group is m.expert_group
+        assert m.group is None and m.expert_grad_group is None
+    for text in ("slice=2", "pipe=2"):
         with pytest.raises(NotImplementedError, match="A8b-2"):
             _on_two_ranks(text)
     # The mesh owns its group: a data axis of 1 has none, and sums nothing.

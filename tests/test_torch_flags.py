@@ -14,6 +14,7 @@ through the port's transformer CLI, whose replica serves at the JAX
 replica's defaults (fault C7)."""
 
 import copy
+import functools
 import types
 
 import inspect
@@ -27,10 +28,27 @@ from distributed_tensorflow_examples_tpu.utils import flags as jax_flags
 from distributed_tensorflow_examples_tpu_torch.examples import (
     cifar10_cnn, mnist_mlp, ptb_lstm, resnet50, transformer_lm, word2vec,
 )
+from distributed_tensorflow_examples_tpu_torch.models import resnet as resnet_model
 from distributed_tensorflow_examples_tpu_torch.serve import model_server
 from distributed_tensorflow_examples_tpu_torch.utils import flags
 
+_resnet_init_numpy = resnet_model.init_numpy
+
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _one_resnet_init(monkeypatch):
+    """ResNet-50's initial weights drawn once for the module's one-step
+    runs (the same config and seed each time; ~3.4 s a draw on one
+    thread): the runs copy them into their own tensors."""
+    monkeypatch.setattr(resnet_model, "init_numpy", _cached_resnet_init)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_resnet_init(cfg, seed, **kw):
+    return _resnet_init_numpy(cfg, seed, **kw)
+
 
 #: Each CLI with the smallest CPU training it takes (one step).
 CLIS = {

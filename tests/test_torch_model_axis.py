@@ -57,6 +57,8 @@ from distributed_tensorflow_examples_tpu_torch.parallel import collectives, part
 from distributed_tensorflow_examples_tpu_torch.parallel import mesh as mesh_lib
 from distributed_tensorflow_examples_tpu_torch.parallel import sharding
 from distributed_tensorflow_examples_tpu_torch.train import hooks
+from distributed_tensorflow_examples_tpu_torch.train import runner as runner_lib
+from distributed_tensorflow_examples_tpu_torch.utils.metrics import MetricsWriter
 from distributed_tensorflow_examples_tpu_torch.utils.multiprocess import MultiProcessRunner
 
 W2V = dict(vocab_size=512, dim=32, num_sampled=16)
@@ -283,8 +285,13 @@ torch.set_num_threads(1)
 from distributed_tensorflow_examples_tpu_torch.examples import ptb_lstm, word2vec as w2v_cli
 from distributed_tensorflow_examples_tpu_torch.models import lstm, word2vec
 from distributed_tensorflow_examples_tpu_torch.parallel import collectives
-from distributed_tensorflow_examples_tpu_torch.train import hooks
+from distributed_tensorflow_examples_tpu_torch.train import hooks, runner
+from distributed_tensorflow_examples_tpu_torch.utils.metrics import MetricsWriter
 from distributed_tensorflow_examples_tpu_torch import bridge
+
+# The chief's --log_dir runs write no TensorBoard events (its import alone
+# costs a process ~14 s); the checkpoints are what the runs compare.
+runner.MetricsWriter = lambda log_dir: MetricsWriter(log_dir, tensorboard=False)
 
 class Losses(hooks.Hook):
     def __init__(self):
@@ -397,7 +404,9 @@ def _check_leaves(got: dict, want: dict):
 
 
 @pytest.mark.parametrize("data,model", [(1, 2), (2, 2)])
-def test_w4_and_w5_on_gloo_ranks_match_the_jax_model_mesh(data, model, tmp_path):
+def test_w4_and_w5_on_gloo_ranks_match_the_jax_model_mesh(data, model, tmp_path, monkeypatch):
+    monkeypatch.setattr(runner_lib, "MetricsWriter",
+                        lambda log_dir: MetricsWriter(log_dir, tensorboard=False))
     out, n = str(tmp_path), data * model
     mesh_text = f"data={data},model={model}"
     resume = []

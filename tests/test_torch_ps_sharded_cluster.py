@@ -48,12 +48,12 @@ from distributed_tensorflow_examples_tpu_torch.utils.multiprocess import (
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLI = "distributed_tensorflow_examples_tpu_torch.examples.cifar10_cnn"
 LIMIT_S = 240
-STEPS = 1200
+STEPS = 600
 #: ps0 dies once its server has answered this many requests (about a
 #: sixth of the run's traffic to it, ~6.6 requests an applied step), so its
 #: restarted incarnation (a few seconds: a new process importing torch)
 #: rejoins while the run still trains.
-KILL_AFTER_REQS = 1200
+KILL_AFTER_REQS = 600
 #: The survivor's stall: longer than the shutdown watch's 10 s socket
 #: timeout on its own server and than the 2 s sync budget a cold primary
 #: takes, so that both give out while ps2 is stopped.

@@ -391,7 +391,7 @@ def test_cli_trains_prints_final_and_publishes(tmp_path, capsys):
     "extra,error,match",
     [
         (["--pipeline_stages=2"], NotImplementedError, "model-parallel"),
-        (["--moe_experts=4"], NotImplementedError, "model-parallel"),
+        (["--moe_experts=4", "--pipeline_stages=2"], ValueError, "compose"),
         (["--mesh=data=2"], ValueError, "needs 2 devices, have 1"),
     ],
     # Stable case ids: the data=2 case raised NotImplementedError (A5)

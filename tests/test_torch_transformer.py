@@ -144,7 +144,7 @@ def test_out_of_range_ids_give_nan_rows_like_jnp_take():
 
 
 @pytest.mark.parametrize(
-    "change", [dict(pipeline_stages=2), dict(moe_experts=4)]
+    "change", [dict(pipeline_stages=2), dict(pipeline_stages=2, microbatches=2)]
 )
 def test_later_slices_raise_not_implemented(change):
     cfg = dataclasses.replace(torch_tf.Config(**TINY), **change)
@@ -155,14 +155,14 @@ def test_later_slices_raise_not_implemented(change):
 
 
 def test_mesh_raises_not_implemented():
-    """A mesh runs the dense model (``test_torch_seq_axis.py``); what a mesh
-    still refuses is the pipeline and expert axes and their blocks, naming
-    A8b-2."""
+    """A mesh runs the dense and MoE models (``test_torch_seq_axis.py``,
+    ``test_torch_moe.py``); what a mesh still refuses is the pipeline and
+    slice axes and pipeline blocks, naming A8b-2b."""
     mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec.parse("data=1"), "cpu")
-    for change in (dict(pipeline_stages=2), dict(moe_experts=4)):
+    for change in (dict(pipeline_stages=2), dict(pipeline_stages=2, microbatches=2)):
         cfg = dataclasses.replace(torch_tf.Config(**TINY), **change)
         with pytest.raises(NotImplementedError, match="slice A8b-2"):
             torch_tf.apply(cfg, {}, torch.zeros(1, 4, dtype=torch.int64), mesh=mesh)
-    for text in ("pipe=1,expert=2", "data=1,pipe=2"):
+    for text in ("slice=2,expert=1", "data=1,pipe=2"):
         with pytest.raises(NotImplementedError, match="A8b-2"):
             mesh_lib.build_mesh(mesh_lib.MeshSpec.parse(text), "cpu")
