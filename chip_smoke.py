@@ -59,7 +59,7 @@ it fails:
    apply of the same weights on the card.  One padded apply is timed
    (flash and xla attention) and profiled once: device busy against the
    host's time.  Then decode on the same replica: five sessions, each a
-   16-token prompt from the synthetic corpus and 64 greedy tokens, first
+   16-token prompt from the synthetic corpus and 32 greedy tokens, first
    each alone, then all five at once (four slots, one queued), then four
    at once, from clients in a process of their own (``decode_clients``);
    every session's tokens must equal its solo run byte for byte,
@@ -177,7 +177,9 @@ it fails:
    scale and bias included.  Printed: step ms, global images/s, the
    all-reduce calls and bytes of a step by kind (gradients, SyncBN
    partials, metrics) and each rank's profiled step (device busy, idle).
-   Last, the PTB LSTM (W5) at its CLI defaults on ``DP_RANKS`` ranks (32
+   Beside it (the two runs side by side: ``side_by_side``; their
+   host-bound numbers carry each other's load), the PTB LSTM (W5) at its
+   CLI defaults on ``DP_RANKS`` ranks (32
    rows a rank, each a contiguous block of the stream and its own carry),
    ``WORKLOAD_STEPS`` steps: gloo, bitwise-equal parameters, finite
    losses, FINAL with ``valid_perplexity`` from the chief, and the first
@@ -191,7 +193,8 @@ it fails:
    two workers, each a process of the port's CLI (``python -m
    distributed_tensorflow_examples_tpu_torch.examples.<cli> --job_name=...
    --task_index=...``, ``--ps_hosts`` one loopback port, ``--worker_hosts=
-   a:1,b:1``, ``OMP_NUM_THREADS=1``), all started together: MNIST MLP
+   a:1,b:1``, ``OMP_NUM_THREADS=1``), all started together, the two
+   clusters side by side: MNIST MLP
    ``--ps_emulation`` and CIFAR-10 CNN ``--sync_replicas=false
    --max_staleness=4``, ``PS_STEPS`` applied steps each.  The PS task is
    host-only (supervised, ``--ps_restarts`` at its default); the chief and
@@ -262,7 +265,8 @@ it fails:
    parameter, the tables put together, within ``TOL_MA_PARAM``.  Printed:
    step ms, examples/s or tokens/s, the model-axis all-reduces a step
    (calls, bytes, host ms) and one profiled step's device busy ms and idle
-   share.  (c) ResNet-50 (W3) with ``--zero_opt`` and then without, on
+   share.  Beside (a) and (b), (c) ResNet-50 (W3) with ``--zero_opt`` and
+   then without, on
    ``DP_RANKS`` data ranks at phase 9's global batch and width,
    ``ZERO_STEPS`` steps each from the same weights and batches, cuDNN
    deterministic (``zero_resnet_rank``): the parameters bitwise equal (or
@@ -374,8 +378,37 @@ it fails:
    published weights on a registry-pinned replica: one [1, 2048] predict
    (12 tensor-core B1 launches; its logits against ``transformer.apply``
    on the card within ``TOL_LOGITS``) and one decode session of 16 prompt
-   and 32 greedy tokens on one slot, whose tokens equal ``generate``'s on
+   and 16 greedy tokens on one slot, whose tokens equal ``generate``'s on
    the card, with no flash launch.
+
+16. GPipe, the collapsed stages, decode under a model mesh and ghost-batch
+   BN, on 2 gloo ranks sharing the card, spawned once (``pp_rank``; each
+   rank runs (a), (b) and (c) in turn).  (a) Phase 4's flagship and batch
+   with ``--pipeline_stages=2 --microbatches=4 --mesh=pipe=2``,
+   ``PP_STEPS`` steps and a checkpoint: each rank holds 6 layers; every
+   step launches on each rank the forward ``2 (M + S - 1) L / S`` times
+   (every tick runs its stage, and the backward recomputes it) and the
+   backward pair ``(M + S - 1) L / S`` times, all on the tensor cores;
+   steps 1-3 within ``TOL_PP_LOSS`` of one process with
+   ``--grad_accum=4`` on the same global batches and weights (the same
+   microbatch sums; run here first).  Printed: step ms, tokens/s, the
+   ``pipe``/``pipe_out``/``pipe_in`` collectives a step (calls, MB, host
+   ms), each rank's profiled busy and idle share and launches.  (b) The
+   stacked blocks gathered over pipe and collapsed
+   (``checkpoint.global_params``, ``collapse_pipeline``); the chief decodes 8 greedy tokens from a
+   16-token corpus prompt on its device, equal to one process decoding
+   the collapsed weights of the pipe-trained checkpoint; the same weights
+   laid out over a ``model=2`` mesh of the 2 ranks decode the same ids on
+   both (or depart only where the replicated top-2 margin is within
+   twice the largest teacher-forced logit gap, printed).  (c) ResNet-50 at
+   phase 5's width and batch 256 with ``--bn_ghost_slices=2
+   --mesh=slice=2`` (128 rows a rank), ``GB_STEPS`` steps on the fused
+   statistics path: 53 launches of each BN kernel a step a rank, no BN
+   all-reduce (each slice's statistics are its rank's), one gradient
+   bucket a step over the 2 ranks, the FINAL line; step 1's loss and each
+   rank's row of the running stats against one process's ghost path on
+   the same global batch (``TOL_GB_LOSS``, ``TOL_GB_STATS``; run here
+   first).
 
 Phase 4 still runs the split kernels: at T 2048 the blocks give
 nq = nk = 2, under the fused regime.  No path is cut in depth.
@@ -423,7 +456,7 @@ TOL_LOGITS = 0.125
 #: replica of 4 slots of the flagship's 2048 positions.
 DECODE_SESSIONS = 5
 DECODE_PROMPT = 16
-DECODE_NEW = 64
+DECODE_NEW = 32
 DECODE_SLOTS = 4
 #: Backward kernels vs plain versions, relative to the largest entry of the
 #: plain output: bf16 outputs two bf16 steps (2^-8 relative each; p and ds
@@ -493,7 +526,7 @@ TOL_RESNET_START = 1.0
 #: Phase 7: the four reference workloads through their CLIs at the CLI's
 #: default widths and batch, ``WORKLOAD_STEPS`` steps each (the median step
 #: is over steps 2 on, the profiled step left out).
-WORKLOAD_STEPS = 200
+WORKLOAD_STEPS = 100
 WORKLOADS = ("mnist_mlp", "cifar10_cnn", "word2vec", "ptb_lstm")
 #: Step 1's loss on the card against the same CLI's step 1 on the CPU, same
 #: seed.  The bf16 workloads (MLP, CNN, LSTM) round their bf16 products and
@@ -566,8 +599,52 @@ KERNEL_FAMILIES = (
 )
 
 
+#: A thread's buffered log lines (``buffered``), else None: printed now.
+_LOG = threading.local()
+
+
 def log(msg: str) -> None:
+    lines = getattr(_LOG, "lines", None)
+    if lines is not None:
+        lines.append(msg)
+        return
     print(msg, flush=True)
+
+
+def buffered(fn, *args):
+    """``(fn(*args), the lines it logged)``: its log lines kept back, for a
+    run beside another that logs."""
+    _LOG.lines = lines = []
+    try:
+        return fn(*args), lines
+    except BaseException as e:  # noqa: BLE001 — re-raised with the lines below
+        e.lines = lines
+        raise
+    finally:
+        _LOG.lines = None
+
+
+def side_by_side(runs: dict) -> dict:
+    """Run ``{name: (fn, *args)}`` at once, one thread each, and return
+    ``{name: fn(*args)}``; each run's log lines are printed after all end,
+    in order, and the first failure is raised then.  The runs share the
+    host and the card, so their host-bound numbers carry each other's
+    load; their gates do not depend on it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(runs)) as pool:
+        futures = {name: pool.submit(buffered, *run) for name, run in runs.items()}
+    out, failure = {}, None
+    for name, f in futures.items():
+        try:
+            out[name], lines = f.result()
+        except BaseException as e:  # noqa: BLE001 — the first failure ends the phase
+            lines, failure = getattr(e, "lines", []), failure or e
+        for line in lines:
+            log(line)
+    if failure is not None:
+        raise failure
+    return out
 
 
 def card_line() -> str:
@@ -2850,8 +2927,10 @@ def data_parallel_end_to_end(card: str, phase5: dict) -> dict:
     probe = dp_nccl_probe_start()
     resnet_nccl1 = dp_resnet_nccl(card, phase5)
     dp_nccl_probe_report(probe)
-    return {"resnet_dp2": dp_resnet(card, phase5), "resnet_nccl1": resnet_nccl1,
-            "lstm_dp2": dp_lstm(card)}
+    # ResNet-50's and the LSTM's 2-rank runs side by side.
+    return {"resnet_nccl1": resnet_nccl1,
+            **side_by_side({"resnet_dp2": (dp_resnet, card, phase5),
+                            "lstm_dp2": (dp_lstm, card)})}
 
 
 def dp_nccl_probe_start():
@@ -3098,61 +3177,66 @@ def _wire_mb(cstats: dict, wstats: list) -> float:
 def ps_cluster_end_to_end(card: str, phase8: dict) -> dict:
     """Run W1 and W2 in their reference shape (the module docstring's phase
     10): a PS task, the chief and two workers, each a process of the port's
-    CLI, started together; returns each run's measurements."""
+    CLI, started together, the two clusters side by side; returns each
+    run's measurements."""
     import os
 
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    return side_by_side({run[0]: (_ps_cluster_run, card, phase8, env, *run)
+                         for run in PS_CLUSTER_RUNS})
+
+
+def _ps_cluster_run(card: str, phase8: dict, env: dict, name: str, cli: str, argv: list,
+                    mode: str) -> dict:
+    """One cluster of phase 10: its checks, prints and measurements."""
     from distributed_tensorflow_examples_tpu_torch.utils.multiprocess import free_port
 
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
-    results = {}
-    for name, cli, argv, mode in PS_CLUSTER_RUNS:
-        common = _ps_common(cli, [free_port()], PS_STEPS, *argv)
-        cmds = {"ps": [*common, "--job_name=ps"],
-                "chief": [*common, "--job_name=chief", "--device=cuda"],
-                **{f"worker{w}": [*common, "--job_name=worker", f"--task_index={w}",
-                                  "--device=cuda"] for w in range(2)}}
-        t0 = time.perf_counter()
-        outs = _run_cluster(name, cmds, env)
-        wall_s = time.perf_counter() - t0
-        match, cstats, wstats = _cluster_checks(name, outs, mode, PS_STEPS, "cuda")
-        contributed = [w["contributed"] for w in wstats]
-        r2a = 2 if mode == "sync_replicas" else 1
-        local_bs = 128 // 2
-        sps = cstats["applies_per_s_second_half"]
-        r = {
-            "applied_steps_per_s": sps, "apply_wall_ms": 1e3 / sps,
-            "examples_per_s_per_chip": sps * local_bs * r2a,
-            "final_steps_per_sec": float(match.group(1)),
-            "final_examples_per_sec_per_chip": float(match.group(2)),
-            "stale_dropped": int(match.group(3)), "deduped": cstats["deduped"],
-            "test_accuracy": float(match.group(4)), "contributed": contributed,
-            "chief_apply_ms": cstats["median_apply_ms"],
-            "chief_wait_ms": cstats["median_wait_ms"],
-            **{f"worker{w}_{k}": ws[f"median_{k}"]
-               for w, ws in enumerate(wstats) for k in ("token_ms", "pull_ms", "grad_ms", "push_ms")},
-            "wire_mb_per_apply": _wire_mb(cstats, wstats), "wall_s": wall_s,
-        }
-        results[name] = r
-        p8 = phase8.get(name, {})
-        log(f"  {name}: {match.group(0)}")
-        log(f"    1 PS + chief + 2 workers, started together, {wall_s:.1f} s wall; the PS "
-            f"task host-only (no CUDA context), the chief and the workers on cuda [{card}]")
-        log(f"    second half of the applies: {sps:.1f} applied steps/s "
-            f"({r['apply_wall_ms']:.3f} ms an applied step), {r['examples_per_s_per_chip']:.0f} "
-            f"examples/s per chip; phase 8 in one process: "
-            f"{p8.get('applied_steps_per_s', float('nan')):.1f} applied steps/s "
-            f"({p8.get('apply_wall_ms', float('nan')):.3f} ms), "
-            f"{p8.get('examples_per_s_per_chip', float('nan')):.0f} examples/s")
-        log(f"    {r['stale_dropped']} dropped stale, {r['deduped']} deduped; contributed "
-            f"{contributed}; chief medians: take/pop wait {r['chief_wait_ms']:.3f} ms, host "
-            f"update + publish {r['chief_apply_ms']:.3f} ms")
-        for w, ws in enumerate(wstats):
-            log(f"    worker {w} medians: token wait {ws['median_token_ms']:.3f} ms, pull "
-                f"{ws['median_pull_ms']:.3f} ms, H2D + gradient + D2H {ws['median_grad_ms']:.3f} "
-                f"ms, push {ws['median_push_ms']:.3f} ms")
-        log(f"    wire: {r['wire_mb_per_apply']:.3f} MB an applied step (every client byte, "
-            "both ways, chief and workers)")
-    return results
+    common = _ps_common(cli, [free_port()], PS_STEPS, *argv)
+    cmds = {"ps": [*common, "--job_name=ps"],
+            "chief": [*common, "--job_name=chief", "--device=cuda"],
+            **{f"worker{w}": [*common, "--job_name=worker", f"--task_index={w}",
+                              "--device=cuda"] for w in range(2)}}
+    t0 = time.perf_counter()
+    outs = _run_cluster(name, cmds, env)
+    wall_s = time.perf_counter() - t0
+    match, cstats, wstats = _cluster_checks(name, outs, mode, PS_STEPS, "cuda")
+    contributed = [w["contributed"] for w in wstats]
+    r2a = 2 if mode == "sync_replicas" else 1
+    local_bs = 128 // 2
+    sps = cstats["applies_per_s_second_half"]
+    r = {
+        "applied_steps_per_s": sps, "apply_wall_ms": 1e3 / sps,
+        "examples_per_s_per_chip": sps * local_bs * r2a,
+        "final_steps_per_sec": float(match.group(1)),
+        "final_examples_per_sec_per_chip": float(match.group(2)),
+        "stale_dropped": int(match.group(3)), "deduped": cstats["deduped"],
+        "test_accuracy": float(match.group(4)), "contributed": contributed,
+        "chief_apply_ms": cstats["median_apply_ms"],
+        "chief_wait_ms": cstats["median_wait_ms"],
+        **{f"worker{w}_{k}": ws[f"median_{k}"]
+           for w, ws in enumerate(wstats) for k in ("token_ms", "pull_ms", "grad_ms", "push_ms")},
+        "wire_mb_per_apply": _wire_mb(cstats, wstats), "wall_s": wall_s,
+    }
+    p8 = phase8.get(name, {})
+    log(f"  {name}: {match.group(0)}")
+    log(f"    1 PS + chief + 2 workers, started together, {wall_s:.1f} s wall; the PS "
+        f"task host-only (no CUDA context), the chief and the workers on cuda [{card}]")
+    log(f"    second half of the applies: {sps:.1f} applied steps/s "
+        f"({r['apply_wall_ms']:.3f} ms an applied step), {r['examples_per_s_per_chip']:.0f} "
+        f"examples/s per chip; phase 8 in one process: "
+        f"{p8.get('applied_steps_per_s', float('nan')):.1f} applied steps/s "
+        f"({p8.get('apply_wall_ms', float('nan')):.3f} ms), "
+        f"{p8.get('examples_per_s_per_chip', float('nan')):.0f} examples/s")
+    log(f"    {r['stale_dropped']} dropped stale, {r['deduped']} deduped; contributed "
+        f"{contributed}; chief medians: take/pop wait {r['chief_wait_ms']:.3f} ms, host "
+        f"update + publish {r['chief_apply_ms']:.3f} ms")
+    for w, ws in enumerate(wstats):
+        log(f"    worker {w} medians: token wait {ws['median_token_ms']:.3f} ms, pull "
+            f"{ws['median_pull_ms']:.3f} ms, H2D + gradient + D2H {ws['median_grad_ms']:.3f} "
+            f"ms, push {ws['median_push_ms']:.3f} ms")
+    log(f"    wire: {r['wire_mb_per_apply']:.3f} MB an applied step (every client byte, "
+        "both ways, chief and workers)")
+    return r
 
 
 # ----------------------------------------------------------------------------
@@ -3397,12 +3481,15 @@ def _w1_sync_reshard(card: str, env: dict, device: str, steps: int) -> dict:
 def ps_sharded_end_to_end(card: str, phase10: dict, device: str = "cuda",
                           steps: int = PS_STEPS, reshard_steps: int = RESHARD_STEPS) -> dict:
     """Phase 11 (the module docstring): W2 at 2 shards x 2 replicas with a
-    primary kill and a serve replica predicting throughout, then W1 across a
-    live 2 -> 3 reshard; returns each run's measurements.  ``device`` and
-    the step counts let the phase run on the CPU at a small size."""
+    primary kill and a serve replica predicting throughout, and beside it
+    W1 across a live 2 -> 3 reshard (the two clusters start together, so
+    each run's host-bound numbers carry the other's load); returns each
+    run's measurements.  ``device`` and the step counts let the phase run
+    on the CPU at a small size."""
     env = {"PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
-    return {"w2_async_2x2": _w2_async_2x2(card, phase10, env, device, steps),
-            "w1_sync_reshard": _w1_sync_reshard(card, env, device, reshard_steps)}
+    return side_by_side({
+        "w2_async_2x2": (_w2_async_2x2, card, phase10, env, device, steps),
+        "w1_sync_reshard": (_w1_sync_reshard, card, env, device, reshard_steps)})
 
 
 # ----------------------------------------------------------------------------
@@ -3725,10 +3812,18 @@ def _ma_check(card: str, out: str, name: str, ranks: list, outs: list, metric: s
 
 def model_axis_end_to_end(card: str, phase9: dict | None = None, device: str = "cuda") -> dict:
     """Phase 12 (the module docstring): W4 and W5 at ``MA_MESH`` on two
-    ranks sharing the card, then ResNet-50 with ``--zero_opt`` on two data
+    ranks sharing the card, beside ResNet-50 with ``--zero_opt`` on two data
     ranks; returns the measurements and the BN kernels' launches by rank.
     ``device="cpu"`` rehearses it on gloo CPU ranks (set the step counts
     and ResNet sizes down first)."""
+    # W4 and W5's ranks side by side with ZeRO-1's.
+    runs = side_by_side({"ma": (_ma_runs, card, device),
+                         "zero": (zero_resnet, card, phase9 or {}, device)})
+    return {**runs["ma"], "zero": runs["zero"]}
+
+
+def _ma_runs(card: str, device: str) -> dict:
+    """Phase 12 (a) and (b): W4 and W5 at ``MA_MESH`` on two ranks."""
     rank_device = None if device == "cuda" else device
     log(f"  W4 word2vec and W5 PTB LSTM at their CLI defaults on {MA_RANKS} ranks sharing the "
         f"card, --mesh={MA_MESH}, {WORKLOAD_STEPS} steps each")
@@ -3742,7 +3837,6 @@ def model_axis_end_to_end(card: str, phase9: dict | None = None, device: str = "
                         {"emb/table": (0, 10000), "softmax/kernel": (1, 10000),
                          "softmax/bias": (0, 10000)}, "tokens", 64 * 20, device),
     }
-    result["zero"] = zero_resnet(card, phase9 or {}, device)
     return result
 
 
@@ -4736,7 +4830,7 @@ MOE_EP_MESH, MOE_EP_STEPS, MOE_EP_PROFILE_STEP = "data=1,expert=2", 3, 3
 TOL_MOE_EP_LOSS, TOL_MOE_EP_LOSS_LATER = 2e-3, 1.5e-2
 #: (c): one decode session on the pinned replica (one slot, a cache of
 #: exactly the session's length, as ``generate``'s).
-MOE_DECODE_PROMPT, MOE_DECODE_NEW = 16, 32
+MOE_DECODE_PROMPT, MOE_DECODE_NEW = 16, 16
 MOE_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 #: The aten ops of the routing, dispatch and combine (``ops/moe.py``: the
 #: top-k sort, the places' running count, the slot copies both ways); the
@@ -5204,6 +5298,377 @@ def moe_end_to_end(card: str) -> dict:
     return {"train": a, "expert_mesh": b, "serve": c}
 
 
+# ----------------------------------------------------------------------------
+# Phase 16: GPipe over the pipe axis, the collapsed stages served, decode
+# under a model mesh, ghost-batch BN over a slice axis
+# ----------------------------------------------------------------------------
+
+#: (a): phase 4's flagship and batch (vocab 32000, dim 1024, 12 layers, 8
+#: heads, T 2048, batch 8, bf16, clip 1.0 + AdamW 1e-3, JAX ``init``'s
+#: weights for seed 0) pipelined over 2 stages of 6 layers, 4 microbatches
+#: of 2 rows, on 2 gloo ranks sharing the card.
+PP_STAGES, PP_MICRO, PP_STEPS, PP_PROFILE_STEP = 2, 4, 3, 3
+PP_MESH = "pipe=2"
+PP_T, PP_LAYERS, PP_HEADS = 2048, 12, 8
+#: The device of the phase's runs (the card; the CPU for a dry run of
+#: the phase's logic at a small size).
+PP_DEVICE = "cuda"
+PP_FLAGS = [f"--batch_size={TRAIN_BATCH}", f"--seq_len={PP_T}", "--vocab_size=32000",
+            "--dim=1024", f"--n_layers={PP_LAYERS}", f"--n_heads={PP_HEADS}",
+            "--learning_rate=1e-3", "--clip_norm=1.0", "--log_every_steps=1", f"--seed={SEED}",
+            "--attention=auto", f"--device={PP_DEVICE}"]
+PP_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+#: Every rank runs every tick (M + S - 1 of them) over its 12 / S layers;
+#: the stage body is recomputed in the backward, so each tick launches the
+#: forward twice and the backward pair once a layer.
+PP_TICKS = PP_MICRO + PP_STAGES - 1
+PP_WANT = {"flash_fwd": 2 * PP_TICKS * PP_LAYERS // PP_STAGES,
+           "flash_dq": PP_TICKS * PP_LAYERS // PP_STAGES,
+           "flash_dkv": PP_TICKS * PP_LAYERS // PP_STAGES}
+#: Steps 1-3 against one process with --grad_accum=4 on the same global
+#: batches from the same weights: the same microbatch sums, so only bf16
+#: roundings of other product shapes differ.  Phase 14's gate.
+TOL_PP_LOSS = 2e-3
+#: (b): the greedy sample of the collapsed weights.
+PP_SAMPLE_PROMPT, PP_SAMPLE_NEW = 16, 8
+#: (c): ResNet-50 at phase 5's width and global batch, 2 ghost slices on
+#: --mesh=slice=2 (128 rows a rank), phase 9's train-set size.
+GB_SLICES, GB_STEPS, GB_EXAMPLES = 2, 3, DP_EXAMPLES
+GB_BATCH = RESNET_BATCH
+GB_FLAGS = [f"--batch_size={GB_BATCH}", f"--image_size={RESNET_IMAGE}",
+            "--num_classes=1000", "--learning_rate=0.1", "--momentum=0.9",
+            "--log_every_steps=1", f"--seed={SEED}", f"--device={PP_DEVICE}",
+            f"--bn_ghost_slices={GB_SLICES}", f"--synthetic_examples={GB_EXAMPLES}"]
+#: Each BN kernel's launches a step a rank: ResNet-50's 53 BatchNorms.
+GB_BN_WANT = 53
+#: Step 1's loss and running stats of a slice rank against one process's
+#: ghost path on the same global batch (its two ghost batches the ranks'
+#: rows): bf16 convolutions over 128 rows against 256 round apart.
+TOL_GB_LOSS, TOL_GB_STATS = 2e-2, 5e-2
+
+
+def _bn_stats_hook():
+    """A training hook that keeps the model state after step 1 (float32,
+    on the host)."""
+    from distributed_tensorflow_examples_tpu_torch import bridge
+    from distributed_tensorflow_examples_tpu_torch.train import hooks
+
+    class Stats(hooks.Hook):
+        def __init__(self):
+            self.after_first = None
+
+        def after_step(self, loop, metrics):
+            if self.after_first is None:
+                self.after_first = {p: t.detach().float().cpu().numpy().tolist()
+                                    for p, t in bridge._leaves(loop.state.model_state)}
+
+    return Stats()
+
+
+def pp_rank(out_dir: str, ckpt_dir: str) -> None:
+    """One rank of phase 16: (a) the pipelined flagship, (b) its stages
+    collapsed and decoded replicated on the chief and over a model=2 mesh
+    of the 2 ranks, (c) ghost-batch BN ResNet-50 over a slice=2 mesh.
+    Every count to 0 just before each path, read just after."""
+    import contextlib
+    import io
+
+    from distributed_tensorflow_examples_tpu_torch import ops
+    from distributed_tensorflow_examples_tpu_torch.data import datasets
+    from distributed_tensorflow_examples_tpu_torch.examples import resnet50 as rcli
+    from distributed_tensorflow_examples_tpu_torch.examples import transformer_lm as cli
+    from distributed_tensorflow_examples_tpu_torch.models import resnet, transformer
+    from distributed_tensorflow_examples_tpu_torch.parallel import collectives, dist, sharding
+    from distributed_tensorflow_examples_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from distributed_tensorflow_examples_tpu_torch.train import checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res: dict = {"rank": dist.process_index(), "backend": dist.backend()}
+
+    # (a) GPipe at full width.
+    args = cli.build_parser().parse_args(
+        [*PP_FLAGS, f"--train_steps={PP_STEPS}", f"--pipeline_stages={PP_STAGES}",
+         f"--microbatches={PP_MICRO}", f"--mesh={PP_MESH}", f"--log_dir={ckpt_dir}"])
+    cfg = cli.config_from_args(args)
+    hook = dp_step_hook(kernels=PP_KERNELS, profile_step=PP_PROFILE_STEP)
+    ops.reset_launches()  # every count to 0 just before the main path
+    collectives.TRAFFIC.clear()
+    t0 = time.perf_counter()
+    exp = cli.run_training(args, extra_hooks=[hook])
+    wall = time.perf_counter() - t0
+    launches, tc = dict(ops.LAUNCHES), dict(ops.TENSOR_CORE_LAUNCHES)  # just after
+    profiled = next(st for st in hook.steps if st["profiled"])
+    res["a"] = {"pipe": exp.mesh.pipe_index, "mesh": exp.mesh.shape, "wall_s": wall,
+                "steps": hook.steps, "launches": launches, "tc_launches": tc,
+                "layers_here": int(exp.state.params["blocks"]["qkv"]["kernel"].shape[0]),
+                "profile": _profile_summary(hook.prof, profiled["ms"])}
+
+    # (b) The stages collapsed (a collective gather), decoded replicated on
+    # the chief and over a model=2 mesh of the same 2 ranks.
+    t0 = time.perf_counter()
+    with exp.mesh.axes():
+        whole = checkpoint.global_params(exp.state.params, exp.specs["params"])
+    dcfg, dparams = transformer.collapse_pipeline(cfg, whole)
+    del exp
+    torch.cuda.empty_cache()
+    ids, _vocab, _src = datasets.text_corpus(None, vocab_size=cfg.vocab_size,
+                                             synth_tokens=2_000_000, seed=SEED)
+    prompt = np.asarray(ids[:PP_SAMPLE_PROMPT], np.int32)[None]
+    chief = dist.is_chief()
+    rep = None
+    if chief:
+        rep = transformer.generate(dcfg, dparams, prompt, max_new_tokens=PP_SAMPLE_NEW)
+    mesh = build_mesh(MeshSpec.parse("model=2"), PP_DEVICE)
+    tp = sharding.shard_pytree(dparams, mesh, transformer.sharding_rules(dcfg))
+    collectives.TRAFFIC.clear()
+    t1 = time.perf_counter()
+    tp_ids = transformer.generate(dcfg, tp, prompt, max_new_tokens=PP_SAMPLE_NEW, mesh=mesh)
+    tp_s = time.perf_counter() - t1
+    decode_traffic = dict(collectives.TRAFFIC)
+    # Teacher-forced over the TP tokens: the largest logit gap, and the
+    # replicated top-2 margin at each sampled position.
+    seq = tp_ids[0]
+    gap, margins = 0.0, []
+    with torch.inference_mode():
+        cache_tp = transformer.init_cache(dcfg, 1, seq.shape[0], device=PP_DEVICE, mesh=mesh)
+        cache_rep = transformer.init_cache(dcfg, 1, seq.shape[0], device=PP_DEVICE)
+        for pos in range(seq.shape[0] - 1):
+            lt, _c = transformer.decode_step(dcfg, tp, cache_tp, seq[pos:pos + 1], pos,
+                                             mesh=mesh)
+            if chief:
+                lr, _c = transformer.decode_step(dcfg, dparams, cache_rep, seq[pos:pos + 1], pos)
+                gap = max(gap, (lt.float() - lr.float()).abs().max().item())
+                if pos >= PP_SAMPLE_PROMPT - 1:
+                    top2 = lr.float().topk(2, dim=-1).values[0]
+                    margins.append((top2[0] - top2[1]).item())
+    res["b"] = {"rep": None if rep is None else rep[0].tolist(), "tp": seq.tolist(),
+                "tp_heads": int(tp["block_0"]["qkv"]["kernel"].shape[1] // (3 * dcfg.head_dim)),
+                "gap": gap, "margins": margins, "tp_s": tp_s, "traffic": decode_traffic,
+                "wall_s": time.perf_counter() - t0}
+    del dparams, tp, cache_tp, cache_rep
+    torch.cuda.empty_cache()
+
+    # (c) Ghost-batch BN over slice=2.
+    rargs = rcli.build_parser().parse_args(
+        [*GB_FLAGS, f"--train_steps={GB_STEPS}", f"--mesh=slice={GB_SLICES}"])
+    rcfg = rcli.config_from_args(rargs)
+    hook = dp_step_hook(kernels=("bn_stats", "bn_bwd_stats"))
+    stats = _bn_stats_hook()
+    ops.reset_launches()  # every count to 0 just before the main path
+    collectives.TRAFFIC.clear()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as final:
+        exp = rcli.run_training(rargs, loss_fn_factory=lambda m: resnet.loss_fn(rcfg, mesh=m),
+                                extra_hooks=[hook, stats])
+    res["c"] = {"slice": exp.mesh.slice_index, "wall_s": time.perf_counter() - t0,
+                "steps": hook.steps, "launches": dict(ops.LAUNCHES),
+                "stats": stats.after_first, "final": final.getvalue(),
+                "bn_group": None if exp.mesh.group is None else exp.mesh.group.size,
+                "batch_group": exp.mesh.batch_group.size}
+    _rank_result(out_dir, res)
+
+
+def _pp_reference(card: str) -> list:
+    """Phase 16 (a)'s yardstick: one process, the flat flagship (the same
+    weights: the pipelined init is the per-layer draws stacked) with
+    --grad_accum=PP_MICRO on the same global batches; returns its losses."""
+    from distributed_tensorflow_examples_tpu_torch.examples import transformer_lm as cli
+
+    args = cli.build_parser().parse_args(
+        [*PP_FLAGS, f"--train_steps={PP_STEPS}", f"--grad_accum={PP_MICRO}"])
+    clock = step_clock(())
+    cli.run_training(args, extra_hooks=[clock])
+    torch.cuda.empty_cache()
+    losses = [loss for _s, _ms, loss, _c in clock.steps]
+    log(f"  (a) one process, --grad_accum={PP_MICRO}: losses "
+        + ", ".join(f"{x:.5f}" for x in losses) + ", step ms "
+        + ", ".join(f"{ms:.1f}" for _s, ms, _l, _c in clock.steps) + f" [{card}]")
+    return losses
+
+
+def _gb_reference(card: str) -> tuple[float, dict]:
+    """Phase 16 (c)'s yardstick: one process's ghost path (no slice axis:
+    the batch splits into the 2 ghost batches) over the same global
+    batch, the ranks' first batches (each its strided share of the
+    pipeline's batch) in rank order, from the same weights; returns step
+    1's loss and the running stats after it."""
+    from distributed_tensorflow_examples_tpu_torch import bridge
+    from distributed_tensorflow_examples_tpu_torch.data import datasets, pipeline
+    from distributed_tensorflow_examples_tpu_torch.examples import resnet50 as rcli
+    from distributed_tensorflow_examples_tpu_torch.models import resnet
+    from distributed_tensorflow_examples_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from distributed_tensorflow_examples_tpu_torch.train import state as state_lib
+    from distributed_tensorflow_examples_tpu_torch.utils import threefry
+
+    args = rcli.build_parser().parse_args(GB_FLAGS)
+    cfg = rcli.config_from_args(args)
+    ds = datasets.imagenet_synthetic(image_size=args.image_size, n_train=args.synthetic_examples,
+                                     num_classes=args.num_classes, seed=args.seed)
+    parts = [next(iter(pipeline.InMemoryPipeline(ds.train, batch_size=args.batch_size,
+                                                 seed=args.seed, process_index=i,
+                                                 process_count=GB_SLICES)))
+             for i in range(GB_SLICES)]
+    batch = {k: torch.from_numpy(np.concatenate([p[k] for p in parts])).to(PP_DEVICE)
+             for k in parts[0]}
+    params, model_state = resnet.init_numpy(cfg, args.seed)
+    mesh = build_mesh(MeshSpec(), PP_DEVICE)
+    with mesh.axes(), torch.no_grad():
+        loss, (new_state, _m) = resnet.loss_fn(cfg, mesh=mesh)(
+            state_lib.as_param_leaves(params, PP_DEVICE),
+            state_lib.as_state_leaves(model_state, PP_DEVICE), batch, threefry.key(0))
+    stats = {p: t.float().cpu().numpy() for p, t in bridge._leaves(new_state)}
+    del batch, new_state
+    torch.cuda.empty_cache()
+    log(f"  (c) one process's ghost path over the ranks' global batch: step 1 loss "
+        f"{float(loss):.5f} [{card}]")
+    return float(loss), stats
+
+
+def _collapsed_from_checkpoint(ckpt_dir: Path, cfg):
+    """The pipe-trained checkpoint's global parameters, collapsed to the
+    per-layer layout, on the card."""
+    from distributed_tensorflow_examples_tpu_torch.models import transformer
+
+    step_dir = sorted((p for p in (ckpt_dir / "ckpt").iterdir() if p.name.isdigit()),
+                      key=lambda p: int(p.name))[-1]
+    blob = torch.load(step_dir / "state.pt", map_location=PP_DEVICE, weights_only=True)
+    tree: dict = {}
+    for path, t in blob["params"].items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = t
+    return transformer.collapse_pipeline(cfg, tree)
+
+
+def pipe_slice_end_to_end(card: str) -> dict:
+    """Phase 16 (the module docstring): the one-process yardsticks, then 2
+    ranks of ``pp_rank``; gates and prints; returns the launches by rank."""
+    from distributed_tensorflow_examples_tpu_torch.examples import transformer_lm as cli
+    from distributed_tensorflow_examples_tpu_torch.models import transformer
+
+    t0 = time.perf_counter()
+    want = _pp_reference(card)
+    gb_loss, gb_stats = _gb_reference(card)
+    t_ref = time.perf_counter() - t0
+    ckpt_dir = ROOT / "build" / "smoke_pipe_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()  # the ranks are processes of their own
+    try:
+        _c, _o, out = _run_ranks(2, f"pp_rank({{out!r}}, {str(ckpt_dir)!r})", 600)
+        ranks = _read_ranks(out, 2)
+
+        # (a)
+        gaps = [max(abs(r["a"]["steps"][i]["loss"] - w) for r in ranks)
+                for i, w in enumerate(want)]
+        log(f"  (a) {PP_MESH} ({ranks[0]['backend']}, 2 ranks sharing the card), "
+            f"--pipeline_stages={PP_STAGES} --microbatches={PP_MICRO}: losses by rank "
+            f"{[[round(st['loss'], 5) for st in r['a']['steps']] for r in ranks]}; one "
+            "process's " + ", ".join(f"{x:.5f}" for x in want) + " (worst |Δ| by step "
+            + ", ".join(f"{g:.2e}" for g in gaps) + f", tol {TOL_PP_LOSS:g}); layers by rank "
+            f"{[r['a']['layers_here'] for r in ranks]}")
+        for r in ranks:
+            if r["a"]["layers_here"] != PP_LAYERS // PP_STAGES or r["backend"] != "gloo":
+                raise SystemExit(f"phase 16 (a): rank {r['rank']} holds "
+                                 f"{r['a']['layers_here']} layers on {r['backend']}")
+            for st in r["a"]["steps"]:
+                got = {k: st["launches"].get(k, 0) for k in PP_KERNELS}
+                if got != PP_WANT:
+                    raise SystemExit(f"phase 16 (a): rank {r['rank']} step {st['step']} "
+                                     f"launched {got}, want {PP_WANT}")
+            require_tensor_cores(f"train_pipe rank {r['rank']}", r["a"]["launches"],
+                                 r["a"]["tc_launches"])
+        if not all(math.isfinite(g) and g <= TOL_PP_LOSS for g in gaps):
+            raise SystemExit(f"phase 16 (a): the pipelined losses disagree with one "
+                             f"process's: {gaps}")
+        tokens = TRAIN_BATCH * PP_T
+        step = ranks[0]["a"]["steps"][1]
+        log(f"  (a) step {step['ms']:.1f} ms (rank 0, step 2, host clock to the loss read), "
+            f"{tokens / (step['ms'] / 1e3):.0f} tokens/s; traffic a step (rank 0, step 2): "
+            + _traffic_line(step) + f" [{card}]")
+        for r in ranks:
+            p = r["a"]["profile"]
+            log(f"  (a) rank {r['rank']} (pipe {r['a']['pipe']}): profiled step "
+                f"{p['step_ms']:.1f} ms, device busy {p['busy_ms']:.1f} ms, idle "
+                f"{p['idle_share']:.1%}, {p['kernels']} kernels; launches a step "
+                + ", ".join(f"{k} {r['a']['steps'][-1]['launches'][k]}" for k in PP_KERNELS)
+                + f" (every one on the tensor cores); run {r['a']['wall_s']:.1f} s")
+
+        # (b)
+        chief = ranks[0]
+        rep, margins, gap = chief["b"]["rep"], chief["b"]["margins"], chief["b"]["gap"]
+        cfg = cli.config_from_args(cli.build_parser().parse_args(
+            [*PP_FLAGS, f"--pipeline_stages={PP_STAGES}", f"--microbatches={PP_MICRO}"]))
+        dcfg, dparams = _collapsed_from_checkpoint(ckpt_dir, cfg)
+        prompt = np.asarray(rep[:PP_SAMPLE_PROMPT], np.int32)[None]
+        one = transformer.generate(dcfg, dparams, prompt,
+                                   max_new_tokens=PP_SAMPLE_NEW)[0].tolist()
+        del dparams
+        torch.cuda.empty_cache()
+        tps = [r["b"]["tp"] for r in ranks]
+        first = next((i for i, (a, b) in enumerate(zip(rep, tps[0])) if a != b), None)
+        log(f"  (b) the chief's collapsed weights: {PP_SAMPLE_NEW} greedy tokens "
+            f"{rep[PP_SAMPLE_PROMPT:]}; one process from the pipe-trained checkpoint, "
+            f"collapsed: equal {one == rep}; decoded over model=2 ({chief['b']['tp_heads']} "
+            f"heads a rank, {chief['b']['tp_s']:.2f} s): equal {tps[0] == rep}, the ranks "
+            f"alike {tps[0] == tps[1]}; largest logit gap (teacher-forced) {gap:.3e}, "
+            f"smallest top-2 margin {min(margins):.3e}; decode traffic (rank 0) "
+            + _traffic_line({"traffic": chief["b"]["traffic"]}))
+        if one != rep or tps[0] != tps[1] or chief["b"]["tp_heads"] != PP_HEADS // 2:
+            raise SystemExit("phase 16 (b): the collapsed weights decode differently in one "
+                             "process, or the model ranks disagree")
+        if first is not None and margins[first - PP_SAMPLE_PROMPT] > 2 * gap:
+            raise SystemExit(f"phase 16 (b): the model=2 decode departs at position {first} "
+                             f"where the margin {margins[first - PP_SAMPLE_PROMPT]:.3e} exceeds "
+                             f"twice the logit gap {gap:.3e}")
+
+        # (c)
+        loss_gaps = [abs(r["c"]["steps"][0]["loss"] - gb_loss) for r in ranks]
+        stat_gap = 0.0
+        for r in ranks:
+            s = r["c"]["slice"]
+            for path, rows in r["c"]["stats"].items():
+                mine, ref = np.asarray(rows)[0], np.asarray(gb_stats[path])[s]
+                stat_gap = max(stat_gap, float(np.max(np.abs(mine - ref) / (np.abs(ref) + 1.0))))
+        bn_reduce = [sum(st["traffic"].get("bn_calls", 0) for st in r["c"]["steps"])
+                     for r in ranks]
+        grads = [r["c"]["steps"][1]["traffic"].get("grads_calls", 0) for r in ranks]
+        log(f"  (c) ResNet-50 --bn_ghost_slices={GB_SLICES} --mesh=slice={GB_SLICES} "
+            f"({GB_BATCH // GB_SLICES} rows a rank): step 1 losses {[round(r['c']['steps'][0]['loss'], 5) for r in ranks]} "
+            f"against one process's {gb_loss:.5f} (|Δ| {max(loss_gaps):.2e}, tol "
+            f"{TOL_GB_LOSS:g}); running stats after step 1, each rank's slice row against "
+            f"the one process's, largest |Δ| / (|ref| + 1) {stat_gap:.3e} (tol "
+            f"{TOL_GB_STATS:g}); BN all-reduces by rank {bn_reduce}; gradient buckets a "
+            f"step {grads} over {ranks[0]['c']['batch_group']} ranks")
+        for r in ranks:
+            for st in r["c"]["steps"]:
+                got = {k: st["launches"].get(k, 0) for k in ("bn_stats", "bn_bwd_stats")}
+                if got != {"bn_stats": GB_BN_WANT, "bn_bwd_stats": GB_BN_WANT}:
+                    raise SystemExit(f"phase 16 (c): rank {r['rank']} step {st['step']} "
+                                     f"launched {got}")
+            if "FINAL" not in r["c"]["final"] and r["rank"] == 0:
+                raise SystemExit("phase 16 (c): no FINAL line from the chief")
+        if any(bn_reduce) or grads != [1, 1] or ranks[0]["c"]["batch_group"] != 2:
+            raise SystemExit(f"phase 16 (c): BN all-reduces {bn_reduce} (want none), "
+                             f"gradient buckets {grads}")
+        if not (max(loss_gaps) <= TOL_GB_LOSS and stat_gap <= TOL_GB_STATS):
+            raise SystemExit(f"phase 16 (c): the slice ranks disagree with one process's "
+                             f"ghost path: loss {loss_gaps}, stats {stat_gap}")
+        step = ranks[0]["c"]["steps"][1]
+        log(f"  (c) step {step['ms']:.1f} ms (rank 0, step 2), "
+            f"{GB_BATCH / (step['ms'] / 1e3):.0f} images/s; traffic a step (rank 0): "
+            + _traffic_line(step) + f" [{card}]")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"  phase 16: the one-process yardsticks {t_ref:.1f} s, the ranks and the checks "
+        f"{time.perf_counter() - t0 - t_ref:.1f} s")
+    return {"pipe_launches": [r["a"]["launches"] for r in ranks],
+            "ghost_launches": [r["c"]["launches"] for r in ranks],
+            "decode_gap": gap, "loss_gaps": gaps}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
@@ -5217,8 +5682,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t_run = time.perf_counter()
+    marks: list = []
 
-    log("phase 1: build")
+    def phase(label: str, msg: str) -> None:
+        """Log a phase's start; its seconds are printed at the end."""
+        marks.append((label, time.perf_counter()))
+        log(msg)
+
+    phase("1", "phase 1: build")
     sources = ["flash_fwd", "flash_bwd", "flash_fused_bwd", "bn_stats"]
     t0 = time.perf_counter()
     built = _build.build(sources)
@@ -5227,7 +5699,7 @@ def main() -> int:
     tensor_cores = check_build(_build, sources)
     check_routes(flash)
 
-    log("phase 2: kernels against their plain versions on the card")
+    phase("2", "phase 2: kernels against their plain versions on the card")
     # The serving path's shape: the replica pads every apply to max_batch = 2
     # rows, so each layer's call folds 2 x 8 heads into BH = 16.
     errs = [
@@ -5281,7 +5753,7 @@ def main() -> int:
     ]
     bn_times = time_bn(bn, card)
 
-    log("phase 2b: the fused backward's parity gate (twin of tools/flash_parity.py)")
+    phase("2b", "phase 2b: the fused backward's parity gate (twin of tools/flash_parity.py)")
     from distributed_tensorflow_examples_tpu_torch.tools import flash_parity
 
     parity = flash_parity.run(quick=False, segmented=False, device="cuda")
@@ -5289,32 +5761,32 @@ def main() -> int:
     if not parity["parity_ok"]:
         raise SystemExit("the fused backward failed its parity gate")
 
-    log("phase 3: serve the flagship transformer end to end")
+    phase("3", "phase 3: serve the flagship transformer end to end")
     serve_launches, serve_tc = serve_end_to_end(card)
 
-    log("phase 4: train the flagship transformer end to end")
+    phase("4", "phase 4: train the flagship transformer end to end")
     kernel_ms = {"flash_fwd": train_fwd["ms"], **{k: v["ms"] for k, v in bwd.items()}}
     train_launches, train_tc = train_end_to_end(card, kernel_ms)
 
-    log("phase 5: train ResNet-50 end to end with the fused BatchNorm statistics")
+    phase("5", "phase 5: train ResNet-50 end to end with the fused BatchNorm statistics")
     resnet_launches, resnet_run = resnet_end_to_end(card)
 
-    log(f"phase 6: train the flagship at T {LONG_T} end to end through the fused backward")
+    phase("6", f"phase 6: train the flagship at T {LONG_T} end to end through the fused backward")
     long_launches, long_tc, long_losses = train_long_end_to_end(card, fused["ms"], long_fwd["ms"])
 
-    log("phase 7: train the four reference workloads (MNIST MLP, CIFAR-10 CNN, word2vec, "
+    phase("7", "phase 7: train the four reference workloads (MNIST MLP, CIFAR-10 CNN, word2vec, "
         "PTB LSTM) through their CLIs")
     workloads = workloads_end_to_end(card)
     log("  workloads: " + json.dumps({k: {m: round(v, 6) for m, v in r.items()}
                                       for k, r in workloads.items()}))
 
-    log("phase 8: the PS emulation (W1 sync-replicas, W2 async) through the MNIST and "
+    phase("8", "phase 8: the PS emulation (W1 sync-replicas, W2 async) through the MNIST and "
         "CIFAR-10 CLIs")
     ps = ps_emulation_end_to_end(card)
     log("  ps_emulation: " + json.dumps({k: {m: (round(v, 6) if isinstance(v, float) else v)
                                              for m, v in r.items()} for k, r in ps.items()}))
 
-    log("phase 9: synchronous data parallelism on the card (ResNet-50 W3 and the PTB LSTM "
+    phase("9", "phase 9: synchronous data parallelism on the card (ResNet-50 W3 and the PTB LSTM "
         f"W5 on {DP_RANKS} ranks sharing it, gloo; ResNet-50 on a world of one, nccl)")
     torch.cuda.empty_cache()  # the ranks are processes of their own
     dp = data_parallel_end_to_end(card, resnet_run)
@@ -5323,19 +5795,19 @@ def main() -> int:
     nccl_launches = {name: dp["resnet_nccl1"]["launches"][0].get(name, 0)
                      for name in ("bn_stats", "bn_bwd_stats")}
 
-    log("phase 10: W1 sync-replicas and W2 async SGD as PS, chief and worker processes "
+    phase("10", "phase 10: W1 sync-replicas and W2 async SGD as PS, chief and worker processes "
         "sharing the card")
     cluster = ps_cluster_end_to_end(card, ps)
     log("  ps_cluster: " + json.dumps({k: {m: (round(v, 6) if isinstance(v, float) else v)
                                            for m, v in r.items()} for k, r in cluster.items()}))
 
-    log("phase 11: the sharded, replicated, elastic PS (W2 at 2 shards x 2 replicas through "
+    phase("11", "phase 11: the sharded, replicated, elastic PS (W2 at 2 shards x 2 replicas through "
         "a primary kill, served while it trains; W1 across a live 2 -> 3 reshard)")
     sharded = ps_sharded_end_to_end(card, cluster)
     log("  ps_sharded: " + json.dumps({k: {m: (round(v, 6) if isinstance(v, float) else v)
                                            for m, v in r.items()} for k, r in sharded.items()}))
 
-    log(f"phase 12: the model mesh axis (W4 word2vec and W5 PTB LSTM at --mesh={MA_MESH}, "
+    phase("12", f"phase 12: the model mesh axis (W4 word2vec and W5 PTB LSTM at --mesh={MA_MESH}, "
         "vocab-parallel tables) and ZeRO-1 (ResNet-50 --zero_opt on 2 data ranks)")
     t12 = time.perf_counter()
     model_axis = model_axis_end_to_end(card, dp["resnet_dp2"])
@@ -5346,7 +5818,7 @@ def main() -> int:
                                        for k, r in model_axis.items()})
         + f"; phase 12 took {time.perf_counter() - t12:.1f} s")
 
-    log("phase 13: the data planes (ResNet-50 from .dtxr, .npz and dsvc://; W2's PS cluster "
+    phase("13", "phase 13: the data planes (ResNet-50 from .dtxr, .npz and dsvc://; W2's PS cluster "
         "reading a data service killed once) and a canary deploy of the W2 CNN")
     t13 = time.perf_counter()
     planes = data_planes_end_to_end(card, resnet_run, cluster)
@@ -5355,7 +5827,7 @@ def main() -> int:
                                         for k, r in planes.items() if k != "launches"})
         + f"; phase 13 took {time.perf_counter() - t13:.1f} s")
 
-    log(f"phase 14: the flagship at T {LONG_T} on a data x seq x model mesh (the flash ring, "
+    phase("14", f"phase 14: the flagship at T {LONG_T} on a data x seq x model mesh (the flash ring, "
         "fused and split hops, with Megatron TP; Ulysses), ranks sharing the card")
     t14 = time.perf_counter()
     hop_routes = time_hop_routes(flash, card)
@@ -5384,7 +5856,7 @@ def main() -> int:
         if sp[name]["total"] == 0:
             raise SystemExit(f"phase 14 launched {name} no time")
 
-    log(f"phase 15: the MoE flagship ({MOE_EXPERTS} experts, top-2, T {MOE_T}) trained on one "
+    phase("15", f"phase 15: the MoE flagship ({MOE_EXPERTS} experts, top-2, T {MOE_T}) trained on one "
         f"process and on --mesh={MOE_EP_MESH} (ranks sharing the card), then served from a "
         "pinned replica")
     t15 = time.perf_counter()
@@ -5408,6 +5880,19 @@ def main() -> int:
         if moe_l[name]["total"] == 0:
             raise SystemExit(f"phase 15 launched {name} no time")
 
+    phase("16", f"phase 16: GPipe over --mesh={PP_MESH} (the flagship, {PP_STAGES} stages, {PP_MICRO} "
+        "microbatches), its stages collapsed and decoded over model=2, and ghost-batch BN "
+        f"ResNet-50 over slice={GB_SLICES}, ranks sharing the card")
+    t16 = time.perf_counter()
+    pipe_slice = pipe_slice_end_to_end(card)
+    log(f"  phase 16 took {time.perf_counter() - t16:.1f} s")
+    pp_l = {name: [r.get(name, 0) for r in pipe_slice["pipe_launches"]] for name in PP_KERNELS}
+    gb_l = {name: [r.get(name, 0) for r in pipe_slice["ghost_launches"]]
+            for name in ("bn_stats", "bn_bwd_stats")}
+    for name, by_rank in {**pp_l, **gb_l}.items():
+        if sum(by_rank) == 0:
+            raise SystemExit(f"phase 16 launched {name} no time")
+
     csrc = "distributed_tensorflow_examples_tpu_torch/ops/csrc"
     tpu = "distributed_tensorflow_examples_tpu/ops/flash_attention.py"
     record = {"kernels": [
@@ -5416,15 +5901,17 @@ def main() -> int:
             "replaces": f"{tpu}:135",
             "launches": serve_launches.get("flash_fwd", 0)
             + train_launches.get("flash_fwd", 0) + long_launches.get("flash_fwd", 0)
-            + sp["flash_fwd"]["total"] + moe_l["flash_fwd"]["total"],
+            + sp["flash_fwd"]["total"] + moe_l["flash_fwd"]["total"]
+            + sum(pp_l["flash_fwd"]),
             "launches_by_path": {"serve": serve_launches.get("flash_fwd", 0),
                                  "train": train_launches.get("flash_fwd", 0),
                                  "train_t8192": long_launches.get("flash_fwd", 0),
                                  **sp["flash_fwd"]["by_path"],
-                                 **moe_l["flash_fwd"]["by_path"]},
+                                 **moe_l["flash_fwd"]["by_path"],
+                                 "train_pipe2_by_rank": pp_l["flash_fwd"]},
             "tensor_core_launches": serve_tc.get("flash_fwd", 0)
             + train_tc.get("flash_fwd", 0) + long_tc.get("flash_fwd", 0)
-            + sp["flash_fwd"]["tc"] + moe_l["flash_fwd"]["total"],
+            + sp["flash_fwd"]["tc"] + moe_l["flash_fwd"]["total"] + sum(pp_l["flash_fwd"]),
             "cuda_core_launches": sp["flash_fwd"]["cuda_core"],
             "f32_route_at_hop_shape": hop_routes["flash_fwd"],
             "max_abs_err": max(errs), **main_shape,
@@ -5436,12 +5923,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"{csrc}/flash_bwd.cu",
             "replaces": f"{tpu}:{line}",
             "launches": train_launches.get(name, 0) + long_launches.get(name, 0)
-            + sp[name]["total"] + moe_l[name]["total"],
+            + sp[name]["total"] + moe_l[name]["total"] + sum(pp_l[name]),
             "launches_by_path": {"train": train_launches.get(name, 0),
                                  "train_t8192": long_launches.get(name, 0),
-                                 **sp[name]["by_path"], **moe_l[name]["by_path"]},
+                                 **sp[name]["by_path"], **moe_l[name]["by_path"],
+                                 "train_pipe2_by_rank": pp_l[name]},
             "tensor_core_launches": train_tc.get(name, 0) + long_tc.get(name, 0)
-            + sp[name]["tc"] + moe_l[name]["total"],
+            + sp[name]["tc"] + moe_l[name]["total"] + sum(pp_l[name]),
             "cuda_core_launches": sp[name]["cuda_core"],
             "f32_route_at_hop_shape": hop_routes[name],
             "max_abs_err": max(e[name] for e in bwd_errs), **bwd[name],
@@ -5465,15 +5953,21 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"{csrc}/bn_stats.cu",
             "replaces": f"distributed_tensorflow_examples_tpu/ops/bn.py:{line}",
             "launches": resnet_launches.get(name, 0) + sum(dp_launches[name])
-            + nccl_launches[name] + sum(zero_launches[name]) + sum(planes["launches"][name]),
+            + nccl_launches[name] + sum(zero_launches[name]) + sum(planes["launches"][name])
+            + sum(gb_l[name]),
             "launches_by_path": {"train_resnet50": resnet_launches.get(name, 0),
                                  "train_resnet50_dp2_by_rank": dp_launches[name],
                                  "train_resnet50_nccl1": nccl_launches[name],
                                  "train_resnet50_zero1_dp2_by_rank": zero_launches[name],
-                                 "train_resnet50_dtxr_npz_dsvc": planes["launches"][name]},
+                                 "train_resnet50_dtxr_npz_dsvc": planes["launches"][name],
+                                 "train_resnet50_ghost_slice2_by_rank": gb_l[name]},
             "max_abs_err": max(e[name] for e in bn_errs), **bn_times[name],
         } for name, line in (("bn_stats", 166), ("bn_bwd_stats", 239))),
     ]}
+    ends = [t for _label, t in marks[1:]] + [time.perf_counter()]
+    log("phase seconds: " + json.dumps({label: round(e - t, 1)
+                                       for (label, t), e in zip(marks, ends)})
+        + f"; phases 1-16 {time.perf_counter() - t_run:.1f} s")
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -10,6 +10,11 @@
   with no error.  This module is the port's one spelling of that order.
 - :func:`params_from_numpy` turns a JAX param tree held as numpy arrays
   into the port's tensors.
+
+The trees are the JAX package's whatever their layout: a pipelined
+transformer's stacked ``blocks`` (a leading layer dim on every leaf), a
+ghost-batch BN model state's [S, C] running stats, and the global
+arrays a checkpoint of a sharded port run holds.
 """
 
 from __future__ import annotations

@@ -122,7 +122,7 @@ def train_iter(
     worker w streams a disjoint shard subset (native) / row stride (stream)
     / its own claims (dsvc) / its own sample stream (memory), each with a
     worker-distinct seed.  Without ``worker``, ``batch_size`` is the global
-    batch of the row shards (data x expert; ``mesh``'s, default the calling
+    batch of the row shards (slice x data x expert; ``mesh``'s, default the calling
     thread's): an in-memory source yields this rank's rows of the JAX
     pipeline's batch
     (under ``microbatches`` > 1 on several ranks, its share of each
@@ -131,10 +131,12 @@ def train_iter(
     if worker is None:
         if mesh is None:
             index, count = collectives.axis_index(ROWS), collectives.axis_size(ROWS)
-        else:  # the row shards, data major; an expert axis only where it exists
-            x = mesh.shape.get("expert", 1)
-            index = mesh.data_index * x + (mesh.index("expert") if x > 1 else 0)
-            count = mesh.shape["data"] * x
+        else:  # the row shards, slice major, then data, then expert
+            index, count = 0, 1
+            for a in ROWS:
+                n = mesh.shape.get(a, 1)
+                i = mesh.data_index if a == "data" else (mesh.index(a) if n > 1 else 0)
+                index, count = index * n + i, count * n
         if src.kind == "memory":
             return iter(InMemoryPipeline(src.ds.train, batch_size=batch_size, seed=seed,
                                          process_index=index, process_count=count,

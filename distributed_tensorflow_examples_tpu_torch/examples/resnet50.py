@@ -22,8 +22,11 @@ every BatchNorm through the statistics kernels (``ops/bn.py``).
 ``--job_name=ps`` prints and exits 0, as the JAX CLI does, and the other
 TF-1 cluster flags are accepted and mapped (``utils/flags.py``): the JAX
 CLI has no PS branch, so ``--ps_emulation`` and ``--sync_replicas=false``
-train as usual, and so does a cross-process PS task role, as there; ghost-batch BN
-(``--bn_ghost_slices``) waits for the port's item A8b-2b.  ``--zero_opt``
+train as usual, and so does a cross-process PS task role, as there.
+``--bn_ghost_slices=S`` takes every BatchNorm's statistics slice-locally
+(ghost-batch BN): pass ``--mesh=slice=S,data=...``, whose row shards are
+slice major, so no statistics reduction crosses a slice; on one process
+the batch splits into S ghost batches.  ``--zero_opt``
 keeps each data rank's block of the momentum of every leaf of 65536 elements or more (ZeRO-1,
 ``train/state.py``), with the replicated run's numbers.
 
@@ -62,7 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
     add("--momentum", type=float, default=0.9, help="SGD momentum.")
     add("--synthetic_examples", type=int, default=2048, help="Synthetic train-set size.")
     add("--bn_ghost_slices", type=int, default=0,
-        help=">0 scopes BN statistics to slice-local groups (waits for A8b-2b).")
+        help='>0 scopes BN statistics to this many slice-local groups (pass a matching '
+             '--mesh, e.g. "slice=2,data=8"), so the per-layer reductions never cross a '
+             'slice.')
     flags.add_legacy_cluster_flags(p)
     return p
 
@@ -99,7 +104,7 @@ def run_training(args, *, loss_fn_factory=None, extra_hooks=()) -> Experiment:
     ``resnet.loss_fn(cfg)``.  Returns the finished Experiment, with its
     data as ``exp.source`` and the eval's metrics as ``exp.test_metrics``."""
     cfg = config_from_args(args)
-    rules = resnet.sharding_rules(cfg)  # ghost-batch BN raises here (A8b-2b)
+    rules = resnet.sharding_rules(cfg)
     tenant = getattr(args, "tenant", "default") or "default"
     src = streams.resolve_image_source(
         args.data_dir,

@@ -43,7 +43,14 @@ whose experts shard over ``expert``::
     python -m distributed_tensorflow_examples_tpu_torch.examples.transformer_lm \\
         --moe_experts=8 --mesh=data=1,expert=2 --batch_size=4 --seq_len=2048 ...
 
-Both run on the card unless ``--device=cpu``.  The reference's TF-1
+``--pipeline_stages=S`` stacks the blocks and runs them under the GPipe
+schedule over a ``pipe`` axis of S (``--microbatches`` a step), each pipe
+rank holding its L/S layers; it composes with ``data`` and ``model``::
+
+    python -m distributed_tensorflow_examples_tpu_torch.examples.transformer_lm \
+        --pipeline_stages=2 --microbatches=4 --mesh=data=1,pipe=2 --batch_size=8 ...
+
+All of them run on the card unless ``--device=cpu``.  The reference's TF-1
 cluster flags are accepted and mapped (``utils/flags.py``):
 ``--job_name=ps`` prints and exits 0, ``--ps_hosts`` is logged and
 ignored, ``--worker_hosts`` logged; the JAX CLI has no PS branch, so
@@ -54,13 +61,18 @@ whatever ``--ps_hosts`` says, at the replica's defaults (32 rows, 5 ms,
 a queue of 128, no queue deadline), which the ``--serve_*`` flags do not
 change, as in JAX.  ``--sample_tokens=N`` greedily
 decodes N tokens after training from the corpus's first 16 tokens and
-logs them (on a data x expert mesh, as in JAX, the prompt tiled once per
-row shard and decoded sharded).  On a world of N ranks (``TF_CONFIG``)
+logs them: on the training mesh, as in JAX, the prompt tiled once per
+row shard and decoded sharded (the rank's heads and vocab block over
+``model``, a ``seq`` axis replicated); a pipelined model's stacked
+blocks are gathered, collapsed to the per-layer layout and decoded by
+the chief alone on its device (JAX's single-host path; it skips the
+sample on several hosts, and the port always runs one process a
+device).  On a world of N ranks (``TF_CONFIG``)
 each row shard trains on a contiguous block of the corpus with
 ``--batch_size`` / (data x expert) rows, as the JAX CLI shards it over
 hosts, and, as there, a multi-process run skips the registry publish.
-Pipeline stages and ``--sample_tokens`` under a ``seq`` or ``model`` axis
-(decode under a mesh) wait for the port's item A8b-2b.
+A pipelined run publishes to ``--registry_dir`` the collapsed
+(per-layer) layout, the one a serving replica decodes.
 """
 
 from __future__ import annotations
@@ -74,9 +86,9 @@ import numpy as np
 from ..data import datasets, pipeline
 from ..models import transformer
 from ..parallel import dist, sharding
-from ..parallel.mesh import MeshSpec
 from ..serve import ModelRegistry, host_serve_task
 from ..train import Experiment, optim
+from ..train import checkpoint
 from ..train.checkpoint import flat_params_of
 from ..utils import flags
 
@@ -100,7 +112,9 @@ def build_parser() -> argparse.ArgumentParser:
     add("--sample_tokens", type=int, default=0,
         help=">0 greedy-decodes this many tokens after training.")
     add("--pipeline_stages", type=int, default=1,
-        help=">1 waits for the port's pipeline axis (A8b-2b).")
+        help=">1 runs the block stack under the GPipe schedule over the mesh 'pipe' axis "
+             '(pass a matching --mesh, e.g. "data=2,pipe=4"); must divide --n_layers.')
+    add("--microbatches", type=int, default=4, help="GPipe microbatches per step.")
     add("--moe_experts", type=int, default=0,
         help='>0 swaps every block\'s MLP for a mixture-of-experts FFN sharded over the '
              'mesh "expert" axis (pass e.g. --mesh "data=2,expert=4"); top-2 routing, '
@@ -128,6 +142,7 @@ def config_from_args(args) -> transformer.Config:
         vocab_size=args.vocab_size, dim=args.dim, n_layers=args.n_layers,
         n_heads=args.n_heads, max_seq_len=args.seq_len,
         attention=args.attention, pipeline_stages=args.pipeline_stages,
+        microbatches=args.microbatches,
         moe_experts=args.moe_experts, moe_capacity_factor=args.moe_capacity_factor,
         moe_group_size=args.moe_group_size, remat=args.remat,
         loss_chunks=args.loss_chunks,
@@ -176,9 +191,13 @@ def _publish_to_registry(args, exp) -> int | None:
         logging.warning("--registry_dir publish skipped on multi-process runs; restore "
                         "the checkpoint in one process and publish there.")
         return None
+    cfg = config_from_args(args)
+    # Registry snapshots use the serving layout: a pinned replica decodes
+    # with the stages collapsed.
+    _dcfg, params = transformer.collapse_pipeline(cfg, _global_params(exp))
     version = ModelRegistry(args.registry_dir).publish(
         "transformer_lm",
-        flat_params_of(exp.state),
+        flat_params_of(params),
         step=int(exp.state.step),
         source=f"transformer_lm seed={args.seed}",
     )
@@ -190,18 +209,33 @@ def _publish_to_registry(args, exp) -> int | None:
     return version
 
 
+def _global_params(exp):
+    """The whole parameter tree on every rank (a collective)."""
+    with exp.mesh.axes():
+        return checkpoint.global_params(exp.state.params, exp.specs["params"])
+
+
+def sample(cfg, exp, prompt_ids, max_new_tokens: int):
+    """The ``--sample_tokens`` decode (module docstring): the sampled
+    token ids on the chief, None on the other ranks of a pipelined run."""
+    mesh = exp.mesh
+    if cfg.pipeline_stages > 1:
+        dcfg, dparams = transformer.collapse_pipeline(cfg, _global_params(exp))
+        if not dist.is_chief():
+            return None
+        prompt = np.asarray(prompt_ids, np.int32)[None]
+        return transformer.generate(dcfg, dparams, prompt, max_new_tokens=max_new_tokens)
+    prompt = np.tile(np.asarray(prompt_ids, np.int32)[None], (mesh.row_shards, 1))
+    return transformer.generate(cfg, exp.state.params, prompt,
+                                max_new_tokens=max_new_tokens, mesh=mesh)
+
+
 def run_training(args, *, extra_hooks=()) -> Experiment:
     """The training job: corpus -> Experiment -> run -> publish -> FINAL
     line.  Returns the finished Experiment (``exp.published_version``
     when ``--registry_dir`` was given)."""
     cfg = config_from_args(args)
-    transformer.param_shapes(cfg)  # pipeline stages raise here (A8b-2b)
-    spec = MeshSpec.parse(args.mesh)
-    if args.sample_tokens > 0 and (spec.seq != 1 or spec.model != 1):
-        raise NotImplementedError(
-            "--sample_tokens under a 'seq' or 'model' mesh axis (decode under a mesh) "
-            "waits for the port's item A8b-2b"
-        )
+    transformer.param_shapes(cfg)  # JAX init's refusals, before the corpus
     if args.sample_tokens > 0 and PROMPT_LEN + args.sample_tokens > args.seq_len:
         # Refused before training: generate() would raise after the whole
         # run and lose the FINAL line.
@@ -235,12 +269,11 @@ def run_training(args, *, extra_hooks=()) -> Experiment:
     batches = pipeline.rank_batches(rank_stream, args.grad_accum, mesh.row_index, shards)
     exp.run(pipeline.seq_columns(batches, mesh.seq_index, mesh.shape.get("seq", 1)))
     if args.sample_tokens > 0:
-        # KV-cache greedy decode from a corpus prompt, its rows covering the
-        # row shards (data x expert), decoded on the training mesh.
-        prompt = np.tile(np.asarray(ids[:PROMPT_LEN], np.int32)[None], (shards, 1))
-        out = transformer.generate(cfg, exp.state.params, prompt,
-                                   max_new_tokens=args.sample_tokens, mesh=mesh)
-        logging.info("sampled token ids: %s", out[0, PROMPT_LEN:].tolist())
+        # KV-cache greedy decode from a corpus prompt.
+        out = sample(cfg, exp, ids[:PROMPT_LEN], args.sample_tokens)
+        exp.sampled = None if out is None else out[0, PROMPT_LEN:].tolist()
+        if out is not None:
+            logging.info("sampled token ids: %s", exp.sampled)
     if args.registry_dir:
         exp.published_version = _publish_to_registry(args, exp)
     m = exp.session.last_metrics

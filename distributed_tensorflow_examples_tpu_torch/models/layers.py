@@ -200,58 +200,124 @@ def batchnorm(
     - train without: one-pass f32 statistics, clamped biased variance,
       autograd through them; under data parallelism the global batch's
       (sums all-reduced over the ranks, ``collectives.psum``);
+    - train with ``ghost_slices`` S > 0 (JAX ``_batchnorm_ghost``):
+      slice-local statistics, each of the S ghost batches normalised by
+      its own moments, the running stats [S, C] updated row by row
+      (:func:`_batchnorm_ghost`);
     - eval: the running stats ([S, C] ghost stats by the law of total
-      variance).
+      variance, gathered over a ``slice`` axis where a rank holds its
+      slice's row).
 
     The running stats update as ``momentum * old + (1 - momentum) * new``
     (the reverse of ``nn.BatchNorm2d``'s convention, and with the biased
     variance).  ``relu`` applies ReLU inside the layer; on the fused path
-    the backward then recomputes the mask in the kernel.  Ghost-batch
-    training waits for the port's item A8b-2b."""
+    the backward then recomputes the mask in the kernel."""
     if train and ghost_slices > 0:
-        raise NotImplementedError(
-            "ghost-batch BN training (bn_ghost_slices > 0, statistics scoped to "
-            "a 'slice' mesh axis) waits for the port's item A8b-2b"
-        )
+        return _batchnorm_ghost(params, stats, x, momentum=momentum, eps=eps, mesh=mesh,
+                                relu=relu, ghost_slices=ghost_slices)
     if train:
         if mesh is not None:
             y, mean, var = bn_ops.batchnorm_train(
                 params["scale"], params["bias"], x, eps, mesh, relu
             )
-            return y, {
-                "mean": momentum * stats["mean"] + (1 - momentum) * mean,
-                "var": momentum * stats["var"] + (1 - momentum) * var,
-            }
-        axes = tuple(range(x.dim() - 1))
-        xf = x.to(torch.float32)
-        # The global batch's moments, as GSPMD makes JAX's mean over a
-        # batch sharded on 'data': sums all-reduced with autograd (the
-        # identity on one rank), over the global count.
-        sums = collectives.psum(
-            torch.stack([xf.sum(dim=axes), xf.square().sum(dim=axes)]), tag="bn")
-        n = (x.numel() // x.shape[-1]) * collectives.axis_size()
-        mean, mean_sq = sums[0] / n, sums[1] / n
-        # Clamp: f32 cancellation can push E[x^2]-E[x]^2 slightly negative.
-        var = torch.clamp(mean_sq - mean.square(), min=0.0)
-        new_stats = {
-            "mean": momentum * stats["mean"] + (1 - momentum) * mean.detach(),
-            "var": momentum * stats["var"] + (1 - momentum) * var.detach(),
-        }
-    else:
-        mean, var = stats["mean"], stats["var"]
-        if mean.dim() == 2:
-            # Ghost-trained [S, C] stats: the global moments by the law of
-            # total variance (mean of the variances + variance of the means).
-            gmean = mean.mean(dim=0)
-            var = var.mean(dim=0) + (mean - gmean).square().mean(dim=0)
-            mean = gmean
-        new_stats = stats
+        else:
+            # The global batch's moments, as GSPMD makes JAX's mean over a
+            # batch sharded on its rows.
+            y, mean, var = _moments_bn(params, x, eps, relu, "rows")
+        return y, _ema(stats, mean, var, momentum)
+    mean, var = stats["mean"], stats["var"]
+    if mean.dim() == 2 and collectives.axis_size("slice") > 1:
+        # This rank holds its slice's row: the [S, C] stats, gathered.
+        mean = collectives.all_gather(mean, 0, axis_name="slice", tag="bn_eval")
+        var = collectives.all_gather(var, 0, axis_name="slice", tag="bn_eval")
+    if mean.dim() == 2:
+        # Ghost-trained [S, C] stats: the global moments by the law of
+        # total variance (mean of the variances + variance of the means).
+        gmean = mean.mean(dim=0)
+        var = var.mean(dim=0) + (mean - gmean).square().mean(dim=0)
+        mean = gmean
+    return _normalise(params, x, mean, var, eps, relu), stats
+
+
+def _normalise(params, x, mean, var, eps, relu):
+    """(x - mean) * rsqrt(var + eps) * scale + bias in x's dtype (the
+    statistics in float32), then the ReLU when ``relu``."""
     inv = torch.rsqrt(var + eps) * params["scale"]
     dt = x.dtype
     y = (x - mean.to(dt)) * inv.to(dt) + params["bias"].to(dt)
-    if relu:
-        y = torch.relu(y)
-    return y, new_stats
+    return torch.relu(y) if relu else y
+
+
+def _batchnorm_ghost(params, stats, x, *, momentum, eps, mesh, relu, ghost_slices: int):
+    """Ghost-batch (slice-local) BN statistics (JAX ``_batchnorm_ghost``):
+    the global batch [B] read as [S, B/S], each slice normalised by its
+    own batch's moments, so no statistics reduction crosses a slice; the
+    running stats [S, C] update each slice's row.
+
+    Under a ``slice`` axis of S (the installed groups: a train step's),
+    this rank's rows are in its slice: the statistics sum over the
+    slice-local data group alone (with a ``mesh``, through
+    :func:`ops.bn.batchnorm_train`, the B6/B7 kernels on the card; else
+    the plain moments), and the rank holds and updates its slice's row of
+    the stats ([1, C], laid out ``P("slice", None)`` by the model's
+    rules).  On one row shard with no slice axis the local batch splits
+    into S chunks, each with its own statistics, as JAX reshapes it."""
+    S = ghost_slices
+    slices = collectives.axis_size("slice")
+    if slices > 1:
+        if slices != S:
+            raise ValueError(f"ghost BN: {S} slices on a mesh whose 'slice' axis is {slices}")
+        if stats["mean"].shape[0] != 1:
+            raise ValueError(
+                "ghost BN on a 'slice' axis updates this rank's row of the [S, C] stats: lay "
+                "the model state out by the model's sharding rules")
+        if mesh is not None:
+            y, mean, var = bn_ops.batchnorm_train(
+                params["scale"], params["bias"], x, eps, mesh, relu, ghost=True)
+        else:
+            y, mean, var = _moments_bn(params, x, eps, relu, "data")
+        return y, _ema(stats, mean[None], var[None], momentum)
+    if collectives.axis_size("rows") > 1:
+        raise ValueError(
+            f"ghost BN over {collectives.axis_size('rows')} row shards needs a mesh whose "
+            f"'slice' axis is {S} (e.g. --mesh=slice={S},data=...)")
+    B = x.shape[0]
+    if B % S:
+        raise ValueError(f"ghost BN: batch {B} not divisible by {S} slices")
+    ys, means, vars_ = [], [], []
+    for xs in x.chunk(S, dim=0):
+        if mesh is not None:
+            y, mean, var = bn_ops.batchnorm_train(params["scale"], params["bias"], xs, eps,
+                                                  None, relu)
+        else:
+            y, mean, var = _moments_bn(params, xs, eps, relu, None)
+        ys.append(y)
+        means.append(mean)
+        vars_.append(var)
+    return torch.cat(ys), _ema(stats, torch.stack(means), torch.stack(vars_), momentum)
+
+
+def _moments_bn(params, x, eps, relu, axis):
+    """(y, mean, var) from one-pass f32 moments, autograd through them:
+    the sums over ``axis``'s ranks (``collectives.psum``, the identity on
+    one rank; this rank's alone for None), over their global count; the
+    variance clamped at 0 (f32 cancellation can push E[x^2]-E[x]^2
+    slightly negative)."""
+    axes = tuple(range(x.dim() - 1))
+    xf = x.to(torch.float32)
+    sums = torch.stack([xf.sum(dim=axes), xf.square().sum(dim=axes)])
+    n = x.numel() // x.shape[-1]
+    if axis is not None:
+        sums = collectives.psum(sums, axis, tag="bn")
+        n *= collectives.axis_size(axis)
+    mean, mean_sq = sums[0] / n, sums[1] / n
+    var = torch.clamp(mean_sq - mean.square(), min=0.0)
+    return _normalise(params, x, mean, var, eps, relu), mean, var
+
+
+def _ema(stats, mean, var, momentum):
+    return {"mean": momentum * stats["mean"] + (1 - momentum) * mean.detach(),
+            "var": momentum * stats["var"] + (1 - momentum) * var.detach()}
 
 
 # ----------------------------------------------------------------------------

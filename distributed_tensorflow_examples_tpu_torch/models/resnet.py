@@ -12,9 +12,13 @@ between the packages as they are.
 
 ``mesh`` (a ``parallel.mesh.Mesh``) sends every BatchNorm through the
 fused statistics path, the B6/B7 kernels on the card (``ops/bn.py``;
-SyncBN when its ``data`` axis is larger than 1), as the JAX ``mesh=``
-does; without it BatchNorm is plain torch.  Ghost-batch BN training
-(``bn_ghost_slices > 0``) waits for the port's item A8b-2b.
+SyncBN when its row shards are more than one rank), as the JAX ``mesh=``
+does; without it BatchNorm is plain torch.  Ghost-batch BN
+(``bn_ghost_slices`` S > 0, JAX ``_batchnorm_ghost``) takes every
+BatchNorm's statistics slice by slice: on a mesh whose ``slice`` axis is
+S, over the slice-local data group only (no statistics reduction
+crosses a slice; only the gradient all-reduce does), each rank holding
+its slice's row of the [S, C] running stats (:func:`sharding_rules`).
 """
 
 from __future__ import annotations
@@ -212,11 +216,11 @@ def loss_fn(cfg: Config, *, l2: float = 1e-4, mesh=None):
 
 def sharding_rules(cfg: Config) -> tuple:
     """No rules without ghost BN (every leaf replicated; ``--zero_opt``
-    shards the slots); ghost-batch BN's per-slice stats, sharded over a
-    'slice' axis, wait for the port's item A8b-2b."""
+    shards the slots); ghost-batch BN's per-slice running stats [S, C]
+    shard over the ``slice`` axis (JAX ``sharding_rules``), so their
+    update never crosses a slice."""
     if cfg.bn_ghost_slices > 0:
-        raise NotImplementedError(
-            "ghost-batch BN (bn_ghost_slices > 0) shards its running stats over a "
-            "'slice' mesh axis: the port's item A8b-2b"
-        )
+        from ..parallel.partitioner import PartitionSpec as P
+
+        return ((r".*/bn[^/]*/(mean|var)$", P("slice", None)),)
     return ()

@@ -45,18 +45,31 @@ runs its block of the step, laid out by :func:`sharding_rules`:
   expert group by all-to-all, and :func:`loss_fn` adds
   ``moe_aux_weight`` times the layers' Switch loss (``metrics["moe_aux"]``).
 
+- ``pipe`` (``pipeline_stages > 1``): the blocks are stacked (one
+  ``blocks`` tree whose leaves carry a leading layer dim, JAX's
+  pipeline layout), each pipe rank holding its L/S layers
+  (:func:`sharding_rules`), and run under the GPipe schedule of
+  ``parallel/pipeline.py`` with ``microbatches`` microbatches; the
+  stage body is the same block (the flash kernels on the card, Megatron
+  over ``model``), recomputed in the backward.  :func:`collapse_pipeline`
+  turns the stacked layout into the per-layer one for decode and serving.
+
 A block runs its collectives only where its leaves are blocks: whole
 leaves (a one-rank step beside a model mesh) run none.  KV-cache decode
 (:func:`decode_step`, the per-row-position :func:`decode_step_batch` a
 serving replica steps, :func:`generate`) keeps its attention in plain
-PyTorch, as the reference keeps it outside Pallas; MoE blocks decode
-through the training layer, on one device or on a data x expert mesh.
-Pipeline stages and decode under a ``seq`` or ``model`` mesh come with
-the port's item A8b-2b.
+PyTorch, as the reference keeps it outside Pallas.  Under a mesh it runs
+on the rank's rows (data x expert) with the training layout: the cache
+holds the rank's heads over ``model`` (:func:`init_cache`), the blocks
+are Megatron's, MoE blocks route through the training layer, the
+vocab-parallel head's logits are gathered over ``model`` so every rank
+picks the same token, and a ``seq`` axis is replicated (the decode's T of
+1 never touches it: JAX's ``_decode_constrain``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -70,6 +83,7 @@ from ..ops import attention as attn_ops
 from ..ops import flash_attention as flash_ops
 from ..ops import moe as moe_ops
 from ..parallel import collectives, sharding
+from ..parallel import pipeline as pipeline_lib
 from ..parallel.partitioner import PartitionSpec as P
 from ..utils import device as device_lib
 from ..utils import threefry
@@ -80,9 +94,10 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """The JAX ``Config``: the same fields and defaults (the pipeline
-    fields are carried so a config reads the same in both packages; see
-    the module docstring for what the port runs)."""
+    """The JAX ``Config``: the same fields and defaults.
+    ``pipeline_stages > 1`` stacks the blocks and runs them under the
+    GPipe schedule over the mesh's ``pipe`` axis (which must be that
+    size), with ``microbatches`` microbatches a step."""
 
     vocab_size: int = 32000
     dim: int = 512
@@ -125,13 +140,14 @@ class Config:
 
 
 def _check_supported(cfg: Config) -> None:
+    """JAX ``init``'s refusals: stages that do not divide the layers, and
+    MoE under stages."""
+    if cfg.pipeline_stages > 1 and cfg.n_layers % cfg.pipeline_stages:
+        raise ValueError(
+            f"n_layers={cfg.n_layers} not divisible by pipeline_stages={cfg.pipeline_stages}"
+        )
     if cfg.moe_experts > 0 and cfg.pipeline_stages > 1:
         raise ValueError("moe_experts and pipeline_stages>1 do not compose (v1)")
-    if cfg.pipeline_stages > 1:
-        raise NotImplementedError(
-            "pipeline_stages > 1 waits for the port's model-parallel slice A8b-2b "
-            "(the pipeline axis)"
-        )
 
 
 def _moe_cfg(cfg: Config) -> moe_ops.MoEConfig:
@@ -145,7 +161,8 @@ def _moe_cfg(cfg: Config) -> moe_ops.MoEConfig:
 
 def param_shapes(cfg: Config) -> dict:
     """The nested key structure JAX ``init`` builds, with a shape tuple at
-    each leaf (no values)."""
+    each leaf (no values): ``block_<i>``, or one stacked ``blocks`` tree
+    (a leading layer dim on every leaf) when ``pipeline_stages > 1``."""
     _check_supported(cfg)
     d, h = cfg.dim, cfg.dim * cfg.mlp_ratio
     ln = {"scale": (d,), "bias": (d,)}
@@ -156,7 +173,8 @@ def param_shapes(cfg: Config) -> dict:
         "head": {"kernel": (d, cfg.vocab_size)},
     }
     e = cfg.moe_experts
-    for i in range(cfg.n_layers):
+    blocks = []
+    for _i in range(cfg.n_layers):
         b = {
             "ln1": dict(ln),
             "qkv": {"kernel": (d, 3 * d)},
@@ -169,8 +187,20 @@ def param_shapes(cfg: Config) -> dict:
         else:
             b["mlp_in"] = {"kernel": (d, h), "bias": (h,)}
             b["mlp_out"] = {"kernel": (h, d), "bias": (d,)}
-        shapes[f"block_{i}"] = b
-    return shapes
+        blocks.append(b)
+    return _place_blocks(cfg, shapes, blocks, lambda *xs: (len(xs), *xs[0]))
+
+
+def _place_blocks(cfg: Config, tree: dict, blocks: list, stack) -> dict:
+    """``tree`` with the per-layer ``blocks`` as ``block_<i>`` keys, or
+    stacked leaf by leaf (``stack(*leaves)``) under ``blocks`` when
+    pipelined (JAX ``init``)."""
+    if cfg.pipeline_stages > 1:
+        tree["blocks"] = pipeline_lib.tree_map(stack, *blocks)
+    else:
+        for i, b in enumerate(blocks):
+            tree[f"block_{i}"] = b
+    return tree
 
 
 def init_numpy(cfg: Config, seed: int, *, device=None) -> dict:
@@ -180,8 +210,9 @@ def init_numpy(cfg: Config, seed: int, *, device=None) -> dict:
     for qkv, proj, mlp_in and mlp_out, or for qkv, proj and the experts
     from the third, ``moe.init``), the same initialisers (``layers``), so
     uniform leaves equal JAX's bit for bit and the normal positions within
-    a few float32 ulps.  Drawn on ``device``
-    (``utils.device.for_drawing``: the card when there is one)."""
+    a few float32 ulps; pipelined, the per-layer draws stacked, as JAX
+    stacks them.  Drawn on ``device`` (``utils.device.for_drawing``: the
+    card when there is one)."""
     _check_supported(cfg)
     dev = device_lib.for_drawing(device)
     d, h = cfg.dim, cfg.dim * cfg.mlp_ratio
@@ -197,6 +228,7 @@ def init_numpy(cfg: Config, seed: int, *, device=None) -> dict:
         "ln_f": ln(),
         "head": layers.dense_init(rngs[2], d, cfg.vocab_size, use_bias=False, device=dev),
     }
+    blocks = []
     for i in range(cfg.n_layers):
         r = rngs[3 + 4 * i : 3 + 4 * (i + 1)]
         b = {
@@ -210,8 +242,8 @@ def init_numpy(cfg: Config, seed: int, *, device=None) -> dict:
         else:
             b["mlp_in"] = layers.dense_init(r[2], d, h, device=dev)
             b["mlp_out"] = layers.dense_init(r[3], h, d, device=dev)
-        params[f"block_{i}"] = b
-    return layers.as_numpy(params)
+        blocks.append(layers.as_numpy(b))
+    return layers.as_numpy(_place_blocks(cfg, params, blocks, lambda *xs: np.stack(xs)))
 
 
 def _layernorm(p, x, eps=1e-5):
@@ -321,6 +353,11 @@ def _trunk(cfg: Config, params, x, mesh=None):
     off = collectives.axis_index("seq") * T if mesh is not None else 0
     h = layers.embedding_lookup(params["emb"], x, dtype=cfg.dtype, vocab_size=cfg.vocab_size)
     h = h + params["pos"]["table"][off:off + T].to(cfg.dtype)[None]
+    if cfg.pipeline_stages > 1:
+        # MoE is refused under stages, so the aux loss is 0, as in JAX.
+        h = _pipeline_trunk(cfg, params["blocks"], h, mesh)
+        zero = torch.zeros((), dtype=torch.float32, device=h.device)
+        return _layernorm(params["ln_f"], h), zero
     aux_total = None
     for i in range(cfg.n_layers):
         block_fn = functools.partial(_block, cfg, params[f"block_{i}"], mesh=mesh)
@@ -333,6 +370,48 @@ def _trunk(cfg: Config, params, x, mesh=None):
     if aux_total is None:  # a dense model's: 0, as in JAX
         aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     return _layernorm(params["ln_f"], h), aux_total
+
+
+def _layer(blocks, i: int):
+    """Layer ``i`` of a stacked blocks tree (views)."""
+    return pipeline_lib.tree_map(lambda x: x[i], blocks)
+
+
+def _pipeline_trunk(cfg: Config, blocks, h, mesh):
+    """The stacked blocks over h (JAX ``_trunk``'s pipeline branch): the
+    GPipe schedule over the mesh's ``pipe`` axis, each stage this rank's
+    layers in order; all of them in order without a mesh."""
+    if mesh is not None and mesh.shape.get("pipe", 1) != cfg.pipeline_stages:
+        raise ValueError(
+            f"pipeline_stages={cfg.pipeline_stages} needs a mesh whose 'pipe' axis is "
+            f"exactly that size; got {dict(mesh.shape)} (pass e.g. --mesh "
+            f'"data=...,pipe={cfg.pipeline_stages}")'
+        )
+
+    def stage_fn(rank_blocks, x):
+        for i in range(rank_blocks["qkv"]["kernel"].shape[0]):
+            x, _ = _block(cfg, _layer(rank_blocks, i), x, mesh)
+        return x
+
+    if mesh is None:
+        return stage_fn(blocks, h)
+    return pipeline_lib.pipeline_apply(mesh, stage_fn, blocks, h,
+                                       microbatches=cfg.microbatches)
+
+
+def collapse_pipeline(cfg: Config, params):
+    """A pipeline-trained tree -> the per-layer serving layout (JAX
+    ``collapse_pipeline``): the stacked ``blocks`` become ``block_<i>``
+    keys and ``pipeline_stages`` drops to 1 (and ``microbatches`` to 1),
+    so the result decodes through the KV-cache path.  The leaves are
+    views of the stacked ones (numpy or tensors); ``cfg`` unchanged when
+    not pipelined."""
+    if cfg.pipeline_stages <= 1:
+        return cfg, params
+    flat = {k: v for k, v in params.items() if k != "blocks"}
+    for i, b in enumerate(pipeline_lib.unstack_stages(params["blocks"], cfg.n_layers)):
+        flat[f"block_{i}"] = b
+    return dataclasses.replace(cfg, pipeline_stages=1, microbatches=1), flat
 
 
 def _under_axes(mesh, fn):
@@ -381,10 +460,13 @@ def apply(cfg: Config, params, x, *, mesh=None, return_aux=False):
 # ----------------------------------------------------------------------------
 
 
-def init_cache(cfg: Config, batch: int, max_len: int, *, device="cpu") -> dict:
+def init_cache(cfg: Config, batch: int, max_len: int, *, device="cpu", mesh=None) -> dict:
     """Per-layer K/V cache [B, H, max_len, hd] of zeros in the compute
-    dtype, on ``device`` (the params' device)."""
-    shape = (batch, cfg.n_heads, max_len, cfg.head_dim)
+    dtype, on ``device`` (the params' device).  ``mesh``: the cache of
+    this rank's ``batch`` rows and its H/M heads over ``model`` (JAX's
+    ``P(data_axes, "model")`` cache, born sharded)."""
+    heads = cfg.n_heads // (1 if mesh is None else mesh.shape.get("model", 1))
+    shape = (batch, heads, max_len, cfg.head_dim)
     return {
         f"block_{i}": {
             "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -410,14 +492,20 @@ def _block_decode(cfg: Config, p, h, layer_cache, pos, visible, mesh=None):
     float32 (a product of two bf16 values is exact there, as under the
     reference's ``preferred_element_type=f32``), then the mask, the
     float32 softmax, and the probabilities cast to the compute dtype for
-    the product with v.  An MoE block routes its rows through the training
-    layer (``ops/moe.py``; ``mesh``: this rank's rows of a data x expert
-    mesh), its aux loss unused; the rows share the experts' capacity, as
-    in JAX, which drops none while a group holds no more tokens than C."""
+    the product with v.  Megatron where the kernels are ``model`` blocks
+    (the rank's heads, the row blocks' products summed).  An MoE block
+    routes its rows through the training layer (``ops/moe.py``; ``mesh``:
+    this rank's rows of a data x expert mesh), its aux loss unused; the
+    rows share the experts' capacity, as in JAX, which drops none while a
+    group holds no more tokens than C."""
     B = h.shape[0]
+    tp = _sharded(p, "qkv", 3 * cfg.dim)
     y = _layernorm(p["ln1"], h)
+    if tp:
+        y = collectives.copy_to_model(y)
     qkv = layers.dense(p["qkv"], y, dtype=cfg.dtype)
-    qkv = qkv.reshape(B, 1, cfg.n_heads, 3, cfg.head_dim)
+    heads = qkv.shape[-1] // (3 * cfg.head_dim)
+    qkv = qkv.reshape(B, 1, heads, 3, cfg.head_dim)
     q, k, v = [qkv[:, :, :, j].movedim(2, 1) for j in range(3)]  # [B,H,1,hd]
     ck, cv = layer_cache["k"], layer_cache["v"]
     if isinstance(pos, int):
@@ -431,8 +519,11 @@ def _block_decode(cfg: Config, p, h, layer_cache, pos, visible, mesh=None):
     s = s.masked_fill(~visible, float("-inf"))
     w = torch.softmax(s, dim=-1).to(cfg.dtype)
     o = torch.matmul(w, cv)
-    o = o.movedim(1, 2).reshape(B, 1, cfg.dim)
-    h = h + layers.dense(p["proj"], o, dtype=cfg.dtype)
+    o = o.movedim(1, 2).reshape(B, 1, heads * cfg.head_dim)
+    if tp:
+        h = h + _row_parallel(p["proj"], o, cfg.dtype)
+    else:
+        h = h + layers.dense(p["proj"], o, dtype=cfg.dtype)
     return _ffn_tail(cfg, p, h, mesh)[0]
 
 
@@ -452,41 +543,69 @@ def _decode(cfg: Config, params, cache, h, pos, mesh):
         h = _block_decode(cfg, params[f"block_{i}"], h, cache[f"block_{i}"], pos, visible,
                           mesh)
     h = _layernorm(params["ln_f"], h)
-    return layers.dense(params["head"], h, dtype=cfg.dtype)[:, 0], cache
+    logits = layers.dense(params["head"], h, dtype=cfg.dtype)[:, 0]
+    if _sharded(params, "head", cfg.vocab_size):  # the vocab blocks, gathered
+        logits = collectives.all_gather(logits, 1, axis_name="model", tag="decode")
+    return logits, cache
 
 
-def _check_decode_mesh(mesh) -> None:
-    """Decode runs on one device or on a data x expert mesh; a ``seq`` or
-    ``model`` axis (JAX ``_decode_constrain``) waits for A8b-2b."""
-    if mesh is not None and (mesh.shape.get("seq", 1) > 1 or mesh.shape.get("model", 1) > 1):
-        raise NotImplementedError(
-            f"decode under mesh {mesh.shape}: a 'seq' or 'model' axis waits for the port's "
-            "item A8b-2b (decode under a mesh)")
+@dataclasses.dataclass(frozen=True)
+class _DecodeShape:
+    """What a decode block reads of its mesh: the shape, without ``seq``."""
+
+    shape: dict
+
+
+def _decode_view(mesh):
+    """(the axes to decode under, the mesh a decode block reads): the
+    mesh's groups with the ``seq`` axis replicated (JAX
+    ``_decode_constrain`` maps every ``seq`` entry to None: the decode's T
+    is 1) and the batch the row shards; None for no mesh."""
+    if mesh is None:
+        return contextlib.nullcontext(), None
+    axes = collectives.use_group(
+        mesh.group, model=mesh.model_group, expert=mesh.expert_group, batch=mesh.rows_group,
+        pipe=mesh.pipe_group, slice=mesh.slice_group, rows=mesh.rows_group)
+    return axes, _DecodeShape({a: n for a, n in mesh.shape.items() if a != "seq"})
 
 
 def decode_step(cfg: Config, params, cache, token, pos, *, mesh=None):
     """token [B] at the one position ``pos`` -> (logits [B, V] in the
-    compute dtype, cache), the cache updated in place.  ``mesh``: a data x
-    expert mesh, of which ``token`` and the cache are this rank's rows
-    (run under its axes)."""
-    _check_supported(cfg)
-    _check_decode_mesh(mesh)
+    compute dtype, cache), the cache updated in place.  ``mesh``: the
+    mesh ``params`` are laid out over, of which ``token`` and the cache
+    are this rank's rows (:func:`init_cache`); the logits are whole on
+    every rank."""
+    _check_decode(cfg)
     pos = int(pos)
-    h = layers.embedding_lookup(params["emb"], token[:, None], dtype=cfg.dtype)
-    h = h + params["pos"]["table"][pos : pos + 1].to(cfg.dtype)[None]
-    return _decode(cfg, params, cache, h, pos, mesh)
+    axes, view = _decode_view(mesh)
+    with axes:
+        h = _decode_embed(cfg, params, token)
+        h = h + params["pos"]["table"][pos : pos + 1].to(cfg.dtype)[None]
+        return _decode(cfg, params, cache, h, pos, view)
+
+
+def _check_decode(cfg: Config) -> None:
+    _check_supported(cfg)
+    if cfg.pipeline_stages > 1:  # JAX's refusal: collapse the stages first
+        raise NotImplementedError("decode supports the non-pipelined model (dense or MoE)")
+
+
+def _decode_embed(cfg: Config, params, token):
+    return layers.embedding_lookup(params["emb"], token[:, None], dtype=cfg.dtype,
+                                   vocab_size=cfg.vocab_size)
 
 
 def decode_step_batch(cfg: Config, params, cache, token, pos, *, mesh=None):
     """token [B], pos [B] (a position PER ROW) -> (logits [B, V], cache):
     the sequence-slot step, in which row b advances its own session at
     ``pos[b]``.  Row for row the same numbers as :func:`decode_step`."""
-    _check_supported(cfg)
-    _check_decode_mesh(mesh)
+    _check_decode(cfg)
     pos = pos.long()
-    h = layers.embedding_lookup(params["emb"], token[:, None], dtype=cfg.dtype)
-    h = h + params["pos"]["table"][pos].to(cfg.dtype)[:, None]
-    return _decode(cfg, params, cache, h, pos, mesh)
+    axes, view = _decode_view(mesh)
+    with axes:
+        h = _decode_embed(cfg, params, token)
+        h = h + params["pos"]["table"][pos].to(cfg.dtype)[:, None]
+        return _decode(cfg, params, cache, h, pos, view)
 
 
 def serve_decode_fns(cfg: Config):
@@ -516,12 +635,13 @@ def generate(cfg: Config, params, prompt, *, max_new_tokens: int,
     float32 logits / temperature.  The key (``rng``, a threefry key,
     ``threefry.key(0)`` by default) is split once per position, prompt
     positions included, as the reference's scan does, so the same key
-    samples the same tokens in both packages.  ``mesh`` (a data x expert
-    mesh over which ``params`` are laid out: JAX's sharded ``generate``):
-    each rank decodes its rows of the prompt, the experts' tokens cross
-    the expert group, and every rank returns the whole batch (a
-    temperature draw is over the whole batch's logits, as in JAX)."""
-    _check_decode_mesh(mesh)
+    samples the same tokens in both packages.  ``mesh`` (the mesh over
+    which ``params`` are laid out: JAX's sharded ``generate``): each rank
+    decodes its rows of the prompt (its row shard's; the model ranks
+    their heads and vocab blocks, the seq ranks replicated), the experts'
+    tokens cross the expert group, and every rank returns the whole batch
+    (a temperature draw is over the whole batch's logits, as in JAX)."""
+    _check_decode(cfg)
     device = params["emb"]["table"].device
     prompt = torch.as_tensor(prompt, device=device).to(torch.int32)
     total = prompt.shape[1] + max_new_tokens
@@ -529,10 +649,11 @@ def generate(cfg: Config, params, prompt, *, max_new_tokens: int,
         raise ValueError(f"{total} tokens > max_seq_len={cfg.max_seq_len}")
     if mesh is None:
         return _generate(cfg, params, prompt, total, temperature, rng, None)
-    with mesh.axes():
+    axes, _view = _decode_view(mesh)
+    with axes:
         rows = sharding.rank_rows(prompt.shape[0], mesh.row_index, mesh.row_shards)
         out = _generate(cfg, params, prompt[rows], total, temperature, rng, mesh)
-        return collectives.all_gather(out, 0, axis_name="batch", tag="decode")
+        return collectives.all_gather(out, 0, axis_name="rows", tag="decode")
 
 
 def _generate(cfg: Config, params, prompt, total: int, temperature: float, rng, mesh):
@@ -540,7 +661,7 @@ def _generate(cfg: Config, params, prompt, total: int, temperature: float, rng, 
     spread = mesh is not None and mesh.row_shards > 1
     rng = threefry.key(0) if rng is None else rng
     with torch.inference_mode():
-        cache = init_cache(cfg, B, total, device=prompt.device)
+        cache = init_cache(cfg, B, total, device=prompt.device, mesh=mesh)
         tok = prompt[:, 0]
         out = [tok]
         for pos in range(total - 1):
@@ -551,7 +672,7 @@ def _generate(cfg: Config, params, prompt, total: int, temperature: float, rng, 
             elif temperature > 0:
                 scaled = logits.float() / temperature
                 if spread:  # the draw over the whole batch, this rank's rows kept
-                    whole = collectives.all_gather(scaled, 0, axis_name="batch", tag="decode")
+                    whole = collectives.all_gather(scaled, 0, axis_name="rows", tag="decode")
                     tok = threefry.categorical(sub, whole)[
                         sharding.rank_rows(whole.shape[0], mesh.row_index, mesh.row_shards)]
                 else:
@@ -653,10 +774,19 @@ SHARDING_RULES: tuple = (
 )
 
 
+def _pipeline_rules() -> tuple:
+    """Stacked-block storage (JAX ``_pipeline_rules``): the leading layer
+    dim over ``pipe`` (each rank holds its stage's layers), the inner dims
+    the Megatron specs."""
+    return pipeline_lib.stage_sharding_rules(_BLOCK_RULES, "blocks") + _TOP_RULES
+
+
 def sharding_rules(cfg: Config) -> tuple:
-    """The rule table of ``cfg`` (JAX ``sharding_rules``): the experts'
-    rules first for an MoE model; pipeline stages raise (A8b-2b)."""
+    """The rule table of ``cfg`` (JAX ``sharding_rules``): the stacked
+    rules when pipelined, the experts' rules first for an MoE model."""
     _check_supported(cfg)
+    if cfg.pipeline_stages > 1:
+        return _pipeline_rules()
     if cfg.moe_experts > 0:
         return moe_ops.SHARDING_RULES + SHARDING_RULES
     return SHARDING_RULES

@@ -25,10 +25,11 @@ elementwise output in ``x.dtype``; the backward's sums from
 (biased variance, matching the E[x^2]-E[x]^2 forward): xhat = (x - mean) *
 inv; dy = do * relu_mask; dx = gamma * inv * (dy - s1/n - xhat * s2/n).
 
-SyncBN (a mesh whose ``data`` axis is larger than 1, JAX's
+SyncBN (a mesh whose row shards are more than one rank, JAX's
 ``_shard_stats``): each rank runs the kernel on its own rows, and the
-(1, C) partial sums are sum-all-reduced over the mesh's data group
-(``Mesh.group``, ``parallel/mesh.py``) before the division by the global count
+(1, C) partial sums are sum-all-reduced over the mesh's row shards
+(``Mesh.rows_group``, ``parallel/mesh.py``; ghost-batch BN's over the
+slice-local data group, ``Mesh.group``) before the division by the global count
 (local rows x ranks), as JAX's ``_count`` reads the global array.  The
 backward sums (s1, s2) likewise, and dx takes the global sums.  The
 cotangents of scale and bias are the rank's LOCAL sums: the data-parallel
@@ -275,8 +276,7 @@ class BatchNormTrain(torch.autograd.Function):
     the caller's running-stats update and carry no gradient."""
 
     @staticmethod
-    def forward(ctx, scale, bias, x, eps, mesh, relu):
-        group = None if mesh is None else mesh.group
+    def forward(ctx, scale, bias, x, eps, group, relu):
         mean, var = _stats_of(x, group)
         inv = torch.rsqrt(var + eps)
         dt = x.dtype
@@ -313,6 +313,10 @@ class BatchNormTrain(torch.autograd.Function):
         return s2, s1, dx, None, None, None  # local dgamma, dbeta; dx
 
 
-def batchnorm_train(scale, bias, x, eps, mesh, relu=False):
-    """(y, mean, var) of :class:`BatchNormTrain`."""
-    return BatchNormTrain.apply(scale, bias, x, eps, mesh, bool(relu))
+def batchnorm_train(scale, bias, x, eps, mesh, relu=False, *, ghost: bool = False):
+    """(y, mean, var) of :class:`BatchNormTrain`: statistics over the
+    mesh's row shards (``Mesh.rows_group``), or with ``ghost`` over its
+    slice-local data group (``Mesh.group``: ghost-batch BN, whose
+    statistics never cross a slice); this rank's alone without a mesh."""
+    group = None if mesh is None else (mesh.group if ghost else mesh.rows_group)
+    return BatchNormTrain.apply(scale, bias, x, eps, group, bool(relu))

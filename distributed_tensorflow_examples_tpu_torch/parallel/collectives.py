@@ -1,65 +1,77 @@
-"""Collectives over the mesh's ``data``, ``expert``, ``seq`` and ``model``
-axes: the port of
+"""Collectives over the mesh's axes: the port of
 ``distributed_tensorflow_examples_tpu/parallel/collectives.py`` and of
-the collectives that data, expert, sequence and tensor parallelism use.
+the collectives that data, expert, sequence, tensor and pipeline
+parallelism use.
 
-In the JAX package GSPMD emits the all-reduces of a sharded step; here
-they are explicit.  Each axis is a group of ranks.  The world's rank r
-sits at ``(data, expert, seq, model)`` in the JAX ``DEFAULT_AXES`` order,
-``model`` innermost: ``r = ((d X + x) S + s) M + m``.  An axis's group is
-the ranks that differ only in that axis's index.  :func:`mesh_groups`
-makes them (``torch.distributed.new_group``, called by every rank in one
-order; an axis that spans the world is the world itself, and an axis of
-1 has no group), with two more: the ``batch`` group, the data x expert
-x seq ranks over which the train step averages its gradients (each holds
-its own tokens of the global batch: rows over data x expert, a slice of
-the sequence over seq), and the ``expert_grad`` group, the data x seq
-ranks of one expert index, over which an expert-sharded leaf's gradient
-sums.  ``build_mesh`` attaches them to the mesh.  Code reads an axis's
-group from the calling thread: ``build_train_step`` installs its mesh's
-groups for the whole step (:func:`use_group`), so the step, SyncBN,
-plain BN, the LSTM's dropout rows, the vocab-parallel layers, the
-sequence-parallel attention and the experts all read the same ones, and
-code outside a step (the input streams, the checkpoint, evaluation)
-runs under ``Mesh.axes()``, which installs them likewise.  With none
-installed the ``data`` and ``batch`` axes are the world (the process
+In the JAX package GSPMD emits the all-reduces of a sharded step, and a
+``shard_map`` region runs its own; here they are explicit.  Each axis
+is a group of ranks.  The world's rank r sits at ``(slice, data, pipe,
+expert, seq, model)`` in the JAX ``DEFAULT_AXES`` order, ``model``
+innermost.  An axis's group is the ranks that differ only in that
+axis's index.  :func:`mesh_groups` makes them
+(``torch.distributed.new_group``, called by every rank in one order; an
+axis that spans the world is the world itself, and an axis of 1 has no
+group), with three more: the ``batch`` group, the slice x data x expert
+x seq ranks over which the train step averages its gradients (each
+holds its own tokens of the global batch: rows over slice x data x
+expert, a slice of the sequence over seq; the pipe ranks of one row
+shard hold the same rows and their own layers), the ``expert_grad``
+group, the slice x data x seq ranks of one expert index, over which an
+expert-sharded leaf's gradient sums, and the ``rows`` group, the slice
+x data x expert ranks that hold the batch's row shards (global
+BatchNorm statistics and ZeRO-1's chunks).  ``build_mesh`` attaches
+them to the mesh.  Code reads an axis's group from the calling thread:
+``build_train_step`` installs its mesh's groups for the whole step
+(:func:`use_group`), so the step, SyncBN, plain BN, the LSTM's dropout
+rows, the vocab-parallel layers, the sequence-parallel attention, the
+experts and the pipeline all read the same ones, and code outside a
+step (the input streams, the checkpoint, evaluation) runs under
+``Mesh.axes()``, which installs them likewise.  With none installed
+the ``data``, ``rows`` and ``batch`` axes are the world (the process
 group, or one rank) and the others one rank.
 
 :func:`axis_size` and :func:`axis_index` are an axis's size and this
 rank's place on it (over a tuple of axes, as ``lax.axis_index`` takes
-one, their product, the first axis major: ``("data", "expert")`` is the
-batch rows' shards); :func:`psum` sums a tensor over an axis with
-autograd (its backward sums the cotangent likewise, as JAX's ``psum``
-transposes); :func:`all_reduce_sum_` sums in place without autograd
-(gradients, SyncBN's partial sums).  The two operators a vocab-parallel
-or Megatron layer needs, and GSPMD derives by itself:
+one, their product, the first axis major: ``("slice", "data",
+"expert")`` is the batch rows' shards); :func:`psum` sums a tensor over
+an axis with autograd (its backward sums the cotangent likewise, as
+JAX's ``psum`` transposes); :func:`all_reduce_sum_` sums in place
+without autograd (gradients, SyncBN's partial sums).  The two operators
+a vocab-parallel or Megatron layer needs, and GSPMD derives by itself:
 :func:`copy_to_model`, the identity forward and a sum over ``model``
 backward (an activation that enters a column- or row-sharded product),
 and :func:`reduce_from_model`, a sum over ``model`` forward and the
 identity backward (the partial results of the row blocks).  ``psum`` is
 neither: the loss after a lookup is replicated over ``model``, so its
-backward would scale the table gradient by M.  The sequence axis's two
-(JAX ``ring_permute`` and ``lax.all_to_all``): :func:`ring_permute`
-sends to the rank ``shift`` hops around the axis and receives from the
-one ``shift`` hops back (one ``batch_isend_irecv`` pair, so a ring of
-any size cannot deadlock), its backward the permutation by ``-shift``;
-:func:`all_to_all` splits a tensor into one tile per rank along one dim
-and concatenates what it receives along another, its backward the
-all-to-all back, both made of point-to-point sends and receives.  gloo
-has none for CUDA tensors, so on gloo (ranks sharing a card) a CUDA
-tensor crosses through a pinned host copy; on nccl it goes direct.
-Without a group every one of them is the identity on one rank.
-:class:`ThreadRanks` runs simulated ranks as threads of
-one process (the twin of the JAX package's ``local_mesh_for_testing``);
-a mesh built on them makes its groups from the same threads.
-``TRAFFIC`` counts the calls, bytes and host seconds of each tag (the
-seconds a call holds the host: the whole exchange on gloo, the enqueue
-on nccl); the model axis's sums count under ``model_fwd`` (forward) and
-``model_bwd`` (backward), the ring's permutations under ``seq_ring`` and
-the all-to-alls under ``seq_a2a`` (the bytes of the tiles sent to the
-other ranks: a rank's own tile stays where it is), and the experts'
-all-to-alls under ``expert_a2a``.  The ``slice`` and ``pipe`` axes, and
-``shard_map``, wait for the port's item A8b-2b.
+backward would scale the table gradient by M.  The pipeline's pair is
+the same two over ``pipe`` (:func:`copy_to_axis`,
+:func:`reduce_from_axis`): the stack's input, replicated over pipe and
+consumed by the first stage alone, takes its cotangent summed over the
+axis (the transpose of JAX's ``P()`` ``shard_map`` input), and the last
+stage's output, broadcast by a masked sum, passes its cotangent
+through.  The sequence axis's two (JAX ``ring_permute`` and
+``lax.all_to_all``): :func:`ring_permute` sends to the rank ``shift``
+hops around the axis and receives from the one ``shift`` hops back (one
+``batch_isend_irecv`` pair, so a ring of any size cannot deadlock), its
+backward the permutation by ``-shift``; the pipeline hands a stage's
+output to the next stage with it, over ``pipe``; :func:`all_to_all`
+splits a tensor into one tile per rank along one dim and concatenates
+what it receives along another, its backward the all-to-all back, both
+made of point-to-point sends and receives.  gloo has none for CUDA
+tensors, so on gloo (ranks sharing a card) a CUDA tensor crosses
+through a pinned host copy; on nccl it goes direct.  Without a group
+every one of them is the identity on one rank.  :class:`ThreadRanks`
+runs simulated ranks as threads of one process (the twin of the JAX
+package's ``local_mesh_for_testing``); a mesh built on them makes its
+groups from the same threads.  ``TRAFFIC`` counts the calls, bytes and
+host seconds of each tag (the seconds a call holds the host: the whole
+exchange on gloo, the enqueue on nccl); the model axis's sums count
+under ``model_fwd`` (forward) and ``model_bwd`` (backward), the ring's
+permutations under ``seq_ring`` and the all-to-alls under ``seq_a2a``
+(the bytes of the tiles sent to the other ranks: a rank's own tile
+stays where it is), the experts' all-to-alls under ``expert_a2a``, the
+pipeline's stage handoffs under ``pipe`` and its output broadcast under
+``pipe_out``.
 """
 
 from __future__ import annotations
@@ -185,7 +197,7 @@ def _coords(rank: int, shape: tuple) -> tuple:
 
 def _axis_group(rank: int, shape: tuple, varying: tuple, make):
     """Make, with ``make(ranks)``, every group of the ranks of a ``shape``
-    = (data, expert, seq, model) mesh that share their indices outside
+    mesh (the axes' sizes in ``AXES`` order) that share their indices outside
     the axes ``varying`` (positions into ``shape``), in the order of their
     lowest rank, each group's ranks ascending; return the one that holds
     ``rank``."""
@@ -201,10 +213,13 @@ def _axis_group(rank: int, shape: tuple, varying: tuple, make):
 _PROCESS_GROUP = ProcessGroup()
 _local = threading.local()
 _UNSET = object()  # no group installed on this thread
-AXES = ("data", "expert", "seq", "model")
+AXES = ("slice", "data", "pipe", "expert", "seq", "model")
 #: The axes, and the groups over more than one of them that code reads:
-#: ``batch`` (data x expert x seq) and ``expert_grad`` (data x seq).
-GROUPS = AXES + ("batch", "expert_grad")
+#: ``batch`` (slice x data x expert x seq), ``expert_grad`` (slice x data
+#: x seq) and ``rows`` (slice x data x expert).
+GROUPS = AXES + ("batch", "expert_grad", "rows")
+#: The groups that are the world when no group is installed.
+_WORLD_GROUPS = ("data", "batch", "rows")
 
 
 def world():
@@ -221,30 +236,32 @@ def world():
 def group(axis_name: str = "data"):
     """The calling thread's group along ``axis_name`` (an axis or one of
     ``GROUPS``): the one installed by :func:`use_group` (``None``: one
-    rank), else the world for ``data`` and ``batch`` and None for the
-    others."""
+    rank), else the world for ``data``, ``rows`` and ``batch`` and None
+    for the others."""
     installed = getattr(_local, "groups", _UNSET)
     if installed is not _UNSET:
         return installed.get(axis_name)
-    return world() if axis_name in ("data", "batch") else None
+    return world() if axis_name in _WORLD_GROUPS else None
 
 
-def mesh_groups(base, data: int, expert: int, seq: int, model: int) -> dict:
-    """The groups of a ``data`` x ``expert`` x ``seq`` x ``model`` mesh
-    over the group ``base`` (None: one rank), by name: one per axis, then
-    ``batch`` (data x expert x seq) and ``expert_grad`` (data x seq, None
-    without an expert axis).  The data group is ``base`` when it spans it
-    (a world of one too); any other group of one rank is None, a group
-    that spans ``base`` is ``base`` itself, and the others are
-    subgroups; the batch group is the data group when ``expert`` and
-    ``seq`` are 1, and a group over one axis of size > 1 is that axis's
-    group."""
+def mesh_groups(base, sizes: dict) -> dict:
+    """The groups of a mesh of ``sizes`` (axis -> size, every axis of
+    ``AXES``) over the group ``base`` (None: one rank), by name: one per
+    axis, then ``batch`` (slice x data x expert x seq), ``expert_grad``
+    (slice x data x seq, None without an expert axis) and ``rows`` (slice
+    x data x expert).  The data group is ``base`` when it spans it (a
+    world of one too); any other group of one rank is None, a group that
+    spans ``base`` is ``base`` itself, and the others are subgroups; a
+    group over the data axis and axes of 1 is the data group (so a world
+    of one still sums its gradients over itself)."""
     n = 1 if base is None else base.size
-    shape = (data, expert, seq, model)
+    shape = tuple(sizes[a] for a in AXES)
     made: dict = {}
 
-    def over(varying: tuple):
-        varying = tuple(a for a in varying if shape[a] > 1)
+    def over(names: tuple):
+        if "data" in names and all(sizes[a] == 1 for a in names if a != "data"):
+            return data_g
+        varying = tuple(AXES.index(a) for a in names if sizes[a] > 1)
         size = math.prod(shape[a] for a in varying)
         if size == 1:
             return None
@@ -254,25 +271,33 @@ def mesh_groups(base, data: int, expert: int, seq: int, model: int) -> dict:
             made[varying] = base.axis_group(shape, varying)
         return made[varying]
 
-    data_g = base if data == n else over((0,))
-    if data_g is not None and data > 1:
-        made[(0,)] = data_g
-    return {"data": data_g, "expert": over((1,)), "seq": over((2,)), "model": over((3,)),
-            "batch": data_g if expert == seq == 1 else over((0, 1, 2)),
-            "expert_grad": over((0, 2)) if expert > 1 else None}
+    data_g = None
+    if sizes["data"] == n:
+        data_g = base
+    elif sizes["data"] > 1:
+        data_g = base.axis_group(shape, (AXES.index("data"),))
+    out = {a: over((a,)) for a in AXES}
+    out["data"] = data_g
+    out["batch"] = over(("slice", "data", "expert", "seq"))
+    out["expert_grad"] = over(("slice", "data", "seq")) if sizes["expert"] > 1 else None
+    out["rows"] = over(("slice", "data", "expert"))
+    return out
 
 
 @contextlib.contextmanager
-def use_group(g, model=None, seq=None, expert=None, batch=_UNSET, expert_grad=None):
-    """Run the block with ``g`` as this thread's ``data`` group, ``model``
-    as its ``model`` group, ``seq`` as its ``seq`` group and ``expert`` as
-    its ``expert`` group (each with ``size``, ``rank``,
-    ``all_reduce_sum_``, ...; ``None`` for one rank); ``batch`` and
-    ``expert_grad`` (``GROUPS``) likewise, the batch group ``g`` unless
+def use_group(g, model=None, seq=None, expert=None, batch=_UNSET, expert_grad=None, *,
+              pipe=None, slice=None, rows=_UNSET):
+    """Run the block with ``g`` as this thread's ``data`` group and the
+    others as theirs (each with ``size``, ``rank``, ``all_reduce_sum_``,
+    ...; ``None`` for one rank): ``model``, ``seq``, ``expert``, ``pipe``
+    and ``slice`` an axis each, ``batch``, ``expert_grad`` and ``rows``
+    (``GROUPS``) likewise, the batch and rows groups ``g`` unless
     given."""
     old = getattr(_local, "groups", _UNSET)
     _local.groups = {"data": g, "model": model, "seq": seq, "expert": expert,
-                     "batch": g if batch is _UNSET else batch, "expert_grad": expert_grad}
+                     "pipe": pipe, "slice": slice,
+                     "batch": g if batch is _UNSET else batch, "expert_grad": expert_grad,
+                     "rows": g if rows is _UNSET else rows}
     if old is not _UNSET and "world" in old:
         _local.groups["world"] = old["world"]
     try:
@@ -286,10 +311,7 @@ def use_group(g, model=None, seq=None, expert=None, batch=_UNSET, expert_grad=No
 
 def _check_axis(axis_name: str) -> None:
     if axis_name not in GROUPS:
-        raise NotImplementedError(
-            f"collectives over mesh axis {axis_name!r} wait for the port's pipeline and "
-            "slice axes (A8b-2b); the port has 'data', 'expert', 'seq' and 'model'"
-        )
+        raise ValueError(f"unknown mesh axis or group {axis_name!r}; valid: {GROUPS}")
 
 
 def axis_size(axis_name="data") -> int:
@@ -387,43 +409,63 @@ def gather_blocks(t: torch.Tensor, dim: int, axis_name: str, *, tag: str = "othe
     return t if g is None else _GatherBlocks.apply(t, g, dim, tag)
 
 
-class _CopyToModel(torch.autograd.Function):
+def _sum_over(g, t: torch.Tensor, tag: str) -> torch.Tensor:
+    """``t`` summed over the group ``g`` in place, counted under ``tag``."""
+    t0 = time.perf_counter()
+    g.all_reduce_sum_(t)
+    _count(tag, t, t0)
+    return t
+
+
+class _CopyToAxis(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, g):
-        ctx.g = g
+    def forward(ctx, x, g, tag):
+        ctx.g, ctx.tag = g, tag
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, gy):
-        gx = gy.detach().clone()
-        with use_group(None, model=ctx.g):
-            return all_reduce_sum_(gx, tag="model_bwd", axis_name="model"), None
+        return _sum_over(ctx.g, gy.detach().clone(), ctx.tag), None, None
 
 
-class _ReduceFromModel(torch.autograd.Function):
+class _ReduceFromAxis(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, g):
-        y = x.detach().clone()
-        with use_group(None, model=g):
-            return all_reduce_sum_(y, tag="model_fwd", axis_name="model")
+    def forward(ctx, x, g, tag):
+        return _sum_over(g, x.detach().clone(), tag)
 
     @staticmethod
     def backward(ctx, gy):
-        return gy, None
+        return gy, None, None
+
+
+def copy_to_axis(t: torch.Tensor, axis_name: str, *, tag: str) -> torch.Tensor:
+    """``t`` unchanged; its gradient summed over the axis (each rank's
+    backward reaches ``t`` through its own part of the work).  ``t``
+    itself without a group."""
+    _check_axis(axis_name)
+    g = group(axis_name)
+    return t if g is None else _CopyToAxis.apply(t, g, tag)
+
+
+def reduce_from_axis(t: torch.Tensor, axis_name: str, *, tag: str) -> torch.Tensor:
+    """``t`` summed over the axis; the gradient passes through unchanged
+    (what follows is replicated over the axis).  ``t`` itself without a
+    group."""
+    _check_axis(axis_name)
+    g = group(axis_name)
+    return t if g is None else _ReduceFromAxis.apply(t, g, tag)
 
 
 def copy_to_model(t: torch.Tensor) -> torch.Tensor:
     """``t`` unchanged; its gradient summed over the ``model`` axis (each
     model rank's backward reaches ``t`` through its own row block)."""
-    g = group("model")
-    return t if g is None else _CopyToModel.apply(t, g)
+    return copy_to_axis(t, "model", tag="model_bwd")
 
 
 def reduce_from_model(t: torch.Tensor) -> torch.Tensor:
     """``t`` summed over the ``model`` axis; the gradient passes through
     unchanged (the loss after it is replicated over ``model``)."""
-    g = group("model")
-    return t if g is None else _ReduceFromModel.apply(t, g)
+    return reduce_from_axis(t, "model", tag="model_fwd")
 
 
 class _PSum(torch.autograd.Function):
@@ -584,7 +626,7 @@ class ThreadRanks:
         def body(rank):
             try:
                 me = _ThreadRank(self, rank)
-                _local.groups = {"world": me, "data": me, "batch": me}
+                _local.groups = {"world": me, "data": me, "batch": me, "rows": me}
                 results[rank] = fn(rank)
             except BaseException as e:  # handed to the caller below
                 errors[rank] = e

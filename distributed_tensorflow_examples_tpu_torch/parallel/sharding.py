@@ -13,8 +13,9 @@ local tensor.  :func:`block` and :func:`sharded_dim` serve the
 checkpoint's gathers and restores.
 
 Batch rows: JAX lays a global batch out with its leading dim split over
-``("data", "expert")`` (``ROWS``; the expert axis is 1 outside a
-mixture-of-experts mesh), data major: row shard r holds rows
+``("slice", "data", "expert")`` (``ROWS``; the slice axis is 1 outside
+a ghost-batch BN mesh and the expert axis outside a mixture-of-experts
+mesh), slice major: row shard r holds rows
 ``[r * B/N, (r + 1) * B/N)``.  The port's ranks hold
 those rows as local tensors, so the global batch is rank 0's rows, then
 rank 1's, and so on.  :func:`rank_rows` is the slice of a rank's rows;
@@ -24,8 +25,8 @@ global row count of a local batch; :func:`stream_block` is a rank's
 block of a token stream (the LM CLIs' host shard);
 :func:`microbatch_rows` is a rank's share of each microbatch of a global
 batch under gradient accumulation.  Every one of them reads the row
-shards: the ranks of one row shard (the ``seq`` and ``model`` ranks of
-one data and expert index) hold the same rows.  A ``seq`` axis then splits the
+shards: the ranks of one row shard (the ``pipe``, ``seq`` and ``model`` ranks
+of one slice, data and expert index) hold the same rows.  A ``seq`` axis then splits the
 sequence: :func:`seq_block` is a rank's columns ``[s T/S, (s + 1) T/S)``
 of a [B, T] batch field (JAX's ``batch_spec``, ``P("data", "seq")``).
 """
@@ -45,9 +46,10 @@ P = PartitionSpec
 ShardingRules = Sequence[tuple[str, PartitionSpec]]
 
 REPLICATED = P()
-#: The axes the batch's rows split over, data major (JAX ``Config.data_axes``
-#: of a mixture-of-experts model; the expert axis is 1 elsewhere).
-ROWS = ("data", "expert")
+#: The axes the batch's rows split over, slice major (JAX's
+#: ``batch_sharding`` over ``("slice", "data")`` and ``Config.data_axes`` of
+#: a mixture-of-experts model; each axis is 1 where it is not used).
+ROWS = ("slice", "data", "expert")
 
 
 def path_of(key_path) -> str:

@@ -23,11 +23,13 @@ over the ranks (the LSTM's carry, which JAX's rules shard over
 ``data``): ``save`` gathers it into the global layout, rank 0's rows
 first, and a restore takes the rank's rows back.  Sharded leaves
 (``create_sharded_state``) are saved as their global arrays too: with
-``param_specs`` the leaves sharded over ``model`` or ``expert`` are
-gathered over those groups, and a ``ShardedOptState`` hands over global
-slots (its ZeRO-1 blocks gathered over ``data``); a restore takes this
-rank's blocks.  So a step saved at one mesh shape resumes at another (a
-``model`` or ``expert`` of 2 at 1, and back), as JAX's restore re-shards
+``param_specs`` the leaves sharded over ``pipe``, ``expert`` or
+``model`` are gathered over those groups, with ``state_specs`` the model
+state's leaves sharded over ``slice`` (ghost-batch BN's per-slice stats)
+likewise, and a ``ShardedOptState`` hands over global slots (its ZeRO-1
+blocks gathered over the row shards); a restore takes this rank's
+blocks.  So a step saved at one mesh shape resumes at another (a
+``pipe``, ``model`` or ``expert`` of 2 at 1, and back), as JAX's restore re-shards
 into the target layout.  The gathers are collectives, so every rank builds the
 payload and the chief writes it.
 """
@@ -72,15 +74,14 @@ class CheckpointManager:
     ``restore_latest(template)``, ``latest_step()``."""
 
     def __init__(self, directory: str, *, max_to_keep: int = 5,
-                 row_sharded_state: bool = False, param_specs=None):
+                 row_sharded_state: bool = False, param_specs=None, state_specs=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.row_sharded_state = row_sharded_state
         #: path -> ((axis, the dim of the leaf sharded over it), ...).
-        self.sharded_dims = {} if param_specs is None else {
-            path: dims for path, spec in _leaves(param_specs)
-            if (dims := tuple((a, d) for a in ("expert", "model")
-                              if (d := sharding.sharded_dim(spec, a)) is not None))}
+        self.sharded_dims = _sharded_dims(param_specs, PARAM_AXES)
+        #: The same for the model state's leaves.
+        self.state_dims = _sharded_dims(state_specs, ("slice",))
         os.makedirs(self.directory, exist_ok=True)
 
     def all_steps(self) -> list[int]:
@@ -102,12 +103,10 @@ class CheckpointManager:
         model_state = state.model_state
         if self.row_sharded_state:
             model_state = _gather_rows(model_state)
-        params = {}
-        for path, p in _leaves(state.params):
-            p = p.detach()
-            for axis, dim in self.sharded_dims.get(path, ()):
-                p = collectives.all_gather(p, dim, axis_name=axis, tag="ckpt")
-            params[path] = p
+        if self.state_dims:
+            model_state = _map_path(lambda path, t: _gather(t, self.state_dims.get(path, ())),
+                                    model_state)
+        params = dict(_leaves(_gather_tree(state.params, self.sharded_dims)))
         opt_state = state.opt_state.state_dict()
         wrote = False
         if dist.is_chief() and self.latest_step() != step:
@@ -185,15 +184,16 @@ class CheckpointManager:
             )
         with torch.no_grad():
             for path, p in params.items():
-                saved = blob["params"][path]
-                for axis, dim in self.sharded_dims.get(path, ()):
-                    n = p.shape[dim]
-                    saved = saved.narrow(dim, collectives.axis_index(axis) * n, n)
-                p.copy_(saved)
+                p.copy_(_narrow(blob["params"][path], p, self.sharded_dims.get(path, ())))
         template.opt_state.load_state_dict(blob["opt_state"])
         model_state = blob["model_state"]
         if self.row_sharded_state:
             model_state = _map(sharding.local_rows, model_state)
+        if self.state_dims:
+            like = dict(_leaves(template.model_state))
+            model_state = _map_path(
+                lambda path, t: _narrow(t, like[path], self.state_dims.get(path, ())),
+                model_state)
         log.info("restored checkpoint at step %d", step)
         return TrainState(
             step=int(blob["step"]),
@@ -214,6 +214,52 @@ def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def _map_path(fn, tree, path=()):
+    """``fn("a/b", leaf)`` over a tree's leaves (the ``_leaves`` paths)."""
+    if isinstance(tree, dict):
+        return {k: _map_path(fn, v, (*path, k)) for k, v in tree.items()}
+    return fn("/".join(path), tree)
+
+
+#: The axes over which a parameter leaf may be a rank's block.
+PARAM_AXES = ("pipe", "expert", "model")
+
+
+def global_params(params, param_specs):
+    """The tree of ``params`` with every leaf sharded by ``param_specs``
+    gathered into its global tensor (a collective: every rank calls it,
+    under the mesh's axes)."""
+    return _gather_tree(params, _sharded_dims(param_specs, PARAM_AXES))
+
+
+def _gather_tree(tree, dims: dict):
+    return _map_path(lambda path, t: _gather(t.detach(), dims.get(path, ())), tree)
+
+
+def _sharded_dims(specs, axes: tuple) -> dict:
+    """path -> ((axis, dim), ...) of every leaf of ``specs`` sharded over
+    one of ``axes``."""
+    return {} if specs is None else {
+        path: dims for path, spec in _leaves(specs)
+        if (dims := tuple((a, d) for a in axes
+                          if (d := sharding.sharded_dim(spec, a)) is not None))}
+
+
+def _gather(t, dims):
+    """The global tensor of this rank's block ``t`` (a collective)."""
+    for axis, dim in dims:
+        t = collectives.all_gather(t, dim, axis_name=axis, tag="ckpt")
+    return t
+
+
+def _narrow(saved, like, dims):
+    """This rank's block, shaped like ``like``, of the global ``saved``."""
+    for axis, dim in dims:
+        n = like.shape[dim]
+        saved = saved.narrow(dim, collectives.axis_index(axis) * n, n)
+    return saved
 
 
 def _gather_rows(tree):

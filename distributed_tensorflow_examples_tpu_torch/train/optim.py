@@ -42,15 +42,17 @@ optimizer updates this rank's chunk of the parameter in place, through a
 view, and an all-gather of the chunks rebuilds the rest of the
 parameter, so the numbers are the replicated step's (the update is
 elementwise).  An expert leaf (``ops/moe.py``'s rules) holds this rank's
-experts over ``expert``, and so do its slots; ZeRO-1 is not taken on an
-expert mesh (A8b-2b).  The chunk is the rank's contiguous 1/D of the leaf's
+experts over ``expert``, and a stacked leaf (a pipelined model's blocks)
+this rank's layers over ``pipe``, and so do their slots; on an expert
+mesh ZeRO-1's chunks are over the row shards (data x expert), whose
+ranks all hold the replicated leaves.  The chunk is the rank's contiguous 1/D of the leaf's
 elements, not its block along the dim the JAX rule names: torch's fused
 optimizers read a strided view as if it were dense, and so update the
 wrong elements of a block along an inner dim.  The rule still decides
 which leaves are sharded, and a checkpoint holds the global slots.  The clip
 takes the global norm over the global gradient: a leaf sharded over
-``expert`` or ``model`` has its squares summed over those groups, every
-other leaf counts once.
+``pipe``, ``expert`` or ``model`` has its squares summed over those
+groups, every other leaf counts once.
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ B1, B2, EPS, WEIGHT_DECAY = 0.9, 0.999, 1e-8, 1e-4
 def clip_by_global_norm_(grads: list, max_norm: float, sharded=None) -> None:
     """Scale ``grads`` in place by ``max_norm / norm`` when their global
     norm (f32) is at or above ``max_norm``; below it they are unchanged.
-    ``sharded[i]``: the axes (``"expert"``, ``"model"``) over which
+    ``sharded[i]``: the axes (``"pipe"``, ``"expert"``, ``"model"``) over which
     grads[i] is this rank's block, whose groups sum its squares."""
     norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads])
     if sharded is not None and any(sharded):
@@ -197,20 +199,27 @@ class SGD:
 
 @dataclasses.dataclass(frozen=True)
 class LeafPlan:
-    """How one leaf is laid out: ``model_dim`` and ``expert_dim``, the dims
-    of which this rank holds a block over ``model`` and ``expert`` (the
-    leaf and its slots; None: not sharded so); ``zero``, its slots hold
-    this data rank's chunk (ZeRO-1)."""
+    """How one leaf is laid out: ``model_dim``, ``expert_dim`` and
+    ``pipe_dim``, the dims of which this rank holds a block over ``model``,
+    ``expert`` and ``pipe`` (the leaf and its slots; None: not sharded
+    so); ``zero``, its slots hold this rank's chunk over the row shards
+    (ZeRO-1)."""
 
     model_dim: int | None = None
     zero: bool = False
     expert_dim: int | None = None
+    pipe_dim: int | None = None
+
+    @property
+    def dims(self) -> tuple:
+        """(axis, dim) of every axis over which this rank holds a block."""
+        return tuple((a, d) for a, d in (("pipe", self.pipe_dim), ("expert", self.expert_dim),
+                                          ("model", self.model_dim)) if d is not None)
 
     @property
     def axes(self) -> tuple:
         """The axes over which this rank holds a block of the leaf."""
-        return tuple(a for a, d in (("expert", self.expert_dim), ("model", self.model_dim))
-                     if d is not None)
+        return tuple(a for a, _d in self.dims)
 
 
 def _block(t: torch.Tensor, dim: int, index: int, count: int) -> torch.Tensor:
@@ -235,15 +244,15 @@ class ShardedOptState:
     checkpoint moves between mesh shapes."""
 
     def __init__(self, optimizer, params, plan: list, *, data_group, model_group,
-                 expert_group=None):
+                 expert_group=None, pipe_group=None):
         self.plan = list(plan)
         self.data_group, self.model_group = data_group, model_group
-        self.expert_group = expert_group
+        self.expert_group, self.pipe_group = expert_group, pipe_group
         self.params = leaves(params)
         self._data = (0, 1) if data_group is None else (data_group.rank, data_group.size)
-        self._model = (0, 1) if model_group is None else (model_group.rank, model_group.size)
-        self._expert = (0, 1) if expert_group is None else (expert_group.rank,
-                                                            expert_group.size)
+        self._blocks = {a: (0, 1) if g is None else (g.rank, g.size)
+                        for a, g in (("model", model_group), ("expert", expert_group),
+                                     ("pipe", pipe_group))}
         #: leaf index -> the view of its chunk that the optimizer updates
         self.chunks = {i: _chunk(p.detach(), *self._data)
                        for i, (p, lp) in enumerate(zip(self.params, self.plan)) if lp.zero}
@@ -267,8 +276,9 @@ class ShardedOptState:
         return self.inner.param_groups
 
     def _groups(self):
+        """The chunks' group as ``data``, and the block axes' groups."""
         return collectives.use_group(self.data_group, model=self.model_group,
-                                     expert=self.expert_group)
+                                     expert=self.expert_group, pipe=self.pipe_group)
 
     @torch.no_grad()
     def step(self) -> None:
@@ -301,10 +311,8 @@ class ShardedOptState:
             with self._groups():
                 if lp.zero:
                     v = collectives.all_gather(v, 0, axis_name="data", tag="ckpt").view(p.shape)
-                if lp.model_dim is not None:
-                    v = collectives.all_gather(v, lp.model_dim, axis_name="model", tag="ckpt")
-                if lp.expert_dim is not None:
-                    v = collectives.all_gather(v, lp.expert_dim, axis_name="expert", tag="ckpt")
+                for axis, dim in lp.dims:
+                    v = collectives.all_gather(v, dim, axis_name=axis, tag="ckpt")
             return v
 
         return self._slots(self.inner.state_dict(), gather)
@@ -314,10 +322,8 @@ class ShardedOptState:
 
         def take(v, i):
             lp = self.plan[i]
-            if lp.model_dim is not None:
-                v = _block(v, lp.model_dim, *self._model)
-            if lp.expert_dim is not None:
-                v = _block(v, lp.expert_dim, *self._expert)
+            for axis, dim in lp.dims:
+                v = _block(v, dim, *self._blocks[axis])
             if lp.zero:
                 v = _chunk(v.contiguous(), *self._data)
             return v.clone()  # the rank's own slot, not a view of the caller's

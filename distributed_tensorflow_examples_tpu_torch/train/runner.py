@@ -8,8 +8,8 @@ full-split ``evaluate`` and the ``FINAL`` line the scrapers read.
 
 The world comes from ``parallel.dist.initialize`` (``TF_CONFIG`` or
 nothing: one process); a ``ps``/``evaluator`` task prints and exits 0.
-``--mesh`` must tile the world with its ``data``, ``expert``, ``seq`` and
-``model`` axes (``pipe`` and ``slice`` raise, A8b-2b); the state is laid
+``--mesh`` must tile the world with its ``slice``, ``data``, ``pipe``,
+``expert``, ``seq`` and ``model`` axes; the state is laid
 out by the model's rule table (``rules``,
 ``train/state.py::create_sharded_state``), with the optimizer slots
 ZeRO-1 sharded under ``--zero_opt``.  ``--profile``
@@ -92,9 +92,10 @@ class Experiment:
             mesh if mesh is not None
             else build_mesh(MeshSpec.parse(getattr(flags, "mesh", "")), self.device)
         )
-        log.info("mesh: %s over %d rank(s); this rank %d (data %d, expert %d, seq %d, "
-                 "model %d) on %s", self.mesh.shape, self.mesh.size, dist.process_index(),
-                 self.mesh.data_index, self.mesh.expert_index, self.mesh.seq_index,
+        log.info("mesh: %s over %d rank(s); this rank %d (slice %d, data %d, pipe %d, "
+                 "expert %d, seq %d, model %d) on %s", self.mesh.shape, self.mesh.size,
+                 dist.process_index(), self.mesh.slice_index, self.mesh.data_index,
+                 self.mesh.pipe_index, self.mesh.expert_index, self.mesh.seq_index,
                  self.mesh.model_index, self.device)
         if loss_fn is None:
             if loss_fn_factory is None:
@@ -116,7 +117,8 @@ class Experiment:
         if self.log_dir:
             self.ckpt = CheckpointManager(os.path.join(self.log_dir, "ckpt"),
                                           row_sharded_state=row_sharded_state,
-                                          param_specs=self.specs["params"])
+                                          param_specs=self.specs["params"],
+                                          state_specs=self.specs["model_state"])
         self.hooks = [
             hooks_lib.StopAtStepHook(flags.train_steps),
             hooks_lib.StepCounterHook(

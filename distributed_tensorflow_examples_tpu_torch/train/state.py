@@ -104,16 +104,20 @@ def create_sharded_state(
     sharded over ``model`` (``min_max_variable_partitioner``); explicit
     rules win.  ``zero_opt_sharding`` (ZeRO-1, JAX ``_zero_shard_opt``):
     the slots of every leaf of at least ``zero_min_elements`` that no rule
-    shards are sharded along the first dim the data degree divides (each
-    rank holds its 1/D of their elements as one contiguous chunk:
-    ``optim.ShardedOptState``).
+    shards are sharded along the first dim the row shards' degree divides
+    (slice x data x expert: JAX's slice x data, and the expert ranks,
+    which hold the replicated leaves too; each rank holds its 1/D of
+    their elements as one contiguous chunk: ``optim.ShardedOptState``).
+    Leaves stacked over ``pipe`` (a pipelined model's blocks) keep this
+    rank's layers, and their slots too.  The model state is laid out by
+    the same rules over every axis but ``data`` (a row-sharded state, the
+    LSTM's carry, comes from ``init_params_fn`` as this rank's rows):
+    ghost-batch BN's [S, C] stats keep this rank's slice's row.
 
     Returns ``(state, specs)``: ``specs["params"]`` the tree of each
     leaf's spec, ``specs["opt_state"]`` of its slots' global layout, JAX's
-    (one per leaf; the ZeRO-1 ones over ``data``)."""
-    if zero_opt_sharding and mesh.shape.get("expert", 1) > 1:
-        raise NotImplementedError(
-            "--zero_opt on an 'expert' mesh axis waits for the port's item A8b-2b")
+    (one per leaf; the ZeRO-1 ones over the row shards' axes), and
+    ``specs["model_state"]`` of the model state's."""
     out = init_params_fn(seed)
     params, model_state = out if isinstance(out, tuple) else (out, {})
     default_fn = None
@@ -126,26 +130,41 @@ def create_sharded_state(
     param_specs = sharding.sharding_tree(params, mesh, rules, default_spec_fn=default_fn)
     local = _map2(lambda leaf, spec: sharding.block(leaf, spec, mesh),
                   params, param_specs)
-    data = mesh.shape.get("data", 1)
+    zero_axes = tuple(a for a in ZERO_AXES if mesh.shape.get(a, 1) > 1)
     opt_specs = _map2(
-        lambda leaf, spec: _zero_spec(np.shape(leaf), spec, data, zero_min_elements)
+        lambda leaf, spec: _zero_spec(np.shape(leaf), spec, zero_axes, mesh, zero_min_elements)
         if zero_opt_sharding else spec, params, param_specs)
     params = as_param_leaves(local, device)
-    sharded_model = mesh.shape.get("model", 1) > 1
-    sharded_expert = mesh.shape.get("expert", 1) > 1
-    plan = [_leaf_plan(ps, os_, sharded_model, sharded_expert)
+    plan = [_leaf_plan(ps, os_, mesh)
             for ps, os_ in zip(leaves(param_specs), leaves(opt_specs))]
     if any(lp.axes or lp.zero for lp in plan):
         from .optim import ShardedOptState
 
-        opt_state = ShardedOptState(optimizer, params, plan, data_group=mesh.group,
+        opt_state = ShardedOptState(optimizer, params, plan, data_group=mesh.rows_group,
                                     model_group=mesh.model_group,
-                                    expert_group=getattr(mesh, "expert_group", None))
+                                    expert_group=mesh.expert_group,
+                                    pipe_group=mesh.pipe_group)
     else:
         opt_state = optimizer.init(params)
+    # Under the state's own key, as JAX matches the rules against the
+    # whole TrainState's paths ("model_state/bn_stem/mean"); the rows of a
+    # state sharded over data are the init function's own (the LSTM's
+    # carry: ``row_sharded_state``), so only the other axes lay it out.
+    state_specs = _map2(lambda _leaf, spec: sharding.P(*(None if e == "data" else e
+                                                         for e in spec)),
+                        model_state, sharding.sharding_tree({"model_state": model_state}, mesh,
+                                                            rules)["model_state"])
+    model_state = _map2(lambda leaf, spec: sharding.block(leaf, spec, mesh),
+                        model_state, state_specs)
     state = TrainState(step=0, params=params, opt_state=opt_state,
                        model_state=as_state_leaves(model_state, device), seed=int(seed))
-    return state, {"params": param_specs, "opt_state": opt_specs}
+    return state, {"params": param_specs, "opt_state": opt_specs, "model_state": state_specs}
+
+
+#: The axes ZeRO-1 chunks the replicated leaves' slots over, outermost
+#: first: the batch's row shards (JAX's ``("slice", "data")``, and
+#: ``expert``, whose ranks hold the replicated leaves too).
+ZERO_AXES = ("slice", "data", "expert")
 
 
 def _map2(fn, tree, other):
@@ -154,28 +173,31 @@ def _map2(fn, tree, other):
     return fn(tree, other)
 
 
-def _zero_spec(shape, spec, data: int, min_elements: int):
-    """JAX ``_zero_shard_opt`` for one slot: the first dim ``data``
-    divides, over ``data``, when the leaf is big enough and no rule
-    shards it; else ``spec``."""
-    if data <= 1 or not shape or int(np.prod(shape)) < min_elements:
+def _zero_spec(shape, spec, axes: tuple, mesh, min_elements: int):
+    """JAX ``_zero_shard_opt`` for one slot: the first dim the product of
+    ``axes`` divides, over them jointly, when the leaf is big enough and
+    no rule shards it; else ``spec``."""
+    n = int(np.prod([mesh.shape.get(a, 1) for a in axes]))
+    if n <= 1 or not shape or int(np.prod(shape)) < min_elements:
         return spec
     if any(e is not None for e in spec):
         return spec
     for d, s in enumerate(shape):
-        if s % data == 0:
+        if s % n == 0:
             entries = [None] * len(shape)
-            entries[d] = "data"
+            entries[d] = axes if len(axes) > 1 else axes[0]
             return sharding.P(*entries)
     return spec
 
 
-def _leaf_plan(param_spec, opt_spec, sharded_model: bool, sharded_expert: bool = False):
+def _leaf_plan(param_spec, opt_spec, mesh):
     from .optim import LeafPlan
 
-    model_dim = sharding.sharded_dim(param_spec, "model") if sharded_model else None
-    expert_dim = sharding.sharded_dim(param_spec, "expert") if sharded_expert else None
-    return LeafPlan(model_dim=model_dim, zero=opt_spec != param_spec, expert_dim=expert_dim)
+    def dim(axis):
+        return sharding.sharded_dim(param_spec, axis) if mesh.shape.get(axis, 1) > 1 else None
+
+    return LeafPlan(model_dim=dim("model"), zero=opt_spec != param_spec,
+                    expert_dim=dim("expert"), pipe_dim=dim("pipe"))
 
 
 def params_sha256(params) -> str:

@@ -4,9 +4,9 @@ flags, accepted and mapped.
 :func:`add_training_flags` is the twin of ``utils/flags.py::
 define_training_flags`` in the JAX package, on argparse, with its names
 and defaults; :func:`check_training_flags` refuses, naming the port's
-item that brings it, what the port cannot run yet (``--profile`` A12;
-a ``--mesh`` axis other than ``data``, ``expert``, ``seq`` and ``model``
-A8b-2b through ``parallel.mesh``).  ``--zero_opt`` shards the optimizer slots (ZeRO-1,
+item that brings it, what the port cannot run yet (``--profile`` A12);
+``--mesh`` takes every axis of the JAX package (``parallel.mesh``).
+``--zero_opt`` shards the optimizer slots (ZeRO-1,
 ``train/state.py``).  ``--watchdog`` starts the peer watchdog on a world
 of 2 or more (``parallel/dist.py``); ``--deterministic`` turns on
 ``utils.determinism``.

@@ -248,10 +248,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     torch.testing.assert_close(outs[0][1], torch.full((8,), 0.5), rtol=0, atol=0)
     torch.testing.assert_close(outs[0][2], torch.full((8,), 0.25), rtol=0, atol=0)
     assert all(torch.equal(outs[0][i], outs[1][i]) for i in (1, 2))
+    # Ghost BN trains now (``test_torch_ghost_bn.py``); what it refuses is
+    # a batch that does not split into its slices, as JAX does.
     p, s = layers.batchnorm_init(8, ghost_slices=2)
-    with pytest.raises(NotImplementedError, match="A8b"):
+    with pytest.raises(ValueError, match="not divisible by 2 slices"):
         layers.batchnorm({k: torch.from_numpy(v) for k, v in p.items()},
-                         {k: torch.from_numpy(v) for k, v in s.items()}, xc,
+                         {k: torch.from_numpy(v) for k, v in s.items()}, xc[:1],
                          train=True, ghost_slices=2)
 
 
@@ -267,10 +269,10 @@ def test_mesh_spec_and_one_device_mesh():
         assert m.shape == {"data": 1} and m.size == 1 and m.device == torch.device("cpu")
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         mesh_lib.build_mesh(mesh_lib.MeshSpec.parse("data=2"), "cpu")
-    # One rank has no second model rank; the other axes raise naming A8b.
+    # One rank has no second model or slice rank.
     with pytest.raises(ValueError, match="not divisible by fixed axes product 2"):
         mesh_lib.build_mesh(mesh_lib.MeshSpec.parse("model=2"), "cpu")
-    with pytest.raises(NotImplementedError, match="A8b"):
+    with pytest.raises(ValueError, match="not divisible by fixed axes product 2"):
         mesh_lib.build_mesh(mesh_lib.MeshSpec.parse("slice=2"), "cpu")
     with pytest.raises(ValueError, match="unknown mesh axis"):
         mesh_lib.MeshSpec.parse("bogus=2")

@@ -131,8 +131,7 @@ def test_build_mesh_over_the_world():
     with pytest.raises(ValueError, match="needs 4 devices, have 2"):
         _on_two_ranks("data=4")
     # The model axis builds (model innermost: rank r at data r // M, model
-    # r % M), and so do the sequence and expert axes; the pipeline and
-    # slice axes raise (A8b-2b).
+    # r % M), and so do the sequence, expert, pipeline and slice axes.
     for text in ("model=2", "data=1,model=-1"):
         for r, m in enumerate(_on_two_ranks(text)):
             assert m.shape == {"data": 1, "model": 2} and m.size == 2
@@ -144,9 +143,13 @@ def test_build_mesh_over_the_world():
         assert m.shape == {"data": 1, "expert": 2} and m.expert_index == r
         assert m.row_shards == 2 and m.row_index == r and m.batch_group is m.expert_group
         assert m.group is None and m.expert_grad_group is None
-    for text in ("slice=2", "pipe=2"):
-        with pytest.raises(NotImplementedError, match="A8b-2"):
-            _on_two_ranks(text)
+    for r, m in enumerate(_on_two_ranks("slice=2")):  # rows over slice x data
+        assert m.shape == {"data": 1, "slice": 2} and m.slice_index == r
+        assert m.row_shards == 2 and m.row_index == r and m.group is None
+        assert m.batch_group is m.slice_group is m.rows_group and m.slice_group.size == 2
+    for r, m in enumerate(_on_two_ranks("pipe=2")):  # the pipe ranks share the rows
+        assert m.shape == {"data": 1, "pipe": 2} and m.pipe_index == r
+        assert m.row_shards == 1 and m.batch_group is None and m.pipe_group.size == 2
     # The mesh owns its group: a data axis of 1 has none, and sums nothing.
     one = mesh_lib.Mesh(device=torch.device("cpu"), shape={"data": 1})
     assert one.group is None and mesh_lib.build_mesh(None, "cpu").group is None

@@ -51,6 +51,7 @@ from distributed_tensorflow_examples_tpu_torch.data import datasets, pipeline, s
 from distributed_tensorflow_examples_tpu_torch.examples import cifar10_cnn, mnist_mlp
 from distributed_tensorflow_examples_tpu_torch.models import cnn, mlp
 from distributed_tensorflow_examples_tpu_torch.train import hooks, optim, state, step
+from distributed_tensorflow_examples_tpu_torch.utils.metrics import MetricsWriter
 
 torch.set_num_threads(1)
 
@@ -67,6 +68,15 @@ MODELS = {
             lambda p: p.endswith("kernel")),
 }
 SEED = 3
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard_events(monkeypatch):
+    """No test here reads an event file: the runs write metrics.jsonl only
+    (a TensorBoard writer's first import pulls in TensorFlow, seconds a
+    process)."""
+    monkeypatch.setattr(MetricsWriter, "__init__",
+                        functools.partialmethod(MetricsWriter.__init__, tensorboard=False))
 
 
 @functools.lru_cache(maxsize=None)

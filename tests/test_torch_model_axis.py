@@ -192,8 +192,11 @@ def test_copy_and_reduce_over_model_have_the_vocab_parallel_gradients():
         assert torch.equal(s, torch.full((2,), 3.0))
         assert torch.equal(ag, torch.full((2,), 5.0))  # not 10: the loss is replicated
         assert torch.equal(pg, torch.full((2,), 10.0))
-    with pytest.raises(NotImplementedError, match="A8b-2"):
-        collectives.axis_size("pipe")
+    # Every mesh axis is known now (a pipe axis without a group is one
+    # rank); an unknown name is refused.
+    assert collectives.axis_size("pipe") == collectives.axis_size("slice") == 1
+    with pytest.raises(ValueError, match="unknown mesh axis"):
+        collectives.axis_size("bogus")
 
 
 def test_row_sharded_lookup_matches_the_table_and_fills_nan_once():

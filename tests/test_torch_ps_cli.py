@@ -13,6 +13,7 @@ example's share.  W1 (``--ps_emulation``) through the port's CLI: its
 FINAL line has the JAX line's fields, in its order.
 """
 
+import functools
 import inspect
 import os
 import re
@@ -38,6 +39,7 @@ from distributed_tensorflow_examples_tpu_torch.examples import mnist_mlp
 from distributed_tensorflow_examples_tpu_torch.models import cnn
 from distributed_tensorflow_examples_tpu_torch.train import optim, ps_experiment
 from distributed_tensorflow_examples_tpu_torch.utils import determinism, flags
+from distributed_tensorflow_examples_tpu_torch.utils.metrics import MetricsWriter
 
 torch.set_num_threads(1)
 
@@ -46,6 +48,15 @@ LOSS_RTOL = 1e-5
 FINAL_PS = (r"^FINAL step={step} steps_per_sec=\S+ examples_per_sec_per_chip=\S+ "
             r"mode={mode} stale_dropped=\d+ first_loss=[0-9.]+ last_loss=[0-9.]+ "
             r"test_accuracy=[0-9.]+$")
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard_events(monkeypatch):
+    """No test here reads an event file: the runs write metrics.jsonl only
+    (a TensorBoard writer's first import pulls in TensorFlow, seconds a
+    process)."""
+    monkeypatch.setattr(MetricsWriter, "__init__",
+                        functools.partialmethod(MetricsWriter.__init__, tensorboard=False))
 
 
 @pytest.fixture(autouse=True)

@@ -66,6 +66,7 @@ from distributed_tensorflow_examples_tpu_torch.examples import resnet50 as cli
 from distributed_tensorflow_examples_tpu_torch.models import layers, resnet
 from distributed_tensorflow_examples_tpu_torch.parallel import mesh as mesh_lib
 from distributed_tensorflow_examples_tpu_torch.train import Experiment, checkpoint, optim, state, step
+from distributed_tensorflow_examples_tpu_torch.utils.metrics import MetricsWriter
 
 torch.set_num_threads(1)
 
@@ -75,6 +76,15 @@ TOL = {
     "float32": dict(loss=1e-5, logits=1e-4, state=1e-4, grad=1e-4, param=1e-5),
     "bfloat16": dict(loss=5e-3, logits=3e-2, state=1e-2, grad=2e-2, param=3e-3),
 }
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard_events(monkeypatch):
+    """No test here reads an event file: the runs write metrics.jsonl only
+    (a TensorBoard writer's first import pulls in TensorFlow, seconds a
+    process)."""
+    monkeypatch.setattr(MetricsWriter, "__init__",
+                        functools.partialmethod(MetricsWriter.__init__, tensorboard=False))
 
 
 def _batch(n=4, seed=0):
@@ -372,13 +382,15 @@ def test_cli_trains_evaluates_and_prints_final(tmp_path, capsys):
 @pytest.mark.parametrize(
     "extra,error,match",
     [
-        (["--bn_ghost_slices=2"], NotImplementedError, "A8b"),
+        (["--bn_ghost_slices=2", "--batch_size=3"], ValueError, "not divisible by 2 slices"),
         (["--mesh=data=2"], ValueError, "needs 2 devices, have 1"),
         (["--data_dir=dsvc://127.0.0.1:1"], dsvc.DSVCDeadlineError, "unreachable"),
     ],
     # Stable case ids: the data=2 case raised NotImplementedError (A5)
-    # while the port ran on one device only, and the dsvc:// case raised
-    # NotImplementedError (A10) until the data planes came.
+    # while the port ran on one device only, the dsvc:// case raised
+    # NotImplementedError (A10) until the data planes came, and ghost BN
+    # (A8b) until it came; it now refuses only a batch that does not
+    # split into the ghost slices, as JAX does.
     ids=["extra0-NotImplementedError-A8", "extra1-NotImplementedError-A5",
          "extra2-NotImplementedError-A10"],
 )

@@ -32,6 +32,7 @@ from distributed_tensorflow_examples_tpu_torch.models import resnet as torch_res
 from distributed_tensorflow_examples_tpu_torch.models import transformer as torch_tf
 from distributed_tensorflow_examples_tpu_torch.train import Experiment, optim
 from distributed_tensorflow_examples_tpu_torch.utils import threefry
+from distributed_tensorflow_examples_tpu_torch.utils.metrics import MetricsWriter
 
 torch.set_num_threads(1)
 
@@ -39,6 +40,15 @@ NORMAL_ULPS = 4
 GUMBEL_ATOL = 2e-6
 SEEDS = [0, 42, -3, 2**33 + 5]
 SHAPES = [(7,), (3, 5), (2, 3, 4)]
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard_events(monkeypatch):
+    """No test here reads an event file: the runs write metrics.jsonl only
+    (a TensorBoard writer's first import pulls in TensorFlow, seconds a
+    process)."""
+    monkeypatch.setattr(MetricsWriter, "__init__",
+                        functools.partialmethod(MetricsWriter.__init__, tensorboard=False))
 
 
 def _ulps(a, b) -> int:

@@ -50,6 +50,7 @@ from distributed_tensorflow_examples_tpu_torch.train import (
     Experiment, checkpoint, hooks, loop, optim, preemption, state, step,
 )
 from distributed_tensorflow_examples_tpu_torch.utils import threefry
+from distributed_tensorflow_examples_tpu_torch.utils.metrics import MetricsWriter
 
 # One intra-op thread: these tiny tests share the machine with the
 # timing-sensitive server and fault tests of the other xdist workers.
@@ -62,6 +63,15 @@ TOL = {
     "float32": dict(loss=1e-5, grad=5e-6, param=3e-5, param_mean=3e-5),
     "bfloat16": dict(loss=2e-3, grad=2.5e-2, param=6e-3, param_mean=1e-4),
 }
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard_events(monkeypatch):
+    """No test here reads an event file: the runs write metrics.jsonl only
+    (a TensorBoard writer's first import pulls in TensorFlow, seconds a
+    process)."""
+    monkeypatch.setattr(MetricsWriter, "__init__",
+                        functools.partialmethod(MetricsWriter.__init__, tensorboard=False))
 
 
 def _batches(n, batch=4, seq_len=TINY["max_seq_len"]):
@@ -390,12 +400,14 @@ def test_cli_trains_prints_final_and_publishes(tmp_path, capsys):
 @pytest.mark.parametrize(
     "extra,error,match",
     [
-        (["--pipeline_stages=2"], NotImplementedError, "model-parallel"),
-        (["--moe_experts=4", "--pipeline_stages=2"], ValueError, "compose"),
+        (["--pipeline_stages=2"], ValueError, "n_layers=1 not divisible by pipeline_stages=2"),
+        (["--moe_experts=4", "--pipeline_stages=2", "--n_layers=2"], ValueError, "compose"),
         (["--mesh=data=2"], ValueError, "needs 2 devices, have 1"),
     ],
     # Stable case ids: the data=2 case raised NotImplementedError (A5)
-    # while the port ran on one device only.
+    # while the port ran on one device only, and the stages case (A8b-2b)
+    # until the pipeline came; it now meets JAX init's refusal of stages
+    # that do not divide the layers.
     ids=["extra0-model-parallel", "extra1-model-parallel", "extra2-A5"],
 )
 def test_cli_refuses_what_later_slices_bring(extra, error, match, tmp_path, capsys):

@@ -147,22 +147,41 @@ def test_out_of_range_ids_give_nan_rows_like_jnp_take():
     "change", [dict(pipeline_stages=2), dict(pipeline_stages=2, microbatches=2)]
 )
 def test_later_slices_raise_not_implemented(change):
+    """Pipeline stages run now (``test_torch_pipeline.py``): the stacked
+    layout, and without a mesh the stack applied in order, the flat
+    model's logits bit for bit.  What still refuses is JAX's: MoE with
+    stages, and stages that do not divide the layers."""
     cfg = dataclasses.replace(torch_tf.Config(**TINY), **change)
-    with pytest.raises(NotImplementedError, match="slice"):
-        torch_tf.param_shapes(cfg)
-    with pytest.raises(NotImplementedError, match="slice"):
-        torch_tf.apply(cfg, {}, torch.zeros(1, 4, dtype=torch.int64))
+    flat = torch_tf.Config(**TINY)
+    assert torch_tf.param_shapes(cfg)["blocks"]["qkv"]["kernel"] == (2, 64, 192)
+    x = torch.tensor(np.random.default_rng(0).integers(0, 64, (2, 8)))
+    leaves = lambda c: state_leaves(torch_tf.init_numpy(c, 0))  # noqa: E731
+    torch.testing.assert_close(torch_tf.apply(cfg, leaves(cfg), x),
+                               torch_tf.apply(flat, leaves(flat), x), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="do not compose"):
+        torch_tf.param_shapes(dataclasses.replace(cfg, moe_experts=4))
+    with pytest.raises(ValueError, match="not divisible by pipeline_stages=3"):
+        torch_tf.apply(dataclasses.replace(cfg, pipeline_stages=3), {}, x)
+
+
+def state_leaves(tree):
+    from distributed_tensorflow_examples_tpu_torch.train import state
+
+    return state.as_param_leaves(tree, "cpu")
 
 
 def test_mesh_raises_not_implemented():
-    """A mesh runs the dense and MoE models (``test_torch_seq_axis.py``,
-    ``test_torch_moe.py``); what a mesh still refuses is the pipeline and
-    slice axes and pipeline blocks, naming A8b-2b."""
+    """A mesh runs the dense, MoE and pipelined models
+    (``test_torch_seq_axis.py``, ``test_torch_moe.py``,
+    ``test_torch_pipeline.py``) and builds every axis; what it refuses is
+    JAX's: stages on a mesh whose ``pipe`` axis is another size, and a
+    mesh the world does not fill."""
     mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec.parse("data=1"), "cpu")
     for change in (dict(pipeline_stages=2), dict(pipeline_stages=2, microbatches=2)):
         cfg = dataclasses.replace(torch_tf.Config(**TINY), **change)
-        with pytest.raises(NotImplementedError, match="slice A8b-2"):
-            torch_tf.apply(cfg, {}, torch.zeros(1, 4, dtype=torch.int64), mesh=mesh)
+        with pytest.raises(ValueError, match="'pipe' axis is exactly that size"):
+            torch_tf.apply(cfg, state_leaves(torch_tf.init_numpy(cfg, 0)),
+                           torch.zeros(1, 4, dtype=torch.int64), mesh=mesh)
     for text in ("slice=2,expert=1", "data=1,pipe=2"):
-        with pytest.raises(NotImplementedError, match="A8b-2"):
+        with pytest.raises(ValueError, match="(not divisible by fixed axes product|needs) 2"):
             mesh_lib.build_mesh(mesh_lib.MeshSpec.parse(text), "cpu")

@@ -61,6 +61,7 @@ from distributed_tensorflow_examples_tpu_torch.examples import ptb_lstm, word2ve
 from distributed_tensorflow_examples_tpu_torch.models import lstm, word2vec
 from distributed_tensorflow_examples_tpu_torch.train import hooks, optim, state, step
 from distributed_tensorflow_examples_tpu_torch.utils import threefry
+from distributed_tensorflow_examples_tpu_torch.utils.metrics import MetricsWriter
 
 torch.set_num_threads(1)
 
@@ -69,6 +70,15 @@ W2V = dict(vocab_size=500, dim=32, num_sampled=16)
 LSTM = dict(vocab_size=300, dim=24, num_layers=2)
 ROWS, T = 4, 8
 SEED = 4
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard_events(monkeypatch):
+    """No test here reads an event file: the runs write metrics.jsonl only
+    (a TensorBoard writer's first import pulls in TensorFlow, seconds a
+    process)."""
+    monkeypatch.setattr(MetricsWriter, "__init__",
+                        functools.partialmethod(MetricsWriter.__init__, tensorboard=False))
 
 
 def _ulps(a, b) -> int:
