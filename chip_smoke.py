@@ -82,8 +82,12 @@ it fails:
    tensor-core kernel; the published version
    must hold the trained parameters bit for bit; and one step's loss and
    gradients from the initial weights on the first batch must match an
-   ``attention="xla"`` step.  Last, one step under ``torch.profiler``
-   gives the step's device time by kernel family and the idle share.
+   ``attention="xla"`` step.  The last step but one runs in a one-step
+   ``ProfilerHook`` window (the port's ``--profile``): its Chrome trace
+   must be written, and ``tools/profile_step.py``'s reader must find 12
+   launches of each of the forward, dq and dk/dv kernels in it; printed:
+   the step's device time by kernel family, the idle share, the longest
+   idle gaps and the seconds the trace took to write.
 5. Train ResNet-50 end to end at full width: 224 x 224, 1000 classes,
    batch 256, bf16 compute, SGD momentum 0.9 at lr 0.1 (the example's
    stepwise decay), l2 1e-4, on ``imagenet_synthetic`` (2048 train images,
@@ -263,9 +267,11 @@ it fails:
    against the chief's 1-rank step on the same batch (W4: and the same
    negatives, id for id): the loss within ``TOL_MA_LOSS_REL``, every
    parameter, the tables put together, within ``TOL_MA_PARAM``.  Printed:
-   step ms, examples/s or tokens/s, the model-axis all-reduces a step
-   (calls, bytes, host ms) and one profiled step's device busy ms and idle
-   share.  Beside (a) and (b), (c) ResNet-50 (W3) with ``--zero_opt`` and
+   step ms, examples/s or tokens/s, each rank's collective account of a
+   step (``utils/hlo_analysis.py``: kind, calls, bytes and host ms by tag)
+   and one profiled step's device busy ms and idle share; W4 fails if any
+   collective of any step moved a tensor as large as a whole [V, D] table
+   (the JAX HLO test's verdict).  Beside (a) and (b), (c) ResNet-50 (W3) with ``--zero_opt`` and
    then without, on
    ``DP_RANKS`` data ranks at phase 9's global batch and width,
    ``ZERO_STEPS`` steps each from the same weights and batches, cuDNN
@@ -336,7 +342,8 @@ it fails:
    sequence.  (b) and (c) share one set of processes.  First, each flash
    kernel at a hop's shape [16, 4096, 128], bf16 in, timed with float32
    out (the CUDA-core route every hop takes) beside bf16 out (the tensor
-   cores), causal and full (``time_hop_routes``).  Gates: every rank's
+   cores) and SDPA at float32, causal and full (``time_hop_routes``, by
+   ``tools/flash_bench.py``).  Gates: every rank's
    steps 1-``SP_STEPS`` within ``TOL_SP_LOSS`` of phase 6's one-process
    steps on the same weights, batch and learning rate (steps 2 and 3
    carry the mesh's gradients: the ring's backward, the seq mean, the
@@ -372,9 +379,11 @@ it fails:
    each rank holds 4 experts a layer; steps 1-3 against one process on
    the same global batches and weights (``TOL_MOE_EP_LOSS``,
    ``TOL_MOE_EP_LOSS_LATER``, with that process's flash-against-xla gaps
-   as the noise floor); B1-B3 12 times a step a rank on the tensor cores.
-   Printed: step ms, tokens/s, the ``expert_a2a`` and other collectives a
-   step (calls, MB, host ms), each rank's busy and idle share.  (c) (a)'s
+   as the noise floor); B1-B3 12 times a step a rank on the tensor cores;
+   every step's account holds all-to-alls, all over the expert group.
+   Printed: step ms, tokens/s, each rank's collective account of a step
+   (``expert_a2a`` and the rest: calls, MB, host ms), each rank's busy and
+   idle share.  (c) (a)'s
    published weights on a registry-pinned replica: one [1, 2048] predict
    (12 tensor-core B1 launches; its logits against ``transformer.apply``
    on the card within ``TOL_LOGITS``) and one decode session of 16 prompt
@@ -405,7 +414,9 @@ it fails:
    --mesh=slice=2`` (128 rows a rank), ``GB_STEPS`` steps on the fused
    statistics path: 53 launches of each BN kernel a step a rank, no BN
    all-reduce (each slice's statistics are its rank's), one gradient
-   bucket a step over the 2 ranks, the FINAL line; step 1's loss and each
+   bucket a step over the 2 ranks, no all-reduce but the gradient bucket's
+   and the metrics' crossing the slices in any step's account (the JAX HLO
+   test's verdict), the FINAL line; step 1's loss and each
    rank's row of the running stats against one process's ghost path on
    the same global batch (``TOL_GB_LOSS``, ``TOL_GB_STATS``; run here
    first).
@@ -417,8 +428,11 @@ The line before the last is the kernels' JSON record (the four kernels
 with a tensor-core instance carry its launches on the main paths and its
 SASS tensor-core instruction count, and the forward its times at the
 three shapes); the last line is
-``{"ok": true, "device": {...}}``.  The run needs one card; it exits
-non-zero without one, and without the repository beside it.
+``{"ok": true, "device": {...}}``.  The kernels' timers, the profiled
+windows' reader and the collective account are the port's own tools
+(``tools/flash_bench.py``, ``tools/profile_step.py``,
+``utils/hlo_analysis.py``).  The run needs one card; it exits non-zero
+without one, and without the repository beside it.
 """
 
 from __future__ import annotations
@@ -436,11 +450,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from distributed_tensorflow_examples_tpu_torch.tools import flash_bench as fb
+from distributed_tensorflow_examples_tpu_torch.tools import profile_step as ps
+from distributed_tensorflow_examples_tpu_torch.utils import hlo_analysis
+
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-H100_BF16_FLOPS = 989e12  # dense tensor-core peak, SXM data sheet
-H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
-H100_BYTES_PER_S = 3.35e12
 #: Kernel vs plain version, same inputs, same arithmetic in another order:
 #: a bf16 output may land one bf16 step away (2^-7 at |o| in [1, 2)) and a
 #: p on the other side of a bf16 rounding boundary moves o by 2^-8 * p * |v|;
@@ -467,6 +482,8 @@ TOL_BWD = {torch.bfloat16: 8e-3, torch.float32: 2e-5}
 #: The full-width training phases (T 2048 in phase 4, T 8192 in phase 6).
 TRAIN_STEPS = 6
 TRAIN_BATCH = 8
+#: Phase 4's profiled step (a one-step ProfilerHook window).
+PROFILE_STEP = TRAIN_STEPS - 1
 LONG_T = 8192
 LONG_BATCH = 2
 #: Flash step vs xla step from the same weights and batch, bf16 at full
@@ -584,21 +601,6 @@ TOL_DP_VS_NOISE = 2.0
 #: clip of the local gradient, or a summed gradient, is off by O(1).
 DP_LSTM_CLIP = 0.05
 TOL_DP_LSTM_UPDATE = 1e-4
-#: Device rows of a profile that are the profiler's own markers, not work.
-CUPTI_MARKERS = ("Command Buffer Full", "Activity Buffer Request")
-#: The port's flash kernels in an LM step's profile, by kernel name.
-FLASH_FAMILIES = ("flash_fwd", "flash_dq", "flash_dkv", "flash_fused_bwd", "fused_dq_reduce")
-#: Kernel families of a training step's profile, by substrings of the
-#: kernel name (after the flash kernels).
-KERNEL_FAMILIES = (
-    ("optimizer", ("adam", "multi_tensor_apply")),
-    ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
-    ("reduce", ("reduce", "norm", "softmax", "logsumexp")),
-    ("copy/cast", ("copy", "memcpy", "memset", "fill")),
-    ("elementwise", ("elementwise", "vectorized", "unrolled")),
-)
-
-
 #: A thread's buffered log lines (``buffered``), else None: printed now.
 _LOG = threading.local()
 
@@ -824,55 +826,10 @@ def require_tensor_cores(path: str, launches: dict, tc_launches: dict) -> None:
         f"{k} {tc_launches.get(k, 0)} of {launches.get(k, 0)}" for k in TENSOR_CORE_KERNELS))
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Device time of one call, from CUDA events around ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def flash_flops(bh: int, t: int, d: int, causal: bool, products: int = 2) -> int:
-    """Operations of ``products`` [T, D]-by-pair matrix products over the
-    (causal: visible) score pairs."""
-    pairs = t * (t + 1) // 2 if causal else t * t
-    return products * 2 * bh * pairs * d
-
-
-def flash_bound_ms(
-    bh: int, t: int, d: int, dtype, causal: bool, *,
-    products: int = 2, tiles_in: int = 3, tiles_out: int = 1,
-    rows_in: int = 0, rows_out: int = 1,
-) -> tuple[float, str]:
-    """The least time for a flash function on these inputs: ``products``
-    [T, D]-by-pair matrix products over the (causal: visible) score pairs
-    at the dtype's peak, against ``tiles_in`` [BH, T, D] tensors read once,
-    ``tiles_out`` written once, and ``rows_in``/``rows_out`` f32 [BH, T]
-    rows (lse, delta) at the memory rate.  Forward: q.k^T and p.v, q/k/v
-    in, o and lse out.  dq: q.k^T, do.v^T and ds.k.  dk/dv: q.k^T, do.v^T,
-    p^T.do and ds^T.q.  Both read q, k, v, do, lse and delta."""
-    flops = flash_flops(bh, t, d, causal, products)
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-    esize = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (tiles_in + tiles_out) * bh * t * d * esize + (rows_in + rows_out) * bh * t * 4
-    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-
-#: The backward kernels' work, for :func:`flash_bound_ms`.
-BWD_WORK = {
-    "flash_dq": dict(products=3, tiles_in=4, tiles_out=1, rows_in=2, rows_out=0),
-    "flash_dkv": dict(products=4, tiles_in=4, tiles_out=2, rows_in=2, rows_out=0),
-    # q.k^T, do.v^T, p^T.do, ds^T.q and ds.k once per pair; dq, dk, dv out.
-    "flash_fused_bwd": dict(products=5, tiles_in=4, tiles_out=3, rows_in=2, rows_out=0),
-}
+def timed(label: str, row: dict) -> dict:
+    """Log one of ``tools/flash_bench.py``'s timings and return it."""
+    log(f"  timing {fb.describe(label, row)}")
+    return row
 
 
 def check_flash(flash, bh, t, d, dtype, causal, out_dtype=None) -> float:
@@ -898,46 +855,11 @@ def check_flash(flash, bh, t, d, dtype, causal, out_dtype=None) -> float:
     return err_o
 
 
-def time_flash(flash, bh, t, d, dtype, causal) -> dict:
-    import torch.nn.functional as F
-
-    g = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v = (
-        torch.randn(bh, t, d, device="cuda", generator=g).to(dtype) for _ in range(3)
-    )
-    ms = time_ms(lambda: flash.fwd_call(q, k, v, causal=causal), iters=20)
-    plain_ms = time_ms(lambda: flash.fwd_plain(q, k, v, causal=causal), iters=3, warmup=1)
-    q4, k4, v4 = (x.view(1, bh, t, d) for x in (q, k, v))
-    library_ms = time_ms(
-        lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal), iters=20
-    )
-    bound_ms, bound_by = flash_bound_ms(bh, t, d, dtype, causal)
-    tflops = flash_flops(bh, t, d, causal) / (ms * 1e-3) / 1e12
-    log(
-        f"  timing flash_fwd [{bh}, {t}, {d}] {str(dtype)[6:]} causal={causal}: "
-        f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
-    )
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, tflops=tflops)
-
-
-def _bwd_inputs(flash, bh, t, d, dtype, causal, seed):
-    """q, k, v, do on the card and the saved state (lse from the forward
-    kernel, delta = rowsum(do*o)) both backward versions take."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (
-        torch.randn(bh, t, d, device="cuda", generator=g).to(dtype) for _ in range(4)
-    )
-    o, lse = flash.fwd_call(q, k, v, causal=causal)
-    return q, k, v, do, lse, flash.compute_delta(do, o)
-
-
 def check_flash_bwd(flash, bh, t, d, dtype, causal, out_dtype=None, determinism=False) -> dict:
     """dq and dk/dv kernels vs their plain versions on one input, held to
     the tolerance relative to the largest plain entry; returns each
     kernel's max absolute error."""
-    args = _bwd_inputs(flash, bh, t, d, dtype, causal, seed=bh * 131 + t * 7 + d)
+    args = fb.bwd_inputs(flash, bh, t, d, dtype, causal, seed=bh * 131 + t * 7 + d)
     kw = dict(causal=causal, out_dtype=out_dtype)
     got = (flash.dq_call(*args, **kw), *flash.dkv_call(*args, **kw))
     torch.cuda.synchronize()
@@ -965,44 +887,11 @@ def check_flash_bwd(flash, bh, t, d, dtype, causal, out_dtype=None, determinism=
     return {"flash_dq": abs_errs[0], "flash_dkv": max(abs_errs[1:])}
 
 
-def time_flash_bwd(flash, bh, t, d, dtype, causal) -> dict:
-    """Kernel, plain version, SDPA's backward and the bound for dq and
-    dk/dv at one shape."""
-    import torch.nn.functional as F
-
-    args = _bwd_inputs(flash, bh, t, d, dtype, causal, seed=2)
-    q4, k4, v4 = (x.view(1, bh, t, d).detach().requires_grad_() for x in args[:3])
-    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
-    do4 = args[3].view(1, bh, t, d)
-    sdpa_bwd_ms = time_ms(
-        lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True), iters=20
-    )
-    out = {}
-    for name, call, plain in (
-        ("flash_dq", flash.dq_call, flash.dq_plain),
-        ("flash_dkv", flash.dkv_call, flash.dkv_plain),
-    ):
-        ms = time_ms(lambda: call(*args, causal=causal), iters=20)
-        plain_ms = time_ms(lambda: plain(*args, causal=causal), iters=2, warmup=1)
-        bound_ms, bound_by = flash_bound_ms(bh, t, d, dtype, causal, **BWD_WORK[name])
-        products = BWD_WORK[name]["products"]
-        tflops = flash_flops(bh, t, d, causal, products) / (ms * 1e-3) / 1e12
-        log(
-            f"  timing {name} [{bh}, {t}, {d}] {str(dtype)[6:]} causal={causal}: "
-            f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
-            f"backward (dq, dk, dv together) {sdpa_bwd_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by})"
-        )
-        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_bwd_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, tflops=tflops)
-    return out
-
-
 def check_fused_bwd(flash, bh, t, d, dtype, causal, out_dtype=None, determinism=False) -> float:
     """The fused backward kernel vs its plain version on one input, each of
     dq, dk, dv held to ``TOL_BWD`` relative to the largest plain entry;
     returns the max absolute error."""
-    args = _bwd_inputs(flash, bh, t, d, dtype, causal, seed=bh * 131 + t * 7 + d + 1)
+    args = fb.bwd_inputs(flash, bh, t, d, dtype, causal, seed=bh * 131 + t * 7 + d + 1)
     kw = dict(causal=causal, out_dtype=out_dtype)
     got = flash.fused_bwd_call(*args, **kw)
     torch.cuda.synchronize()
@@ -1030,98 +919,6 @@ def check_fused_bwd(flash, bh, t, d, dtype, causal, out_dtype=None, determinism=
     return max(abs_errs)
 
 
-def time_fused_bwd(flash, bh, t, d, dtype, causal) -> dict:
-    """The fused kernel, its plain version, SDPA's backward and the bound at
-    one shape, and the split pair (dq + dk/dv) there for the 7 -> 5
-    product trade."""
-    import torch.nn.functional as F
-
-    args = _bwd_inputs(flash, bh, t, d, dtype, causal, seed=4)
-    q4, k4, v4 = (x.view(1, bh, t, d).detach().requires_grad_() for x in args[:3])
-    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
-    do4 = args[3].view(1, bh, t, d)
-    sdpa_bwd_ms = time_ms(
-        lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True), iters=10
-    )
-    del q4, k4, v4, o4
-    ms = time_ms(lambda: flash.fused_bwd_call(*args, causal=causal), iters=5, warmup=1)
-    dq_ms = time_ms(lambda: flash.dq_call(*args, causal=causal), iters=5, warmup=1)
-    dkv_ms = time_ms(lambda: flash.dkv_call(*args, causal=causal), iters=5, warmup=1)
-    plain_ms = time_ms(lambda: flash.fused_bwd_plain(*args, causal=causal), iters=1, warmup=1)
-    bound_ms, bound_by = flash_bound_ms(bh, t, d, dtype, causal, **BWD_WORK["flash_fused_bwd"])
-    split_bound = sum(flash_bound_ms(bh, t, d, dtype, causal, **BWD_WORK[k])[0]
-                      for k in ("flash_dq", "flash_dkv"))
-    tflops = flash_flops(bh, t, d, causal, products=5) / (ms * 1e-3) / 1e12
-    ws_walk, ws_reduce = flash.fused_dq_workspace_bytes(bh, t, d, causal=causal)
-    log(
-        f"  timing flash_fused_bwd [{bh}, {t}, {d}] {str(dtype)[6:]} causal={causal}: "
-        f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
-        f"backward {sdpa_bwd_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); split pair "
-        f"at this shape: flash_dq {dq_ms:.4f} + flash_dkv {dkv_ms:.4f} = "
-        f"{dq_ms + dkv_ms:.4f} ms (bound {split_bound:.4f} ms)"
-    )
-    log(
-        f"  flash_fused_bwd dq workspace bytes a call: {ws_walk} in the blocks' walk "
-        f"({ws_walk / 1e9:.3f} GB; {ws_walk / (ms * 1e-3) / 1e12:.2f} TB/s over the "
-        f"kernel's time), {ws_reduce} in the reduction, S = {flash.fused_slices(bh, t)}"
-    )
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_bwd_ms, bound_ms=bound_ms,
-                bound_by=bound_by, split_dq_ms=dq_ms, split_dkv_ms=dkv_ms, tflops=tflops)
-
-
-def resnet50_bn_shapes(batch: int, image: int) -> list[tuple[tuple, bool]]:
-    """(NHWC shape, relu) of every BatchNorm of one ResNet-50 v1.5 step, in
-    the order the forward runs them: the stem, then per bottleneck bn1 and
-    bn2 (ReLU), bn3 and, in each stage's first block, bn_proj (no ReLU)."""
-    side = image // 2  # after the stride-2 stem
-    out = [((batch, side, side, 64), True)]
-    side //= 2  # the max-pool
-    cin = 64
-    for stage, n_blocks in enumerate((3, 4, 6, 3)):
-        mid = 64 * 2 ** stage
-        for block in range(n_blocks):
-            stride = 2 if stage > 0 and block == 0 else 1
-            out.append(((batch, side, side, mid), True))
-            side //= stride
-            out.append(((batch, side, side, mid), True))
-            out.append(((batch, side, side, 4 * mid), False))
-            if cin != 4 * mid or stride == 2:
-                out.append(((batch, side, side, 4 * mid), False))
-            cin = 4 * mid
-    return out
-
-
-def bn_bound_ms(shape, dtype, *, backward: bool, relu: bool = False) -> tuple[float, str]:
-    """The least time for a BN statistics call: the activation (and, in
-    the backward, the upstream gradient) read once plus the (1, C) f32
-    vectors in and out, against its f32 operations at the f32 rate (3 an
-    element forward: add, multiply, add; backward 5: subtract, multiply,
-    add, multiply-add, plus 4 for the ReLU mask: multiply, add, compare,
-    multiply)."""
-    n = math.prod(shape)
-    c = shape[-1]
-    esize = torch.tensor([], dtype=dtype).element_size()
-    if backward:
-        nbytes, ops = 2 * n * esize + 6 * c * 4, (9 if relu else 5) * n
-    else:
-        nbytes, ops = n * esize + 2 * c * 4, 3 * n
-    ops_ms, bytes_ms = ops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-
-def _bn_inputs(bn, x, do):
-    """mean, inv, scale, bias for the backward statistics of x (eps 1e-5),
-    from the plain forward statistics."""
-    c = x.shape[-1]
-    s, ss = bn.bn_stats_plain(x)
-    n = x.numel() // c
-    mean = s[0] / n
-    inv = torch.rsqrt(torch.clamp(ss[0] / n - mean * mean, min=0.0) + 1e-5)
-    scale = torch.linspace(0.5, 1.5, c, device=x.device)
-    bias = torch.linspace(-1.0, 1.0, c, device=x.device)
-    return mean, inv, scale, bias
-
-
 def check_bn(bn, shape, dtype, seed: int) -> dict:
     """bn_stats and bn_bwd_stats (relu on and off) vs their plain versions
     on one input, held to ``TOL_BN`` per channel, and bitwise equal on a
@@ -1139,7 +936,7 @@ def check_bn(bn, shape, dtype, seed: int) -> dict:
                for a, b, m in zip(got, want, scales)))
     err = {"bn_stats": max((a - b).abs().max().item() for a, b in zip(got, want))}
     same = all(torch.equal(a, b) for a, b in zip(got, bn.bn_stats(x)))
-    mean, inv, scale, bias = _bn_inputs(bn, x, do)
+    mean, inv, scale, bias = fb.bn_inputs(bn, x, do)
     dof = do.float().reshape(-1, c)
     bscales = (dof.abs().sum(0), (dof * ((xf - mean) * inv)).abs().sum(0))
     brel, err["bn_bwd_stats"] = {}, 0.0
@@ -1164,72 +961,6 @@ def check_bn(bn, shape, dtype, seed: int) -> dict:
     if not same:
         raise SystemExit(f"BN statistics kernels are not deterministic run to run at {shape}")
     return err
-
-
-def time_bn(bn, card: str) -> dict:
-    """Each BN kernel, its plain version and its PyTorch yardstick, timed
-    with CUDA events at the stem's shape and summed over the 53 BatchNorm
-    shapes of one ResNet-50 step at batch ``RESNET_BATCH``, with the bound
-    beside each.  The inputs are views of one buffer; a shape that fits the
-    50 MB L2 is read warm on repeats."""
-    shapes = resnet50_bn_shapes(RESNET_BATCH, RESNET_IMAGE)
-    dtype = torch.bfloat16
-    biggest = max(math.prod(sh) for sh, _r in shapes)
-    g = torch.Generator(device="cuda").manual_seed(3)
-    xbuf = (torch.randn(biggest, device="cuda", generator=g) * 2 + 0.5).to(dtype)
-    dbuf = torch.randn(biggest, device="cuda", generator=g).to(dtype)
-    out = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0) for k in
-           ("bn_stats", "bn_bwd_stats")}
-    stem = {}
-    for i, (shape, relu) in enumerate(shapes):
-        n = math.prod(shape)
-        x, do = xbuf[:n].view(shape), dbuf[:n].view(shape)
-        mean, inv, scale, bias = _bn_inputs(bn, x, do)
-        xc, dc = x.permute(0, 3, 1, 2), do.permute(0, 3, 1, 2)  # channels_last NCHW
-        lmean, linv = torch.batch_norm_stats(xc, 1e-5)
-        row = {
-            "bn_stats": (
-                time_ms(lambda: bn.bn_stats(x), iters=10),
-                time_ms(lambda: bn.bn_stats_plain(x), iters=3, warmup=1),
-                time_ms(lambda: torch.batch_norm_stats(xc, 1e-5), iters=10),
-                bn_bound_ms(shape, dtype, backward=False),
-            ),
-            "bn_bwd_stats": (
-                time_ms(lambda: bn.bn_bwd_stats(do, x, mean, inv, scale, bias, relu=relu), iters=10),
-                time_ms(lambda: bn.bn_bwd_stats_plain(do, x, mean, inv, scale, bias, relu=relu),
-                        iters=3, warmup=1),
-                # No ReLU mask in the yardstick: it reduces dy as given.
-                time_ms(lambda: torch.batch_norm_backward_reduce(
-                    dc, xc, lmean, linv, scale, True, True, True), iters=10),
-                bn_bound_ms(shape, dtype, backward=True, relu=relu),
-            ),
-        }
-        for k, (ms, plain_ms, lib_ms, (bound_ms, bound_by)) in row.items():
-            acc = out[k]
-            acc["ms"] += ms
-            acc["plain_ms"] += plain_ms
-            acc["library_ms"] += lib_ms
-            acc["bound_ms"] += bound_ms
-            if i == 0:
-                stem[k] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=bound_ms, bound_by=bound_by)
-    del xbuf, dbuf
-    result = {}
-    for k in out:
-        s0, acc = stem[k], out[k]
-        log(
-            f"  timing {k} at the stem {list(shapes[0][0])} bf16"
-            + (" relu" if k == "bn_bwd_stats" else "")
-            + f": kernel {s0['ms']:.4f} ms, plain {s0['plain_ms']:.4f} ms, torch "
-            f"{s0['library_ms']:.4f} ms, bound {s0['bound_ms']:.4f} ms ({s0['bound_by']}); "
-            f"over the step's {len(shapes)} shapes: kernel {acc['ms']:.3f} ms, plain "
-            f"{acc['plain_ms']:.3f} ms, torch {acc['library_ms']:.3f} ms, bound "
-            f"{acc['bound_ms']:.3f} ms"
-        )
-        result[k] = dict(s0, step_ms=acc["ms"], step_plain_ms=acc["plain_ms"],
-                         step_library_ms=acc["library_ms"], step_bound_ms=acc["bound_ms"])
-    log(f"  [{card}]")
-    return result
 
 
 class StepClock:
@@ -1446,7 +1177,7 @@ def _decode_and_check(cfg, card: str, server, flat, clock: StepClock) -> tuple[d
         for name, runs in (("five at once", conc), ("four at once", four)):
             if i < len(runs) and not np.array_equal(runs[i]["tokens"], want):
                 raise SystemExit(f"session {i} {name} differs from its solo run")
-    flash_in_decode = sum(decode_launches.get(k, 0) for k in FLASH_FAMILIES)
+    flash_in_decode = sum(decode_launches.get(k, 0) for k in ps.FLASH_FAMILIES)
     log(f"  decode: {DECODE_SESSIONS} sessions of {DECODE_PROMPT} prompt + {DECODE_NEW} "
         f"tokens alone, five and four at once ({steps} engine steps): every session's "
         f"tokens equal its solo run; flash launches during decode {flash_in_decode}")
@@ -1471,7 +1202,7 @@ def _decode_and_check(cfg, card: str, server, flat, clock: StepClock) -> tuple[d
             logits, cache = step_fn(params, cache, tokens, pos)
             rows.append(logits[0].float())
         dec = torch.stack(rows).cpu()  # [n, V]: logits at positions 0..n-1
-        device_ms = time_ms(lambda: step_fn(params, cache, tokens, pos), iters=20)
+        device_ms = fb.time_ms(lambda: step_fn(params, cache, tokens, pos), iters=20)
         busy_ms, wall_ms, flash_ms, kernels = profile_apply(
             lambda: step_fn(params, cache, tokens, pos))
     greedy = np.argmax(dec[DECODE_PROMPT - 1:].numpy(), axis=-1)
@@ -1526,9 +1257,8 @@ def _decode_and_check(cfg, card: str, server, flat, clock: StepClock) -> tuple[d
 
 def profile_apply(apply) -> tuple[float, float, float, int]:
     """One inference call (after a warm-up) under torch.profiler: (device
-    busy ms, host ms to the synchronize, ms in the flash forward, kernel
-    launches)."""
-    from torch.autograd import DeviceType
+    busy ms, host ms to the synchronize, ms in the flash forward, device
+    rows), read by ``tools/profile_step.py``."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -1539,11 +1269,9 @@ def profile_apply(apply) -> tuple[float, float, float, int]:
             apply()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0
-            and e.device_type == DeviceType.CUDA and e.key not in CUPTI_MARKERS]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    flash_ms = sum(e.self_device_time_total for e in rows if "flash_fwd" in e.key) / 1e3
-    return busy_ms, wall_ms, flash_ms, sum(e.count for e in rows)
+    trace = ps.load(prof)
+    flash_ms = ps.by_family(trace).get("flash_fwd", {"ms": 0.0})["ms"]
+    return ps.busy_ms(trace), wall_ms, flash_ms, len(trace.device)
 
 
 def _ask_and_check(cfg, card: str, server, flat, step: int, version: int) -> dict:
@@ -1620,8 +1348,8 @@ def _ask_and_check(cfg, card: str, server, flat, step: int, version: int) -> dic
     # device (flash and xla attention), and its logits' copy to the host.
     padded = torch.from_numpy(np.concatenate(requests[:2])).cuda()
     with torch.inference_mode():
-        apply_ms = time_ms(lambda: transformer.apply(cfg, params, padded), iters=5)
-        xla_ms = time_ms(lambda: transformer.apply(xla_cfg, params, padded), iters=5)
+        apply_ms = fb.time_ms(lambda: transformer.apply(cfg, params, padded), iters=5)
+        xla_ms = fb.time_ms(lambda: transformer.apply(xla_cfg, params, padded), iters=5)
         logits = transformer.apply(cfg, params, padded)
         torch.cuda.synchronize()
         t_copy = time.perf_counter()
@@ -1689,11 +1417,27 @@ def step_clock(kernels):
     return StepClock()
 
 
+def log_window(label: str, summary: dict, card: str, top: int = 10) -> None:
+    """Print a profiled window (``tools/profile_step.py``'s summary with
+    families): host ms, device busy ms and the idle share, device ms by
+    kernel family, the ``top`` kernels and the longest idle gaps."""
+    fams = summary["families"]
+    total = sum(v["ms"] for v in fams.values()) or 1.0
+    log(f"  {label}: host {summary['window_ms']:.1f} ms, device busy {summary['busy_ms']:.1f} ms "
+        f"(idle share {summary['idle_share']:.1%}); by family: "
+        + ", ".join(f"{k} {v['ms']:.1f} ms ({v['ms'] / total:.1%})"
+                    for k, v in sorted(fams.items(), key=lambda kv: -kv[1]["ms"])))
+    for name, ms, n in summary["top_kernels"][:top]:
+        log(f"    {ms:8.2f} ms in {n:4d} launches  {name[:110]}")
+    log("    longest device-idle gaps: " + ", ".join(
+        f"{ms:.2f} ms at {at:.1f} ms under {op or '-'}" for ms, at, op in summary["gaps"])
+        + f" [{card}]")
+
+
 def profile_lm_step(cfg, init, batch, card: str) -> None:
     """Where an LM step's time goes: one full step (after a warm-up step)
-    under torch.profiler, device time summed by kernel family, against the
-    host clock around the step."""
-    from torch.autograd import DeviceType
+    under torch.profiler, read by ``tools/profile_step.py``: device time by
+    kernel family against the host clock around the step."""
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_tensorflow_examples_tpu_torch.models import transformer
@@ -1711,32 +1455,10 @@ def profile_lm_step(cfg, init, batch, card: str) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     del st, m
-    # Only device-side rows: a CPU op's row repeats its kernels' device time,
-    # and CUPTI's own markers are not work.
-    families: dict = {}
-    kernels = []
-    for e in prof.key_averages():
-        us = e.self_device_time_total
-        if us <= 0 or e.device_type != DeviceType.CUDA or e.key in CUPTI_MARKERS:
-            continue
-        kernels.append((us, e.count, e.key))
-        name = e.key.lower()
-        fam = next((f for f in FLASH_FAMILIES
-                    if f + "_kernel" in name or f + "_tc_kernel" in name), None)
-        if fam is None:
-            fam = next((f for f, keys in KERNEL_FAMILIES if any(k in name for k in keys)), "other")
-        families[fam] = families.get(fam, 0.0) + us / 1e3
-    busy_ms = sum(families.values())
-    if busy_ms <= 0:
+    summary = ps.summary(prof, wall_ms=wall_ms, families=ps.LM_FAMILIES)
+    if summary["busy_ms"] <= 0:
         raise SystemExit("torch.profiler recorded no device time for the profiled step")
-    log(
-        f"  profiled step: host {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.1%}); by family: "
-        + ", ".join(f"{k} {v:.1f} ms ({v / busy_ms:.1%})"
-                    for k, v in sorted(families.items(), key=lambda kv: -kv[1]))
-    )
-    for us, count, key in sorted(kernels, reverse=True)[:10]:
-        log(f"    {us / 1e3:8.2f} ms in {count:4d} launches  {key[:110]}")
+    log_window("profiled step", summary, card)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
 
 
@@ -1748,10 +1470,12 @@ def train_end_to_end(card: str, kernel_ms: dict) -> dict:
     from distributed_tensorflow_examples_tpu_torch.examples import transformer_lm as cli
     from distributed_tensorflow_examples_tpu_torch.models import transformer
     from distributed_tensorflow_examples_tpu_torch.serve import ModelRegistry
-    from distributed_tensorflow_examples_tpu_torch.train import state
+    from distributed_tensorflow_examples_tpu_torch.train import hooks, state
 
     registry_dir = ROOT / "build" / "smoke_train_registry"
+    profile_dir = ROOT / "build" / "smoke_profile"
     shutil.rmtree(registry_dir, ignore_errors=True)
+    shutil.rmtree(profile_dir, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
     t_len = 2048
     args = cli.build_parser().parse_args([
@@ -1762,9 +1486,12 @@ def train_end_to_end(card: str, kernel_ms: dict) -> dict:
     ])
     cfg = cli.config_from_args(args)
     clock = step_clock(())
+    # One step's window, the last but one (before the clock, so that its
+    # trace export falls inside that step's time, which the median leaves out).
+    window = hooks.ProfilerHook(str(profile_dir), start_step=PROFILE_STEP - 1, num_steps=1)
     ops.reset_launches()  # every count to 0 just before the main path
     t0 = time.perf_counter()
-    exp = cli.run_training(args, extra_hooks=[clock])
+    exp = cli.run_training(args, extra_hooks=[window, clock])
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)  # read just after the main path
     tc_launches = dict(ops.TENSOR_CORE_LAUNCHES)
@@ -1800,7 +1527,7 @@ def train_end_to_end(card: str, kernel_ms: dict) -> dict:
         log(f"  published transformer_lm/v{exp.published_version} at step {got_step}: "
             f"{flat.size} params round-trip bit for bit")
 
-        step_ms = float(np.median([ms for _s, ms, _l, _c in clock.steps[1:]]))
+        step_ms = float(np.median([ms for s, ms, _l, _c in clock.steps[1:] if s != PROFILE_STEP]))
         tokens_per_s = TRAIN_BATCH * t_len / (step_ms / 1e3)
         per_layer = {k: kernel_ms[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")}
         kernel_step_ms = cfg.n_layers * sum(per_layer.values())
@@ -1812,8 +1539,11 @@ def train_end_to_end(card: str, kernel_ms: dict) -> dict:
             + f") = {kernel_step_ms:.1f} ms at [{TRAIN_BATCH * cfg.n_heads}, {t_len}, "
             f"{cfg.head_dim}], CUDA events) [{card}]"
         )
+        window_launches(window, "train", cfg.n_layers, card)
+        log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
     finally:
         shutil.rmtree(registry_dir, ignore_errors=True)
+        shutil.rmtree(profile_dir, ignore_errors=True)
     del exp
 
     # One step's loss and gradients from the initial weights on the first
@@ -1848,9 +1578,24 @@ def train_end_to_end(card: str, kernel_ms: dict) -> dict:
     if not (abs(l_flash - l_xla) <= TOL_TRAIN_LOSS and rels[worst] <= TOL_TRAIN_GRAD):
         raise SystemExit("the flash training step disagrees with the xla-attention step")
     del result, g_flash, g_xla
-
-    profile_lm_step(cfg, init, batch, card)
     return launches, tc_launches
+
+
+def window_launches(window, path: str, layers: int, card: str) -> None:
+    """Print phase 4's profiled step (``window``, a one-step
+    ``ProfilerHook``) by kernel family and fail unless its trace was
+    written and each of the forward, dq and dk/dv kernels launched
+    ``layers`` times in it."""
+    if window.trace_path is None or not Path(window.trace_path).is_file():
+        raise SystemExit(f"the {path} path's profiled step wrote no trace")
+    summary = dict(window.summary, families=ps.by_family(window.trace, ps.LM_FAMILIES))
+    log_window(f"profiled step {window.start + 1} (ProfilerHook, trace "
+               f"{Path(window.trace_path).stat().st_size / 1e6:.1f} MB written and summarised "
+               f"in {window.summary['export_s']:.2f} s)", summary, card)
+    got = {k: summary["families"].get(k, {"launches": 0})["launches"]
+           for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    if got != dict.fromkeys(got, layers):
+        raise SystemExit(f"the {path} path's profiled step launched {got}, want {layers} of each")
 
 
 def _with_fused_env(value: str, fn):
@@ -2015,23 +1760,6 @@ def train_long_end_to_end(card: str, fused_ms: float, fwd_ms: float) -> tuple:
     return launches, tc_launches, losses[:SP_STEPS]
 
 
-#: Kernel families of a ResNet-50 step's profile, by substrings of the
-#: kernel name, checked in this order.
-RESNET_FAMILIES = (
-    ("bn_stats", ("bn_stats_partial",)),
-    ("bn_bwd_stats", ("bn_bwd_stats_partial",)),
-    ("bn finalize (both)", ("bn_stats_finalize",)),
-    ("optimizer", ("sgd", "multi_tensor_apply")),
-    ("layout transform", ("nchwtonhwc", "nhwctonchw", "transpose")),
-    ("conv/cuDNN", ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad", "fprop",
-                    "sm90", "gemm", "cutlass", "nvjet")),
-    ("pool", ("pool",)),
-    ("reduce", ("reduce", "softmax", "logsumexp")),
-    ("copy/cast", ("copy", "memcpy", "memset", "fill", "pad")),
-    ("elementwise", ("elementwise", "vectorized", "unrolled")),
-)
-
-
 def _leaf_rel_errors(a: list, b: list) -> list[float]:
     return [((x.float() - y.float()).norm() / y.float().norm().clamp_min(1e-30)).item()
             for x, y in zip(a, b)]
@@ -2076,7 +1804,7 @@ def resnet_end_to_end(card: str) -> tuple[dict, dict]:
     init = resnet.init_numpy(cfg, SEED)
     kernels = [k for k in resnet._kernels(init[0])]
     l2_term = 1e-4 * float(sum(np.sum(np.square(k, dtype=np.float64)) for k in kernels))
-    n_bn = len(resnet50_bn_shapes(RESNET_BATCH, RESNET_IMAGE))
+    n_bn = len(fb.resnet50_bn_shapes(RESNET_BATCH, RESNET_IMAGE))
     clock = step_clock(("bn_stats", "bn_bwd_stats"))
     ops.reset_launches()  # every count to 0 just before the main path
     t0 = time.perf_counter()
@@ -2181,7 +1909,6 @@ def resnet_end_to_end(card: str) -> tuple[dict, dict]:
 
     # Where a step's time goes: one full bf16 step at batch RESNET_BATCH
     # (after a warm-up step) under torch.profiler.
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     opt = optim.SGD(cli.lr_schedule(args), momentum=0.9)
@@ -2196,27 +1923,10 @@ def resnet_end_to_end(card: str) -> tuple[dict, dict]:
         float(m["loss"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    families: dict = {}
-    kernels = []
-    for e in prof.key_averages():
-        us = e.self_device_time_total
-        if us <= 0 or e.device_type != DeviceType.CUDA or e.key in CUPTI_MARKERS:
-            continue
-        kernels.append((us, e.count, e.key))
-        name = e.key.lower()
-        fam = next((f for f, keys in RESNET_FAMILIES if any(k in name for k in keys)), "other")
-        families[fam] = families.get(fam, 0.0) + us / 1e3
-    busy_ms = sum(families.values())
-    if busy_ms <= 0:
+    summary = ps.summary(prof, wall_ms=wall_ms, families=ps.RESNET_FAMILIES, top=12)
+    if summary["busy_ms"] <= 0:
         raise SystemExit("torch.profiler recorded no device time for the ResNet step")
-    log(
-        f"  profiled ResNet step: host {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.1%}); by family: "
-        + ", ".join(f"{k} {v:.1f} ms ({v / busy_ms:.1%})"
-                    for k, v in sorted(families.items(), key=lambda kv: -kv[1]))
-    )
-    for us, count, key in sorted(kernels, reverse=True)[:12]:
-        log(f"    {us / 1e3:8.2f} ms in {count:4d} launches  {key[:110]}")
+    log_window("profiled ResNet step", summary, card, top=12)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
     return launches, {"first_loss": losses[0], "step_ms": step_ms, "start": start}
 
@@ -2260,31 +1970,9 @@ def step_recorder(profile_step: int | None = None):
     return StepRecorder()
 
 
-def _host_rows(prof, top: int = 6) -> str:
-    """The profile's CPU ops with the most self time on the host."""
-    from torch.autograd import DeviceType
-
-    rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
-                  key=lambda e: -e.self_cpu_time_total)[:top]
-    return ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.2f} ms ({e.count})" for e in rows)
-
-
-def _device_rows(prof) -> tuple[float, int, int]:
-    """(busy ms, kernel launches, memcpy/memset operations) of a profile's
-    device rows, the profiler's own markers left out."""
-    from torch.autograd import DeviceType
-
-    busy_us, kernels, copies = 0.0, 0, 0
-    for e in prof.key_averages():
-        if e.self_device_time_total <= 0 or e.device_type != DeviceType.CUDA \
-                or e.key in CUPTI_MARKERS:
-            continue
-        busy_us += e.self_device_time_total
-        if e.key.lower().startswith(("memcpy", "memset")):
-            copies += e.count
-        else:
-            kernels += e.count
-    return busy_us / 1e3, kernels, copies
+def _host_line(summary: dict) -> str:
+    """A window's host ops with the most self time (``tools/profile_step.py``)."""
+    return ", ".join(f"{k} {ms:.2f} ms ({n})" for k, ms, n in summary["host_ops"][:6])
 
 
 def _first_step_loss(cli, argv: list, device: str) -> float:
@@ -2366,7 +2054,8 @@ def workloads_end_to_end(card: str) -> dict:
                 raise SystemExit("word2vec: step 1's sampled ids on the card differ from the CPU's")
         step_ms = float(np.median([ms for _s, ms, _l, p in rec.steps[1:] if not p]))
         profiled_ms = next(ms for _s, ms, _l, p in rec.steps if p)
-        busy_ms, kernels, copies = _device_rows(rec.prof)
+        window = ps.summary(rec.prof)
+        busy_ms, kernels, copies = window["busy_ms"], window["kernels"], window["copies"]
         per_step = args.batch_size * (args.seq_len if name == "ptb_lstm" else 1)
         results[name] = {
             "step_ms": step_ms, "examples_per_s": args.batch_size / (step_ms / 1e3),
@@ -2391,7 +2080,7 @@ def workloads_end_to_end(card: str) -> dict:
             f"copies/sets, device busy {busy_ms:.3f} ms, idle share {r['idle_share']:.1%} of "
             f"the median step ({max(0.0, 1 - busy_ms / profiled_ms):.1%} of the profiled "
             f"step's {profiled_ms:.3f} ms) [{card}]")
-        log(f"    host, profiled step, most self time: {_host_rows(rec.prof)}")
+        log(f"    host, profiled step, most self time: {_host_line(window)}")
         del exp
     return results
 
@@ -2554,7 +2243,8 @@ def ps_emulation_end_to_end(card: str) -> dict:
         steady_s = tr.t_last - tr.t_warm
         sps = steps / steady_s
         grads = len(tr.history) - tr.grads_at_warm
-        busy_ms, kernels, copies = _device_rows(prof_tr.prof)
+        window = ps.summary(prof_tr.prof)
+        busy_ms, kernels, copies = window["busy_ms"], window["kernels"], window["copies"]
         train = tr.source.train if cli is mnist_mlp else tr.source.ds.train
         batch_bytes = sum(v[:local_bs].nbytes for v in train.values())
         r = {
@@ -2597,7 +2287,7 @@ def ps_emulation_end_to_end(card: str) -> dict:
             f"copies/sets an apply, device busy {r['busy_ms_per_apply']:.3f} ms an apply, "
             f"idle share {r['idle_share']:.1%} of the run's {prof_tr.run_s * 1e3:.2f} ms [{card}]")
         log(f"    host, profiled run, the chief thread's ops with most self time: "
-            f"{_host_rows(prof_tr.prof)}")
+            f"{_host_line(window)}")
 
     a, b = (_ps_param_hash(trainers[k]) for k in ("w2_deterministic", "w2_deterministic_again"))
     if a != b:
@@ -2655,9 +2345,11 @@ def ps_emulation_end_to_end(card: str) -> dict:
 
 def dp_step_hook(kernels=(), profile_step: int | None = None):
     """A training hook of one rank that records, for every step, (step, ms,
-    loss, launches of each of ``kernels``, all-reduce calls and bytes by
-    tag, profiled), reading the loss (which waits for the step's device
-    work), and runs step ``profile_step`` under ``torch.profiler``."""
+    loss, launches of each of ``kernels``, collective calls, bytes and host
+    seconds by tag (``TRAFFIC``), the step's collective account
+    (``utils/hlo_analysis.py``'s records, as dicts), profiled), reading
+    the loss (which waits for the step's device work), and runs step
+    ``profile_step`` under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_tensorflow_examples_tpu_torch import ops
@@ -2684,9 +2376,12 @@ def dp_step_hook(kernels=(), profile_step: int | None = None):
                 self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
                 self.prof.__enter__()
                 self._t = time.perf_counter()
+            self._account = hlo_analysis.record_collectives()
+            self._records = self._account.__enter__()
 
         def after_step(self, loop, metrics):
             loss = float(metrics["loss"])
+            self._account.__exit__(None, None, None)
             profiled = loop.step == profile_step
             if profiled:
                 torch.cuda.synchronize()
@@ -2696,6 +2391,7 @@ def dp_step_hook(kernels=(), profile_step: int | None = None):
                        if v != self._traffic.get(k, 0)}
             self.steps.append({"step": loop.step, "ms": ms, "loss": loss,
                                "launches": launches, "traffic": traffic,
+                               "account": [dataclasses.asdict(c) for c in self._records],
                                "profiled": profiled})
             if profiled:
                 self.prof.__exit__(None, None, None)
@@ -2705,15 +2401,12 @@ def dp_step_hook(kernels=(), profile_step: int | None = None):
 
 
 def _profile_summary(prof, step_ms: float) -> dict:
-    """Device busy ms, kernel launches, NCCL kernels and idle share of one
-    rank's profiled step."""
-    from torch.autograd import DeviceType
-
-    busy_ms, kernels, _copies = _device_rows(prof)
-    nccl = sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower())
-    return {"busy_ms": busy_ms, "kernels": kernels, "nccl_kernels": nccl,
-            "step_ms": step_ms, "idle_share": max(0.0, 1 - busy_ms / step_ms)}
+    """Device busy ms, kernel launches, NCCL kernels, idle share and the
+    longest idle gaps of one rank's profiled step (``tools/profile_step.py``)."""
+    s = ps.summary(prof, wall_ms=step_ms, families=ps.LM_FAMILIES)
+    return {"busy_ms": s["busy_ms"], "kernels": s["kernels"],
+            "nccl_kernels": s["families"].get("nccl", {"launches": 0})["launches"],
+            "step_ms": step_ms, "idle_share": s["idle_share"], "gaps": s["gaps"]}
 
 
 def _rank_result(out_dir: str, result: dict) -> None:
@@ -2911,12 +2604,21 @@ def _read_ranks(out: str, n: int) -> list:
     return [json.loads((Path(out) / f"rank{i}.json").read_text()) for i in range(n)]
 
 
-def _traffic_line(step: dict) -> str:
+def _records(step: dict) -> list:
+    """A step's collective account as ``hlo_analysis.Collective`` records."""
+    return [hlo_analysis.Collective(**c) for c in step["account"]]
+
+
+def account_line(step: dict) -> str:
+    """A step's collectives by tag (its account, ``utils/hlo_analysis.py``):
+    the kind, the calls, the MB by the JAX package's convention and the
+    host ms ``TRAFFIC`` timed."""
     t = step["traffic"]
-    tags = sorted({k.rsplit("_", 1)[0] for k in t})
-    return ", ".join(f"{tag} {t.get(tag + '_calls', 0)} call(s) / "
-                     f"{t.get(tag + '_bytes', 0) / 1e6:.3f} MB / "
-                     f"{t.get(tag + '_seconds', 0) * 1e3:.1f} ms of host time" for tag in tags)
+    return ", ".join(
+        f"{tag} {kind} {v['count']} call(s) / {v['bytes'] / 1e6:.3f} MB / "
+        f"{t.get(tag + '_seconds', 0) * 1e3:.1f} ms of host time"
+        for tag, kinds in hlo_analysis.by_tag(_records(step)).items()
+        for kind, v in kinds.items()) or "none"
 
 
 def data_parallel_end_to_end(card: str, phase5: dict) -> dict:
@@ -2971,7 +2673,7 @@ def dp_resnet(card: str, phase5: dict) -> dict:
     _codes, outs, out = _run_ranks(
         DP_RANKS, f"dp_resnet_rank({{out!r}}, {RESNET_STEPS}, {DP_PROFILE_STEP}, True)", 600)
     ranks = _read_ranks(out, DP_RANKS)
-    n_bn = len(resnet50_bn_shapes(RESNET_BATCH // DP_RANKS, RESNET_IMAGE))
+    n_bn = len(fb.resnet50_bn_shapes(RESNET_BATCH // DP_RANKS, RESNET_IMAGE))
     finals = [[l for l in o.splitlines() if l.startswith("FINAL ")] for o in outs]
     for r in ranks:
         log(f"    rank {r['rank']}: backend {r['backend']} on {r['device']}, mesh {r['mesh']}, "
@@ -3022,7 +2724,7 @@ def dp_resnet(card: str, phase5: dict) -> dict:
         f"profiled one), {RESNET_BATCH / (step_ms / 1e3):.0f} global images/s (phase 5, one "
         f"rank, batch {RESNET_BATCH}: {phase5['step_ms']:.1f} ms; step 1 loss {losses[0]:.4f} "
         f"vs phase 5's {phase5['first_loss']:.4f}, ln 1000 + l2 {start:.4f}) [{card}]")
-    log(f"    all-reduce a step, each rank: {_traffic_line(one)}")
+    log(f"    collectives a step, each rank: {account_line(one)}")
     for r in ranks:
         p = r["profile"]
         log(f"    rank {r['rank']} profiled step {DP_PROFILE_STEP}: {p['step_ms']:.1f} ms, device "
@@ -3043,8 +2745,8 @@ def dp_resnet_nccl(card: str, phase5: dict) -> dict:
     nccl_ms = float(np.median([s["ms"] for s in nccl["steps"][1:] if not s["profiled"]]))
     p = nccl["profile"]
     log(f"    backend {nccl['backend']} on {nccl['device']}: step {nccl_ms:.1f} ms (median of steps 2-"
-        f"{DP_NCCL_STEPS - 1}) beside phase 5's {phase5['step_ms']:.1f} ms; all-reduce a step: "
-        f"{_traffic_line(nccl['steps'][1])}; profiled step: {p['nccl_kernels']} NCCL kernel "
+        f"{DP_NCCL_STEPS - 1}) beside phase 5's {phase5['step_ms']:.1f} ms; collectives a step: "
+        f"{account_line(nccl['steps'][1])}; profiled step: {p['nccl_kernels']} NCCL kernel "
         f"launch(es), busy {p['busy_ms']:.1f} ms of {p['step_ms']:.1f} [{card}]")
     if any(s["traffic"].get("grads_calls") != 1 for s in nccl["steps"]):
         raise SystemExit("the NCCL world of one did not all-reduce its gradients every step")
@@ -3068,8 +2770,8 @@ def dp_lstm(card: str) -> dict:
         f"step): the 2-rank update vs the 1-rank one over the global rows, per leaf max "
         f"{max(par['dp_vs_one']):.3e} (tol {TOL_DP_LSTM_UPDATE:g})")
     log(f"    e2e: step {lstm_ms:.3f} ms (rank 0, median of steps 2-{WORKLOAD_STEPS}), "
-        f"{64 * 20 / (lstm_ms / 1e3):.0f} global tokens/s; all-reduce a step, each rank: "
-        f"{_traffic_line(ranks[0]['steps'][1])} [{card}]")
+        f"{64 * 20 / (lstm_ms / 1e3):.0f} global tokens/s; collectives a step, each rank: "
+        f"{account_line(ranks[0]['steps'][1])} [{card}]")
     if len(finals[0]) != 1 or any(finals[1:]) or "valid_perplexity=" not in finals[0][0]:
         raise SystemExit("W5: the FINAL line with valid_perplexity must come from the chief alone")
     if any(r["backend"] != "gloo" for r in ranks) or len({r["param_sha256"] for r in ranks}) != 1:
@@ -3795,7 +3497,20 @@ def _ma_check(card: str, out: str, name: str, ranks: list, outs: list, metric: s
     log(f"    e2e: step {step_ms:.3f} ms (rank 0, median of steps 2-{WORKLOAD_STEPS} without the "
         f"profiled one), {per_step / (step_ms / 1e3):.0f} {unit}/s; losses "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; final {final:.4f} [{card}]")
-    log(f"    all-reduce a step, each rank: {_traffic_line(one_step)}")
+    for r in runs:
+        step = next(s for s in r["steps"][1:] if not s["profiled"])
+        log(f"    collectives a step (step {step['step']}), rank (data {r['data_index']}, model "
+            f"{r['model_index']}): {account_line(step)}")
+    if name == "w4":
+        # As the JAX HLO test asserts of W4 on a model mesh: no tensor as
+        # large as a whole [V, D] table crosses the mesh in any step.
+        table = rows["emb/table"][1] * runs[0]["shapes"]["emb/table"][1] * 4
+        biggest = max(hlo_analysis.max_tensor_bytes(_records(s)) for r in runs for s in r["steps"])
+        log(f"    W4's largest tensor in a collective, any step, any rank: {biggest} bytes "
+            f"(a whole table: {table})")
+        if biggest >= table:
+            raise SystemExit(f"w4: a collective moved a {biggest}-byte tensor, a whole table "
+                             f"is {table}")
     log(f"    profiled step {MA_PROFILE_STEP}: {p['step_ms']:.2f} ms, device busy "
         f"{p['busy_ms']:.2f} ms ({p['kernels']} kernels), idle share {p['idle_share']:.1%}")
     t = one_step["traffic"]
@@ -3849,7 +3564,7 @@ def zero_resnet(card: str, phase9: dict, device: str = "cuda") -> dict:
     _codes, _outs, out = _run_ranks(DP_RANKS, f"zero_resnet_rank({{out!r}}, {ZERO_STEPS})", 300,
                                     None if device == "cuda" else device)
     ranks = _read_ranks(out, DP_RANKS)
-    n_bn = len(resnet50_bn_shapes(RESNET_BATCH // DP_RANKS, RESNET_IMAGE))
+    n_bn = len(fb.resnet50_bn_shapes(RESNET_BATCH // DP_RANKS, RESNET_IMAGE))
     want = {"bn_stats": n_bn, "bn_bwd_stats": n_bn}
     for r in ranks:
         z, rep = r["runs"]["zero"], r["runs"]["replicated"]
@@ -3882,8 +3597,8 @@ def zero_resnet(card: str, phase9: dict, device: str = "cuda") -> dict:
           for k, run in (("zero", z0), ("replicated", rep0))}
     log(f"    e2e: step {ms['zero']:.1f} ms with ZeRO-1, {ms['replicated']:.1f} ms replicated "
         f"(cuDNN deterministic; rank 0, median of steps 2-{ZERO_STEPS}); phase 9's 2-rank step "
-        f"{phase9.get('step_ms', float('nan')):.1f} ms; all-reduce and all-gather a ZeRO-1 step: "
-        f"{_traffic_line(z0['steps'][1])} [{card}]")
+        f"{phase9.get('step_ms', float('nan')):.1f} ms; collectives a ZeRO-1 step: "
+        f"{account_line(z0['steps'][1])} [{card}]")
     return {"step_ms": ms["zero"], "replicated_step_ms": ms["replicated"],
             "opt_bytes": z0["opt_bytes"], "replicated_opt_bytes": rep0["opt_bytes"],
             "bitwise": all(r["bitwise"] for r in ranks),
@@ -4052,7 +3767,7 @@ def _resnet_streamed(card: str, kind: str, data_dir: str, shards: dict, phase5: 
         "--log_every_steps=1", f"--seed={SEED}", f"--device={device}", f"--data_dir={data_dir}",
     ])
     cfg = cli.config_from_args(args)
-    n_bn = len(resnet50_bn_shapes(RESNET_BATCH, RESNET_IMAGE)) if device == "cuda" else 0
+    n_bn = len(fb.resnet50_bn_shapes(RESNET_BATCH, RESNET_IMAGE)) if device == "cuda" else 0
     clock = step_clock(("bn_stats", "bn_bwd_stats"))
     final = io.StringIO()
     with _InfeedProbes() as probes:
@@ -4507,41 +4222,27 @@ SP_FLAGS = [f"--batch_size={LONG_BATCH}", f"--seq_len={LONG_T}", "--vocab_size=3
 SP_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "flash_fused_bwd")
 
 
-def time_hop_routes(flash, card: str, bh: int = LONG_BATCH * 8, t: int = LONG_T // 2,
-                    d: int = 128) -> dict:
+def time_hop_routes(flash, card: str) -> dict:
     """Each flash kernel at a ring hop's shape, bf16 in: the float32-out
     route the hops take (the CUDA-core kernel) beside the bf16-out
-    tensor-core kernel, causal (the diagonal hop) and full (the others);
-    CUDA events.  Fails unless the libraries route f32 out to the CUDA
-    cores and bf16 to the tensor cores."""
+    tensor-core kernel and SDPA at float32, causal (the diagonal hop) and
+    full (the others), timed by ``tools/flash_bench.py``.  Fails unless the
+    libraries route f32 out to the CUDA cores and bf16 to the tensor
+    cores."""
     bf16, f32 = torch.bfloat16, torch.float32
+    bh, t = LONG_BATCH * 8, LONG_T // 2
     for name in SP_KERNELS:
         if flash.kernel_route(name, bf16, f32)[0] or not flash.kernel_route(name, bf16, bf16)[0]:
             raise SystemExit(f"{name}: bf16 -> f32 must take the CUDA-core kernel and bf16 -> "
                              "bf16 the tensor-core one")
-    out: dict = {name: {} for name in SP_KERNELS}
-    for causal in (True, False):
-        kind = "causal" if causal else "full"
-        args = _bwd_inputs(flash, bh, t, d, bf16, causal, seed=14)
-        q, k, v = args[:3]
-        calls = {
-            "flash_fwd": lambda o: flash.fwd_call(q, k, v, causal=causal, out_dtype=o),
-            "flash_dq": lambda o: flash.dq_call(*args, causal=causal, out_dtype=o),
-            "flash_dkv": lambda o: flash.dkv_call(*args, causal=causal, out_dtype=o),
-            "flash_fused_bwd": lambda o: flash.fused_bwd_call(*args, causal=causal,
-                                                              out_dtype=o),
-        }
-        for name, call in calls.items():
-            work = BWD_WORK.get(name, {})
-            f32_ms = time_ms(lambda: call(f32), iters=3, warmup=1)
-            tc_ms = time_ms(lambda: call(bf16), iters=5, warmup=1)
-            bound_ms, bound_by = flash_bound_ms(bh, t, d, bf16, causal, **work)
-            out[name][kind] = dict(f32_ms=f32_ms, tc_ms=tc_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by)
-            log(f"  hop route {name} [{bh}, {t}, {d}] bf16 {kind}: f32 out (CUDA cores) "
-                f"{f32_ms:.4f} ms, bf16 out (tensor cores) {tc_ms:.4f} ms "
-                f"({f32_ms / tc_ms:.1f}x), bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
-        del args, q, k, v
+    out = fb.time_hop_routes(flash, bh, t, 128)
+    for name, kinds in out.items():
+        for kind, r in kinds.items():
+            log(f"  hop route {name} [{bh}, {t}, 128] bf16 {kind}: f32 out (CUDA cores) "
+                f"{r['f32_ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s), bf16 out (tensor cores) "
+                f"{r['tc_ms']:.4f} ms ({r['f32_ms'] / r['tc_ms']:.1f}x), bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), SDPA at f32 {r['library_ms']:.4f} ms "
+                f"[{card}]")
     return out
 
 
@@ -4732,7 +4433,7 @@ def _sp_report(card: str, run: str, ranks: list, phase6_losses: list, layers: in
             f"{k} {c}" for k, c in r["steps"][-1]["launches"].items() if c) for r in rs)
         + f" [{card}]")
     log(f"  {run}: traffic a step (rank 0, step {rs[0]['steps'][-2]['step']}): "
-        + _traffic_line(rs[0]["steps"][-2]))
+        + account_line(rs[0]["steps"][-2]))
     for r in rs:
         p = r["profile"]
         log(f"  {run}: rank seq {r['seq']} model {r['model']}: profiled step {p['step_ms']:.1f} "
@@ -4867,25 +4568,15 @@ def moe_step_hook():
 
 
 def _moe_profile_split(prof) -> dict:
-    """A profiled MoE step's device ms: the flash kernels (by kernel name),
-    the experts' products (``aten::bmm``) and the routing, dispatch and
-    combine (``MOE_DISPATCH_OPS``), each op's own kernels."""
-    from torch.autograd import DeviceType
-
-    split = {"attention_ms": 0.0, "expert_matmul_ms": 0.0, "dispatch_combine_ms": 0.0}
-    for e in prof.key_averages():
-        us = e.self_device_time_total
-        if us <= 0:
-            continue
-        name = e.key.lower()
-        if e.device_type == DeviceType.CUDA:
-            if any(f + "_kernel" in name or f + "_tc_kernel" in name for f in FLASH_FAMILIES):
-                split["attention_ms"] += us / 1e3
-        elif e.key == "aten::bmm":
-            split["expert_matmul_ms"] += us / 1e3
-        elif e.key in MOE_DISPATCH_OPS:
-            split["dispatch_combine_ms"] += us / 1e3
-    return split
+    """A profiled MoE step's device ms (``tools/profile_step.py``): the
+    flash kernels (by kernel name), the experts' products (``aten::bmm``)
+    and the routing, dispatch and combine (``MOE_DISPATCH_OPS``), each op's
+    own kernels."""
+    trace = ps.load(prof)
+    fams, by_op = ps.by_family(trace), ps.device_ms_by_op(trace)
+    return {"attention_ms": sum(fams.get(f, {"ms": 0.0})["ms"] for f in ps.FLASH_FAMILIES),
+            "expert_matmul_ms": by_op.get("aten::bmm", 0.0),
+            "dispatch_combine_ms": sum(by_op.get(op, 0.0) for op in MOE_DISPATCH_OPS)}
 
 
 def _moe_global_batches(cfg, shards: int, n: int) -> list:
@@ -5153,6 +4844,15 @@ def moe_expert_mesh(card: str, want: list, want_xla: list) -> dict:
                 raise SystemExit(f"phase 15 (b): rank {r['rank']} step {st['step']} launched "
                                  f"{got}")
         require_tensor_cores(f"train_moe_ep rank {r['rank']}", r["launches"], r["tc_launches"])
+        # As the JAX HLO test asserts of the MoE step: the dispatch crosses
+        # the expert group (here both ranks) by all-to-all, in every step.
+        for st in r["steps"]:
+            a2a = [c for c in _records(st) if c.kind == "all-to-all"]
+            if not a2a or any(c.groups != [[0, 1]] for c in a2a):
+                raise SystemExit(f"phase 15 (b): rank {r['rank']} step {st['step']}'s "
+                                 f"all-to-alls are not over the expert group: {a2a}")
+        log(f"  (b) rank {r['rank']} (expert {r['expert']}), collectives a step (step "
+            f"{r['steps'][1]['step']}): {account_line(r['steps'][1])}")
     if not all(math.isfinite(g) and g <= t for g, t in zip(gaps, tols)):
         raise SystemExit(f"phase 15 (b): the expert mesh's losses disagree with one "
                          f"process's: {gaps}")
@@ -5160,8 +4860,7 @@ def moe_expert_mesh(card: str, want: list, want_xla: list) -> dict:
     tokens = MOE_BATCH * MOE_T
     traffic = ranks[0]["steps"][1]["traffic"]
     log(f"  (b) step {step_ms:.1f} ms (rank 0, step 2, host clock to the loss read), "
-        f"{tokens / (step_ms / 1e3):.0f} tokens/s; traffic a step (rank 0, step 2): "
-        + _traffic_line(ranks[0]["steps"][1]) + f" [{card}]")
+        f"{tokens / (step_ms / 1e3):.0f} tokens/s [{card}]")
     for r in ranks:
         p, s = r["profile"], r["split"]
         log(f"  (b) rank {r['rank']} (expert {r['expert']}): profiled step {p['step_ms']:.1f} ms, "
@@ -5249,7 +4948,7 @@ def moe_serve(card: str, registry_dir: Path, version: int) -> dict:
     torch.cuda.empty_cache()
     logits = out["output"].float()
     err = (logits - want).abs().max().item()
-    flash_in_decode = sum(decode_launches.get(k, 0) for k in FLASH_FAMILIES)
+    flash_in_decode = sum(decode_launches.get(k, 0) for k in ps.FLASH_FAMILIES)
     log(f"  (c) pinned replica of transformer_lm/v{version} up in {up_s:.1f} s; predict "
         f"[1, {MOE_T}] in {predict_s * 1e3:.1f} ms (client), logits {tuple(logits.shape)}, "
         f"finite {bool(torch.isfinite(logits).all())}, max |Δ| against transformer.apply on "
@@ -5422,7 +5121,8 @@ def pp_rank(out_dir: str, ckpt_dir: str) -> None:
     tp = sharding.shard_pytree(dparams, mesh, transformer.sharding_rules(dcfg))
     collectives.TRAFFIC.clear()
     t1 = time.perf_counter()
-    tp_ids = transformer.generate(dcfg, tp, prompt, max_new_tokens=PP_SAMPLE_NEW, mesh=mesh)
+    with hlo_analysis.record_collectives() as decode_account:
+        tp_ids = transformer.generate(dcfg, tp, prompt, max_new_tokens=PP_SAMPLE_NEW, mesh=mesh)
     tp_s = time.perf_counter() - t1
     decode_traffic = dict(collectives.TRAFFIC)
     # Teacher-forced over the TP tokens: the largest logit gap, and the
@@ -5444,6 +5144,7 @@ def pp_rank(out_dir: str, ckpt_dir: str) -> None:
     res["b"] = {"rep": None if rep is None else rep[0].tolist(), "tp": seq.tolist(),
                 "tp_heads": int(tp["block_0"]["qkv"]["kernel"].shape[1] // (3 * dcfg.head_dim)),
                 "gap": gap, "margins": margins, "tp_s": tp_s, "traffic": decode_traffic,
+                "account": [dataclasses.asdict(c) for c in decode_account],
                 "wall_s": time.perf_counter() - t0}
     del dparams, tp, cache_tp, cache_rep
     torch.cuda.empty_cache()
@@ -5586,7 +5287,7 @@ def pipe_slice_end_to_end(card: str) -> dict:
         step = ranks[0]["a"]["steps"][1]
         log(f"  (a) step {step['ms']:.1f} ms (rank 0, step 2, host clock to the loss read), "
             f"{tokens / (step['ms'] / 1e3):.0f} tokens/s; traffic a step (rank 0, step 2): "
-            + _traffic_line(step) + f" [{card}]")
+            + account_line(step) + f" [{card}]")
         for r in ranks:
             p = r["a"]["profile"]
             log(f"  (a) rank {r['rank']} (pipe {r['a']['pipe']}): profiled step "
@@ -5614,7 +5315,7 @@ def pipe_slice_end_to_end(card: str) -> dict:
             f"heads a rank, {chief['b']['tp_s']:.2f} s): equal {tps[0] == rep}, the ranks "
             f"alike {tps[0] == tps[1]}; largest logit gap (teacher-forced) {gap:.3e}, "
             f"smallest top-2 margin {min(margins):.3e}; decode traffic (rank 0) "
-            + _traffic_line({"traffic": chief["b"]["traffic"]}))
+            + account_line(chief["b"]))
         if one != rep or tps[0] != tps[1] or chief["b"]["tp_heads"] != PP_HEADS // 2:
             raise SystemExit("phase 16 (b): the collapsed weights decode differently in one "
                              "process, or the model ranks disagree")
@@ -5655,10 +5356,20 @@ def pipe_slice_end_to_end(card: str) -> dict:
         if not (max(loss_gaps) <= TOL_GB_LOSS and stat_gap <= TOL_GB_STATS):
             raise SystemExit(f"phase 16 (c): the slice ranks disagree with one process's "
                              f"ghost path: loss {loss_gaps}, stats {stat_gap}")
+        # As the JAX HLO test asserts of ghost BN: no statistics all-reduce
+        # crosses a slice (here a slice is a rank); only the gradient
+        # bucket and the metrics span the slices.
+        for r in ranks:
+            crossing = {c.tag for st in r["c"]["steps"] for c in _records(st)
+                        if c.kind == "all-reduce" and any(len(g) > 1 for g in c.groups)}
+            if not crossing <= {"grads", "metrics"}:
+                raise SystemExit(f"phase 16 (c): rank {r['rank']}'s all-reduces {crossing} "
+                                 "cross the slices")
+            log(f"  (c) rank {r['rank']} (slice {r['c']['slice']}), collectives a step (step 2): "
+                + account_line(r["c"]["steps"][1]))
         step = ranks[0]["c"]["steps"][1]
         log(f"  (c) step {step['ms']:.1f} ms (rank 0, step 2), "
-            f"{GB_BATCH / (step['ms'] / 1e3):.0f} images/s; traffic a step (rank 0): "
-            + _traffic_line(step) + f" [{card}]")
+            f"{GB_BATCH / (step['ms'] / 1e3):.0f} images/s [{card}]")
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     log(f"  phase 16: the one-process yardsticks {t_ref:.1f} s, the ranks and the checks "
@@ -5724,11 +5435,16 @@ def main() -> int:
         check_flash_bwd(flash, 8, 1000, 64, torch.float32, True, out_dtype=torch.float32),
         check_flash_bwd(flash, 8, 1000, 32, torch.float32, False, out_dtype=torch.float32),
     ]
-    main_shape = time_flash(flash, 16, 2048, 128, torch.bfloat16, True)
-    train_fwd = time_flash(flash, train_bh, 2048, 128, torch.bfloat16, True)
-    long_fwd = time_flash(flash, LONG_BATCH * 8, LONG_T, 128, torch.bfloat16, True)
-    time_flash(flash, 8, 2048, 128, torch.bfloat16, False)
-    bwd = time_flash_bwd(flash, train_bh, 2048, 128, torch.bfloat16, True)
+    # Timed by tools/flash_bench.py, at the shapes of its rows.
+    bf16 = torch.bfloat16
+    main_shape, train_fwd, long_fwd, _full = (
+        timed(f"flash_fwd [{bh}, {t}, 128] bf16 {'causal' if c else 'full'}",
+              fb.time_flash(flash, bh, t, 128, bf16, c))
+        for bh, t, c in ((16, 2048, True), (train_bh, 2048, True),
+                         (LONG_BATCH * 8, LONG_T, True), (8, 2048, False)))
+    bwd = fb.time_flash_bwd(flash, train_bh, 2048, 128, bf16, True)
+    for name, r in bwd.items():
+        timed(f"{name} [{train_bh}, 2048, 128] bf16 causal (sdpa: its whole backward)", r)
     # The T 8192 training path's shape: batch 2 x 8 heads = BH 16.
     long_bh = LONG_BATCH * 8
     fused_errs = [
@@ -5741,7 +5457,14 @@ def main() -> int:
         check_fused_bwd(flash, 3, 320, 128, torch.bfloat16, True),
         check_fused_bwd(flash, 3, 192, 32, torch.bfloat16, False),
     ]
-    fused = time_fused_bwd(flash, long_bh, LONG_T, 128, torch.bfloat16, True)
+    fused = timed(f"flash_fused_bwd [{long_bh}, {LONG_T}, 128] bf16 causal",
+                  fb.time_fused_bwd(flash, long_bh, LONG_T, 128, bf16, True))
+    log(f"  split pair at this shape: flash_dq {fused['split_dq_ms']:.4f} + flash_dkv "
+        f"{fused['split_dkv_ms']:.4f} = {fused['split_dq_ms'] + fused['split_dkv_ms']:.4f} ms "
+        f"(bound {fused['split_bound_ms']:.4f} ms); dq workspace bytes a call: "
+        f"{fused['dq_workspace_bytes']} in the blocks' walk "
+        f"({fused['dq_workspace_bytes'] / (fused['ms'] * 1e-3) / 1e12:.2f} TB/s over the "
+        f"kernel's time), {fused['dq_reduce_bytes']} in the reduction, S = {fused['slices']}")
     log(f"  [{card}]")
     # ResNet-50's BatchNorm shapes at batch 256 (the stem, a stage-0 bn3, a
     # stage-3 bn3) and a ragged one (C = 24, not a multiple of 8).
@@ -5751,7 +5474,13 @@ def main() -> int:
         check_bn(bn, (RESNET_BATCH, 7, 7, 2048), torch.bfloat16, seed=13),
         check_bn(bn, (3, 5, 7, 24), torch.float32, seed=14),
     ]
-    bn_times = time_bn(bn, card)
+    bn_times = fb.time_bn(bn, RESNET_BATCH, RESNET_IMAGE)
+    for name, r in bn_times.items():
+        timed(f"{name} at the stem {r['shape']} bf16" + (" relu" if name == "bn_bwd_stats" else ""), r)
+        log(f"  {name} over the step's {r['shapes']} shapes: kernel {r['step_ms']:.3f} ms, plain "
+            f"{r['step_plain_ms']:.3f} ms, torch {r['step_library_ms']:.3f} ms, bound "
+            f"{r['step_bound_ms']:.3f} ms")
+    log(f"  [{card}]")
 
     phase("2b", "phase 2b: the fused backward's parity gate (twin of tools/flash_parity.py)")
     from distributed_tensorflow_examples_tpu_torch.tools import flash_parity

@@ -71,7 +71,13 @@ permutations under ``seq_ring`` and the all-to-alls under ``seq_a2a``
 (the bytes of the tiles sent to the other ranks: a rank's own tile
 stays where it is), the experts' all-to-alls under ``expert_a2a``, the
 pipeline's stage handoffs under ``pipe`` and its output broadcast under
-``pipe_out``.
+``pipe_out``.  Beside ``TRAFFIC``, every tensor collective is offered
+to the calling rank's recorders (``utils/hlo_analysis.py``'s
+``record_collectives``): one record a call, in XLA's names, with the
+global ranks of the group that made it, so a record made on autograd's
+thread (a custom backward holds its group) reaches the rank that owns
+the group; ``all_gather_object`` moves a pickled host object and is not
+recorded.
 """
 
 from __future__ import annotations
@@ -94,9 +100,21 @@ class ProcessGroup:
     """The ranks of the ``torch.distributed`` world (``pg`` None) or of one
     of its subgroups."""
 
+    #: Every ProcessGroup of a process is one rank's: one account key.
+    account_key = "process"
+
     def __init__(self, pg=None):
         self.pg = pg
         self._axis_groups: dict = {}
+        self._global_ranks: list | None = None
+
+    @property
+    def global_ranks(self) -> list:
+        """The world ranks of this group's ranks, in group order."""
+        if self._global_ranks is None:
+            self._global_ranks = (list(range(tdist.get_world_size())) if self.pg is None
+                                  else list(tdist.get_process_group_ranks(self.pg)))
+        return self._global_ranks
 
     @property
     def size(self) -> int:
@@ -346,6 +364,45 @@ def _count(tag: str, t: torch.Tensor, t0: float, nbytes: int | None = None) -> N
     TRAFFIC[f"{tag}_bytes"] += t.numel() * t.element_size() if nbytes is None else nbytes
 
 
+#: Each rank's collective recorders, by the account key of its groups:
+#: ``sink(kind, shapes, nbytes, tag, groups)`` callables
+#: (``utils/hlo_analysis.py::record_collectives`` adds and removes them).
+RECORDERS: dict = {}
+_HLO_TYPES = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16",
+              torch.float16: "f16", torch.int64: "s64", torch.int32: "s32",
+              torch.int16: "s16", torch.int8: "s8", torch.uint8: "u8", torch.bool: "pred"}
+
+
+def account_key():
+    """The key of the calling thread's rank in ``RECORDERS``: its
+    :class:`ThreadRanks` rank's, else the process's."""
+    w = world()
+    return ProcessGroup.account_key if w is None else w.account_key
+
+
+def _record(g, kind: str, tag: str, t: torch.Tensor, *, shape=None, parts=None,
+            shift: int | None = None) -> None:
+    """Offer one call over the group ``g`` to the recorders of the rank
+    that owns ``g`` (whichever thread runs it): XLA's ``kind``, the HLO
+    shape of ``t`` (or ``shape``, a gather's result), or of each of the
+    ``parts`` a flat bucket packs (XLA's variadic all-reduce), the bytes
+    of that shape (the payload, the gathered result, the whole tensor of
+    an all-to-all), and the group's global ranks (a permutation's
+    source-target pairs, each rank sending ``shift`` hops on)."""
+    sinks = RECORDERS.get(g.account_key)
+    if not sinks:
+        return
+    dims = tuple(t.shape) if shape is None else tuple(shape)
+    hlo = _HLO_TYPES.get(t.dtype, str(t.dtype))
+    shapes = [f"{hlo}[{','.join(map(str, d))}]" for d in (parts or [dims])]
+    members = list(g.global_ranks)
+    n = len(members)
+    groups = ([members] if shift is None
+              else [[members[i], members[(i + shift) % n]] for i in range(n)])
+    for sink in list(sinks):
+        sink(kind, shapes, math.prod(dims) * t.element_size(), tag, groups)
+
+
 def all_reduce_sum_(t: torch.Tensor, *, tag: str = "other",
                     axis_name: str = "data") -> torch.Tensor:
     """Sum ``t`` over the axis's ranks, in place, outside autograd;
@@ -355,7 +412,21 @@ def all_reduce_sum_(t: torch.Tensor, *, tag: str = "other",
         t0 = time.perf_counter()
         g.all_reduce_sum_(t)
         _count(tag, t, t0)
+        _record(g, "all-reduce", tag, t, parts=getattr(_local, "parts", None))
     return t
+
+
+@contextlib.contextmanager
+def bucket(parts: list):
+    """The block's :func:`all_reduce_sum_` sums a flat bucket of tensors of
+    the shapes ``parts``: the account records it as XLA's variadic
+    all-reduce, a shape for each."""
+    old = getattr(_local, "parts", None)
+    _local.parts = parts
+    try:
+        yield
+    finally:
+        _local.parts = old
 
 
 def all_reduce_max_(t: torch.Tensor, *, tag: str = "other",
@@ -367,6 +438,7 @@ def all_reduce_max_(t: torch.Tensor, *, tag: str = "other",
         t0 = time.perf_counter()
         g.all_reduce_max_(t)
         _count(tag, t, t0)
+        _record(g, "all-reduce", tag, t)
     return t
 
 
@@ -379,7 +451,15 @@ def all_gather(t: torch.Tensor, dim: int, *, axis_name: str, tag: str = "other")
     t0 = time.perf_counter()
     parts = g.all_gather(t.detach())
     _count(tag, t, t0)
+    _record(g, "all-gather", tag, t, shape=_gathered(t, dim, g.size))
     return torch.cat(parts, dim=dim)
+
+
+def _gathered(t: torch.Tensor, dim: int, n: int) -> tuple:
+    """The shape of ``n`` ranks' ``t`` concatenated along ``dim``."""
+    shape = list(t.shape)
+    shape[dim] *= n
+    return tuple(shape)
 
 
 class _GatherBlocks(torch.autograd.Function):
@@ -389,6 +469,7 @@ class _GatherBlocks(torch.autograd.Function):
         t0 = time.perf_counter()
         parts = g.all_gather(x.detach().contiguous())
         _count(tag, x, t0)
+        _record(g, "all-gather", tag, x, shape=_gathered(x, dim, g.size))
         return torch.cat(parts, dim=dim)
 
     @staticmethod
@@ -414,6 +495,7 @@ def _sum_over(g, t: torch.Tensor, tag: str) -> torch.Tensor:
     t0 = time.perf_counter()
     g.all_reduce_sum_(t)
     _count(tag, t, t0)
+    _record(g, "all-reduce", tag, t)
     return t
 
 
@@ -519,6 +601,7 @@ def permute_over(g, x: torch.Tensor, *, shift: int, tag: str = "seq_ring") -> to
     t0 = time.perf_counter()
     y = g.ring_permute(x.detach(), shift)
     _count(tag, x, t0)
+    _record(g, "collective-permute", tag, x, shift=shift)
     return y
 
 
@@ -556,6 +639,7 @@ def _all_to_all(g, x: torch.Tensor, split_dim: int, concat_dim: int, tag: str):
     parts = g.all_to_all(list(x.detach().chunk(g.size, dim=split_dim)))
     # This rank's own tile stays here: only the other ranks' tiles are sent.
     _count(tag, x, t0, x.numel() * x.element_size() * (g.size - 1) // g.size)
+    _record(g, "all-to-all", tag, x)
     return torch.cat(parts, dim=concat_dim)
 
 
@@ -575,7 +659,8 @@ def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, axis_name: str 
 
 def all_gather_object(obj, axis_name: str = "data") -> list:
     """Every rank's ``obj`` along the axis, in rank order (``[obj]`` on
-    one rank)."""
+    one rank).  A pickled host object: neither counted in ``TRAFFIC`` nor
+    recorded."""
     g = group(axis_name)
     return g.all_gather_object(obj) if g is not None else [obj]
 
@@ -587,9 +672,13 @@ class ThreadRanks:
     ``build_mesh`` under it makes 2-D meshes' subgroups from the same
     threads (:meth:`sub`)."""
 
-    def __init__(self, n: int, *, timeout: float = 60.0):
+    def __init__(self, n: int, *, timeout: float = 60.0, root: "ThreadRanks | None" = None,
+                 members: tuple | None = None):
         self.size = n
         self.timeout = timeout
+        self.root = self if root is None else root
+        #: The root's ranks (the simulated world's) of this one's ranks.
+        self.members = tuple(range(n)) if members is None else members
         self._barrier = threading.Barrier(n, timeout=timeout)
         self._slots: list = [None] * n
         self._subs: dict = {}
@@ -607,7 +696,9 @@ class ThreadRanks:
         for every member)."""
         with self._lock:
             if members not in self._subs:
-                self._subs[members] = ThreadRanks(len(members), timeout=self.timeout)
+                self._subs[members] = ThreadRanks(
+                    len(members), timeout=self.timeout, root=self.root,
+                    members=tuple(self.members[m] for m in members))
             return self._subs[members]
 
     def _abort(self) -> None:
@@ -649,6 +740,8 @@ class ThreadRanks:
 class _ThreadRank:
     def __init__(self, ranks: ThreadRanks, rank: int):
         self.ranks, self.rank, self.size = ranks, rank, ranks.size
+        self.global_ranks = ranks.members
+        self.account_key = (id(ranks.root), ranks.members[rank])
 
     def _reduce(self, t: torch.Tensor, op) -> None:
         parts = self.ranks._exchange(self.rank, t.detach().clone())

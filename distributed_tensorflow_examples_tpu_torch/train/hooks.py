@@ -6,7 +6,7 @@
 - ``LoggingHook``     — periodic metric logging.
 - ``CheckpointHook``  — periodic and final save via ``train.checkpoint``.
 - ``SummaryHook``     — metric series to ``utils.metrics.MetricsWriter``.
-- ``ProfilerHook``    — waits for the port's tools item (A12).
+- ``ProfilerHook``    — a ``torch.profiler`` trace window and its summary.
 
 Hooks observe the loop between steps; reading a metric (``float(v)``)
 synchronises with the device, so only the logging and summary cadences
@@ -155,14 +155,90 @@ class SummaryHook(Hook):
 
 
 class ProfilerHook(Hook):
-    """The JAX package's trace window; the port's profiler twin is the
-    tools item of its roadmap (A12)."""
+    """A ``torch.profiler`` trace of steps [start, start + count): the JAX
+    hook's ``jax.profiler`` window, with its straddle arithmetic under
+    ``steps_per_call``.  It records host activity, and the device's when
+    the loop's state lives on a CUDA device.  At the stop it synchronises
+    the device and writes, under ``log_dir/plugins/profile/<run>/``, the
+    Chrome trace and a JSON summary of the window
+    (``tools/profile_step.py``'s reader), each named for the rank
+    (``rank<r>.pt.trace.json``, ``rank<r>.summary.json``), and keeps the
+    window's ``trace`` and ``summary``.  A window on a CUDA device that
+    recorded no device time raises: that profile would be silently
+    empty."""
 
-    def __init__(self, log_dir: str):
-        raise NotImplementedError(
-            "ProfilerHook waits for the port's tools item (A12: a "
-            "torch.profiler twin of tools/profile_step.py)"
-        )
+    def __init__(self, log_dir: str, start_step: int = 10, num_steps: int = 5):
+        self.log_dir = log_dir
+        self.start = start_step
+        self.stop = start_step + num_steps
+        self._active = False
+        self._prof = None
+        self.trace_path: str | None = None
+        self.trace = None  # the window's tools/profile_step.py Trace
+        self.summary: dict | None = None
+
+    def before_step(self, loop):
+        # Straddle check: under unroll>1 the observed step advances by
+        # steps_per_call and may jump over [start, stop) entirely; activate
+        # whenever the upcoming call overlaps the window.
+        upcoming_end = loop.step + getattr(loop, "steps_per_call", 1)
+        if not self._active and loop.step < self.stop and upcoming_end > self.start:
+            self._start(loop)
+            self._active = True
+
+    def after_step(self, loop, metrics):
+        if self._active and loop.step >= self.stop:
+            self._stop()
+            self._active = False
+
+    def end(self, loop):
+        if self._active:
+            self._stop()
+            self._active = False
+
+    def _start(self, loop) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        from .state import leaves
+
+        params = getattr(getattr(loop, "state", None), "params", None)
+        first = next(iter(leaves(params)), None) if params is not None else None
+        self._cuda = first is not None and first.device.type == "cuda"
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self._cuda else [])
+        if self._cuda:
+            torch.cuda.synchronize()
+        self._prof = profile(activities=activities)
+        self._prof.__enter__()
+        self._t0 = time.perf_counter()
+
+    def _stop(self) -> None:
+        import json
+        import os
+
+        from ..parallel import dist
+        from ..tools import profile_step
+
+        if self._cuda:
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - self._t0) * 1e3
+        self._prof.__exit__(None, None, None)
+        t0 = time.perf_counter()
+        run = os.path.join(self.log_dir, "plugins", "profile", time.strftime("%Y_%m_%d_%H_%M_%S"))
+        os.makedirs(run, exist_ok=True)
+        rank = dist.process_index()
+        self.trace_path = os.path.join(run, f"rank{rank}.pt.trace.json")
+        self._prof.export_chrome_trace(self.trace_path)
+        self.trace = profile_step.load(self._prof)
+        self.summary = profile_step.summary(self.trace, wall_ms=wall_ms)
+        self.summary["export_s"] = time.perf_counter() - t0
+        with open(os.path.join(run, f"rank{rank}.summary.json"), "w") as f:
+            json.dump(self.summary, f)
+        self._prof = None
+        log.info("profiled steps [%d, %d): %s; device busy %.3f ms of %.3f ms; trace %s",
+                 self.start, self.stop, "cuda" if self._cuda else "cpu",
+                 self.summary["busy_ms"], wall_ms, self.trace_path)
+        if self._cuda and self.summary["busy_ms"] <= 0:
+            raise RuntimeError(f"the profiled window recorded no device time ({self.trace_path})")
 
 
 def scalars(metrics: dict[str, Any]) -> dict[str, float]:

@@ -3,8 +3,9 @@
 
 flags -> process world -> mesh -> state on the rank's device -> train
 step -> hooks (stop, step counter, logging, summary, checkpoint,
-preemption) -> ``TrainSession``, plus the host-to-device infeed, the
-full-split ``evaluate`` and the ``FINAL`` line the scrapers read.
+preemption, profiler) -> ``TrainSession``, plus the host-to-device
+infeed, the full-split ``evaluate`` and the ``FINAL`` line the scrapers
+read.
 
 The world comes from ``parallel.dist.initialize`` (``TF_CONFIG`` or
 nothing: one process); a ``ps``/``evaluator`` task prints and exits 0.
@@ -12,8 +13,8 @@ nothing: one process); a ``ps``/``evaluator`` task prints and exits 0.
 ``expert``, ``seq`` and ``model`` axes; the state is laid
 out by the model's rule table (``rules``,
 ``train/state.py::create_sharded_state``), with the optimizer slots
-ZeRO-1 sharded under ``--zero_opt``.  ``--profile``
-raises (A12) through ``utils.flags.check_training_flags``.  On a
+ZeRO-1 sharded under ``--zero_opt``.  ``--profile`` with a log dir adds
+a ``ProfilerHook`` window (steps 10-15), as the JAX runner does.  On a
 world of 2 or more, ``--watchdog`` starts the peer watchdog; the metrics
 writer and the ``FINAL`` line are the chief's; ``evaluate`` splits each
 batch over the ranks and averages.  ``--deterministic`` turns on
@@ -31,7 +32,6 @@ from ..parallel import collectives, dist, sharding
 from ..parallel.mesh import MeshSpec, build_mesh
 from ..utils import determinism
 from ..utils import device as device_lib
-from ..utils import flags as flags_lib
 from ..utils import threefry
 from ..utils.metrics import MetricsWriter
 from . import hooks as hooks_lib
@@ -76,7 +76,6 @@ class Experiment:
         rules=(),
     ):
         self.flags = flags
-        flags_lib.check_training_flags(flags)
         if getattr(flags, "deterministic", False):
             determinism.enable()
         requested = device or getattr(flags, "device", None)
@@ -134,6 +133,8 @@ class Experiment:
                 )
             )
             self.hooks.append(PreemptionCheckpointHook(self.ckpt))
+        if getattr(flags, "profile", False) and self.log_dir:
+            self.hooks.append(hooks_lib.ProfilerHook(self.log_dir))
         self.hooks.extend(extra_hooks)
         self.session = TrainSession(
             self.step_fn,

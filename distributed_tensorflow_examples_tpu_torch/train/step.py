@@ -86,7 +86,7 @@ def sync_gradients(params, group, expert_sharded=None, expert_group=None) -> Non
             continue
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in mine]
         flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
-        with collectives.use_group(sum_group):
+        with collectives.use_group(sum_group), collectives.bucket([g.shape for g in grads]):
             collectives.all_reduce_sum_(flat, tag="expert_grads" if experts else "grads")
         flat.div_(group.size)
         offset = 0

@@ -3,8 +3,8 @@ flags, accepted and mapped.
 
 :func:`add_training_flags` is the twin of ``utils/flags.py::
 define_training_flags`` in the JAX package, on argparse, with its names
-and defaults; :func:`check_training_flags` refuses, naming the port's
-item that brings it, what the port cannot run yet (``--profile`` A12);
+and defaults; ``--profile`` with a ``--log_dir`` traces a window of
+steps (``train/hooks.py::ProfilerHook``, as the JAX runner adds it);
 ``--mesh`` takes every axis of the JAX package (``parallel.mesh``).
 ``--zero_opt`` shards the optimizer slots (ZeRO-1,
 ``train/state.py``).  ``--watchdog`` starts the peer watchdog on a world
@@ -80,7 +80,7 @@ def add_training_flags(parser: argparse.ArgumentParser, default_batch_size: int 
              'or "data=1,seq=2,model=2" ("" = data over every rank; the model and expert '
              "axes shard the leaves a model's rules name, the seq axis the sequence).")
     add("--profile", type=parse_bool, nargs="?", const=True, default=False,
-        help="Profiler trace window (waits for the port's tools, A12).")
+        help="Capture a torch.profiler trace window (under --log_dir).")
     add("--obs_events_dir", default="", help="Flight-recorder dump directory.")
     add("--platform", default="", help="(JAX platform; unused by the port).")
     add("--zero_opt", type=parse_bool, nargs="?", const=True, default=False,
@@ -93,14 +93,6 @@ def add_training_flags(parser: argparse.ArgumentParser, default_batch_size: int 
         help="Run-to-run determinism (utils.determinism); under PS emulation also "
              "the fixed round-robin interleave.")
     add("--device", default=None, help="torch device; default cuda (no silent CPU).")
-
-
-def check_training_flags(args) -> None:
-    """Raise ``NotImplementedError`` naming the port's item for what it
-    cannot run yet."""
-    if getattr(args, "profile", False):
-        raise NotImplementedError(
-            "--profile (a profiler trace window) waits for the port's tools item (A12)")
 
 
 def add_legacy_cluster_flags(parser: argparse.ArgumentParser) -> None:

@@ -440,8 +440,14 @@ def test_preemption_hook_saves_and_stops(tmp_path):
     assert session.step == 2 and mgr.latest_step() == 2
     restored = mgr.restore_latest(s)
     assert restored.step == 2
-    with pytest.raises(NotImplementedError, match="A12"):
-        hooks.ProfilerHook(str(tmp_path))
+    # The JAX hook's window (steps 10-15): outside it the hook records and
+    # writes nothing.
+    prof = hooks.ProfilerHook(str(tmp_path / "prof"))
+    assert (prof.start, prof.stop) == (10, 15)
+    prof.before_step(session)
+    prof.end(session)
+    assert not prof._active and prof.trace_path is None
+    assert not (tmp_path / "prof").exists()
 
 
 def test_pipeline_stacks_and_prefetches():
