@@ -14,16 +14,32 @@ it fails:
    ``HGMMA``) that ``cuobjdump -sass`` finds in the SASS of the four
    tensor-core kernels (``flash_fwd_tc_kernel``, ``flash_dq_tc_kernel``,
    ``flash_dkv_tc_kernel``, ``flash_fused_bwd_tc_kernel``, one instance
-   per head dim); the run fails if one of those spills, has no ptxas
-   report or none, or if ``cuobjdump`` is missing.  Each flash library
-   must also report (``dtx_<kernel>_route``) the tensor-core kernel for
-   bf16 in and out, with the tiles the plain version walks, and the
-   CUDA-core one for any f32 side.
+   per head dim, and for the split pair also its f32-out instances and
+   its check-only recording ones at D 32 and 64); the run fails if one of
+   those spills, has no ptxas report or none, or if ``cuobjdump`` is
+   missing.  Each flash library must also report
+   (``dtx_<kernel>_route``) the tensor-core kernel for bf16 in and out,
+   and for the split pair (``flash_dq``, ``flash_dkv``) for bf16 in and
+   f32 out too, with the tiles the plain version walks, and the CUDA-core
+   one for f32 in and for f32 out of the forward and the fused backward.
 2. Kernels against their plain PyTorch versions on the card, at the shapes
    the main paths give them and at the edges the kernels must also take
    (ragged T, head dims 32/64, float32 in and out, non-causal), with the
    tolerances stated below; the backward kernels must also give the same
-   bits on a second run.  Then each kernel, its plain version and the
+   bits on a second run.  The split pair at bf16 in and f32 out (the flash
+   ring's hops, on the tensor cores) is held not by a tolerance but by two
+   checks (``check_split_f32``), causal and full at [8, 2048, 128],
+   [8, 1000, 64] and [8, 200, 32], and causal at the hop shape
+   [16, 4096, 128]: (a) its f32 result rounded to bf16 (round to nearest
+   even, as the bf16 instance rounds) equals the bf16-out kernel's bit for
+   bit, and a second launch is bitwise the first; (b) at T 1000 and 200
+   (the records are T^2 a head), the check-only recording instances give
+   the f32 result bit for bit and the bf16 p and ds they used; fed those,
+   the plain walks reproduce the result within ``TOL_BWD[float32]``, and
+   each recorded p lies within one bf16 step and each ds within the bound
+   that ``tools/flash_rounding.py`` states of the plain walk's own; the
+   shares of p and ds that flipped are printed.  Then each kernel, its
+   plain version and the
    PyTorch call computing the same function (``scaled_dot_product_attention``
    and its backward, timed as a yardstick only; the port never calls
    either) are timed with CUDA events at the main path's shape, with the
@@ -341,20 +357,23 @@ it fails:
    the all-to-all, then the tensor-core flash kernels over the whole
    sequence.  (b) and (c) share one set of processes.  First, each flash
    kernel at a hop's shape [16, 4096, 128], bf16 in, timed with float32
-   out (the CUDA-core route every hop takes) beside bf16 out (the tensor
-   cores) and SDPA at float32, causal and full (``time_hop_routes``, by
-   ``tools/flash_bench.py``).  Gates: every rank's
+   out (the route every hop takes: the tensor cores for the split pair,
+   the CUDA cores for the forward and the fused backward, as the libraries
+   report) beside bf16 out (the tensor cores) and SDPA at float32, causal
+   and full (``time_hop_routes``, by ``tools/flash_bench.py``).  Gates: every rank's
    steps 1-``SP_STEPS`` within ``TOL_SP_LOSS`` of phase 6's one-process
    steps on the same weights, batch and learning rate (steps 2 and 3
    carry the mesh's gradients: the ring's backward, the seq mean, the
    Megatron sums), and its loss falling;
    every step's launches on each rank exactly the causal ring's (seq
-   index + 1 hops a layer, every one CUDA-core) or Ulysses' (one
+   index + 1 hops a layer; the split pair's on the tensor cores, the
+   forward's and the fused backward's on the CUDA cores) or Ulysses' (one
    tensor-core call a layer); and, on the (a) ranks, the attention gate:
    ``ring_flash_attention`` over layer 0's q/k/v (the rank's slice) with
    fused and then split hops against the same ring with the plain
    versions and against one-rank ``flash_attention`` over the whole
-   sequence, phase 2's bf16 tolerances (``sp_attention_gate``).  Printed
+   sequence, phase 2's bf16 tolerances, the split hops' dq and dk/dv all
+   on the tensor cores (``sp_attention_gate``).  Printed
    per run: step ms and tokens/s, the ``seq_ring``/``seq_a2a``/model
    collectives a step (calls, MB, host ms), each rank's profiled device
    busy ms and idle share, launches a step by rank.
@@ -451,6 +470,7 @@ import numpy as np
 import torch
 
 from distributed_tensorflow_examples_tpu_torch.tools import flash_bench as fb
+from distributed_tensorflow_examples_tpu_torch.tools import flash_rounding
 from distributed_tensorflow_examples_tpu_torch.tools import profile_step as ps
 from distributed_tensorflow_examples_tpu_torch.utils import hlo_analysis
 
@@ -678,12 +698,15 @@ def _kernel_instance(mangled: str) -> str:
         return f"fused_dq_reduce_kernel<{'bf16' if 'bfloat16' in mangled else 'f32'}>"
     kernel = re.search(r"(flash_(?:fwd|dq|dkv|fused_bwd)(?:_tc)?_kernel)I", mangled)
     d = re.search(r"Li(\d+)E", mangled)
-    if "_tc_kernelI" in mangled:  # bf16 in and out; the template names only D
-        types = "bf16->bf16"
+    record = ""
+    if "_tc_kernelI" in mangled:  # bf16 in; <D> or, for the split pair, <D, Tout, kRecord>
+        types = "bf16->f32" if re.search(r"_tc_kernelILi\d+Ef", mangled) else "bf16->bf16"
+        record = ", record" if "Lb1E" in mangled else ""
     else:
         types = next((v for k, v in _TYPES.items()
                       if re.search(r"_kernelI" + re.escape(k), mangled)), "?")
-    return f"{kernel.group(1) if kernel else mangled}<{types}, D={d.group(1) if d else '?'}>"
+    return (f"{kernel.group(1) if kernel else mangled}<{types}, D={d.group(1) if d else '?'}"
+            f"{record}>")
 
 
 def ptxas_report(log_text: str) -> list[str]:
@@ -736,7 +759,7 @@ def tensor_core_counts(library: Path) -> dict[str, int]:
     return counts
 
 
-#: The libraries with tensor-core kernels (bf16 in and out) beside their
+#: The libraries with tensor-core kernels (bf16 in) beside their
 #: CUDA-core ones, and the kernels (launch names; ``<name>_tc_kernel`` in
 #: the source) each holds.
 TENSOR_CORE_LIBRARIES = {
@@ -745,15 +768,33 @@ TENSOR_CORE_LIBRARIES = {
     "flash_fused_bwd": ("flash_fused_bwd",),
 }
 TENSOR_CORE_KERNELS = tuple(k for ks in TENSOR_CORE_LIBRARIES.values() for k in ks)
+#: The kernels whose f32-out route (bf16 in) runs on the tensor cores: the
+#: split pair; the forward and the fused backward store f32 from their
+#: CUDA-core kernels.
+F32_OUT_TC = ("flash_dq", "flash_dkv")
+
+
+def tc_instances(library: str) -> list[str]:
+    """The tensor-core kernel instances (:func:`_kernel_instance` names)
+    library ``library`` must hold: each kernel's bf16 -> bf16 at D 32, 64
+    and 128; for the split pair also bf16 -> f32 there and the check-only
+    recording instances at D 32 and 64."""
+    out = []
+    for kernel in TENSOR_CORE_LIBRARIES[library]:
+        forms = [("bf16->bf16", (32, 64, 128), "")]
+        if kernel in F32_OUT_TC:
+            forms += [("bf16->f32", (32, 64, 128), ""), ("bf16->f32", (32, 64), ", record")]
+        out += [f"{kernel}_tc_kernel<{ty}, D={d}{rec}>" for ty, ds, rec in forms for d in ds]
+    return out
 
 
 def check_build(_build, sources) -> dict:
     """Each kernel instance's registers and spills (``-Xptxas -v``), and the
     tensor-core instructions in the SASS of the tensor-core kernels;
-    fails when a tensor-core kernel's report is missing, lacks a head dim,
-    shows a spill, or its SASS has no tensor-core instruction.  Returns
-    the tensor-core instruction count of each tensor-core kernel, summed
-    over its head dims."""
+    fails when a tensor-core instance of :func:`tc_instances` has no
+    report, shows a spill, or its SASS has no tensor-core instruction.
+    Returns the tensor-core instruction count of each tensor-core kernel,
+    summed over its instances."""
     for name in sources:
         ptxas = Path(str(_build.library_path(name)) + ".log")
         if not ptxas.exists():
@@ -766,32 +807,33 @@ def check_build(_build, sources) -> dict:
             log(f"  ptxas: {line}")
             if "_tc_kernel" in line and spills(line):
                 raise SystemExit(f"a tensor-core kernel spills registers: {line}")
-        for kernel in TENSOR_CORE_LIBRARIES.get(name, ()):
-            for d in (32, 64, 128):
-                if not any(ln.startswith(f"{kernel}_tc_kernel<") and f"D={d}>" in ln
-                           for ln in report):
-                    raise SystemExit(f"{name}: no ptxas line for {kernel}_tc_kernel at D {d}")
+        for inst in tc_instances(name) if name in TENSOR_CORE_LIBRARIES else ():
+            if not any(ln.startswith(f"{inst}:") for ln in report):
+                raise SystemExit(f"{name}: no ptxas line for {inst}")
     totals = {}
     for name, kernels in TENSOR_CORE_LIBRARIES.items():
         counts = {k: n for k, n in tensor_core_counts(_build.library_path(name)).items()
                   if "_tc_kernel" in k}
         log(f"  SASS tensor-core instructions (HMMA/HGMMA) in lib{name}: "
             + ", ".join(f"{k} {n}" for k, n in sorted(counts.items())))
+        missing = [inst for inst in tc_instances(name) if not counts.get(inst)]
+        if missing:
+            raise SystemExit(f"{name}: tensor-core instances missing or without a tensor-core "
+                             f"instruction: {missing}")
         for kernel in kernels:
-            mine = [n for k, n in counts.items() if k.startswith(f"{kernel}_tc_kernel<")]
-            if len(mine) != 3 or min(mine) == 0:
-                raise SystemExit(f"{name}: an instance of {kernel}_tc_kernel is missing or has "
-                                 "no tensor-core instruction")
-            totals[kernel] = sum(mine)
+            totals[kernel] = sum(n for k, n in counts.items()
+                                 if k.startswith(f"{kernel}_tc_kernel<"))
     return totals
 
 
 def check_routes(flash) -> None:
-    """The built libraries take the tensor-core kernel for bf16 in and out
-    only, with the (q rows, k rows) tiles the plain versions walk
-    (``FWD_BLOCK_Q``/``_K``, ``DQ_BLOCK_Q``/``_K``, ``DKV_BLOCK_Q``/
-    ``DKV_GROUP_K``, ``FUSED_BLOCK_Q``/``FUSED_GROUP_K``), and the
-    CUDA-core kernel with 64-row tiles (``BLOCK``) for any f32 side."""
+    """The built libraries take the tensor-core kernel for bf16 in and
+    out, and for bf16 in and f32 out where the kernel is in ``F32_OUT_TC``
+    (the split pair), with the (q rows, k rows) tiles the plain versions
+    walk (``FWD_BLOCK_Q``/``_K``, ``DQ_BLOCK_Q``/``_K``, ``DKV_BLOCK_Q``/
+    ``DKV_GROUP_K``, ``FUSED_BLOCK_Q``/``FUSED_GROUP_K``); the CUDA-core
+    kernel with 64-row tiles (``BLOCK``) for f32 in, and for f32 out of the
+    forward and the fused backward."""
     bf16, f32 = torch.bfloat16, torch.float32
     tc_tiles = {
         "flash_fwd": (flash.FWD_BLOCK_Q, flash.FWD_BLOCK_K),
@@ -799,10 +841,12 @@ def check_routes(flash) -> None:
         "flash_dkv": (flash.DKV_BLOCK_Q, flash.DKV_GROUP_K),
         "flash_fused_bwd": (flash.FUSED_BLOCK_Q, flash.FUSED_GROUP_K),
     }
+    cuda_cores = (False, (flash.BLOCK, flash.BLOCK))
     want = {(name, bf16, bf16): (True, tiles) for name, tiles in tc_tiles.items()}
     for name in TENSOR_CORE_KERNELS:
-        for pair in ((bf16, f32), (f32, f32), (f32, bf16)):
-            want[(name, *pair)] = (False, (flash.BLOCK, flash.BLOCK))
+        want[(name, bf16, f32)] = (True, tc_tiles[name]) if name in F32_OUT_TC else cuda_cores
+        for pair in ((f32, f32), (f32, bf16)):
+            want[(name, *pair)] = cuda_cores
     for key, route in want.items():
         got = flash.kernel_route(*key)
         if got != route:
@@ -810,13 +854,15 @@ def check_routes(flash) -> None:
                              f"(tensor cores, tiles) {got}, the plain version walks {route}")
     log("  routes: bf16 in and out -> tensor-core kernels (tiles "
         + ", ".join(f"{k} {v}" for k, v in tc_tiles.items())
-        + "), any f32 side -> CUDA-core kernels, as the plain versions walk them")
+        + f"); bf16 in, f32 out -> tensor-core kernels for {', '.join(F32_OUT_TC)}, CUDA-core "
+        "kernels for the others; f32 in -> CUDA-core kernels; as the plain versions walk them")
 
 
 def require_tensor_cores(path: str, launches: dict, tc_launches: dict) -> None:
     """Fails unless every launch of a kernel with a tensor-core instance
-    took that instance on ``path``: an f32 side slipping onto a bf16 path
-    would run the CUDA-core kernel, ~10x slower, at the same launch count."""
+    took that instance on ``path``: f32 in, or f32 out of the forward or
+    the fused backward, slipping onto a bf16 path would run a CUDA-core
+    kernel, ~10x slower, at the same launch count."""
     for name in TENSOR_CORE_KERNELS:
         n, tc = launches.get(name, 0), tc_launches.get(name, 0)
         if tc != n:
@@ -885,6 +931,65 @@ def check_flash_bwd(flash, bh, t, d, dtype, causal, out_dtype=None, determinism=
         if not same:
             raise SystemExit("flash backward kernels are not deterministic run to run")
     return {"flash_dq": abs_errs[0], "flash_dkv": max(abs_errs[1:])}
+
+
+def check_split_f32(flash, bh, t, d, causal, *, rounding: bool) -> dict:
+    """B2 and B3 at bf16 in and f32 out (the flash ring's hops, on the
+    tensor cores) on one input, held not by a tolerance but by (a) and,
+    where ``rounding``, (b):
+
+    (a) the f32 dq, dk, dv rounded to bf16 (round to nearest even, as the
+        bf16 instance rounds its accumulators) equal the bf16-out kernels'
+        bit for bit (the two instances differ in the store alone), and a
+        second f32 launch is bitwise the first;
+    (b) the check-only recording instances give the same f32 results bit
+        for bit, and with the p and ds they recorded pass
+        ``tools/flash_rounding.py``'s check: fed them, the plain walks
+        reproduce the results within ``TOL_BWD[float32]`` of the largest
+        entry; each p lies within one bf16 step of the plain walk's own
+        rounded p, each ds within the bound stated there.  The records
+        are [BH, T, T], so (b) runs at small T.
+
+    Returns the claim gaps and the shares of p and ds that flipped."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    args = fb.bwd_inputs(flash, bh, t, d, bf16, causal, seed=bh * 131 + t * 7 + d + 2)
+
+    def run(out_dtype):
+        return (flash.dq_call(*args, causal=causal, out_dtype=out_dtype),
+                *flash.dkv_call(*args, causal=causal, out_dtype=out_dtype))
+
+    got, as_bf16, again = run(f32), run(bf16), run(f32)
+    torch.cuda.synchronize()
+    if any(x.dtype != f32 or x.shape != args[0].shape for x in got):
+        raise SystemExit(f"flash backward f32 out: {[(x.dtype, tuple(x.shape)) for x in got]}")
+    same = [torch.equal(a.to(bf16), b) for a, b in zip(got, as_bf16)]
+    det = all(torch.equal(a, b) for a, b in zip(got, again))
+    out = {"bitwise_bf16": all(same), "deterministic": det}
+    text = (f"  flash_dq/flash_dkv [{bh}, {t}, {d}] bf16->f32 causal={causal} (tensor cores): "
+            f"(a) rounded to bf16 == bf16 out bitwise: dq {same[0]}, dk {same[1]}, dv "
+            f"{same[2]}; second run bitwise equal: {det}")
+    if rounding:
+        dq_r, rec_q = flash.dq_record(*args, causal=causal)
+        dk_r, dv_r, rec_kv = flash.dkv_record(*args, causal=causal)
+        torch.cuda.synchronize()
+        rec_same = all(torch.equal(a, b) for a, b in zip((dq_r, dk_r, dv_r), got))
+        res = flash_rounding.check(flash, args, causal, got, rec_q, rec_kv,
+                                   tol=TOL_BWD[torch.float32])
+        out.update(recorded_bitwise=rec_same, **res)
+        text += (f"; (b) recording instances bitwise: {rec_same}; fed their p and ds, plain "
+                 f"vs kernel " + ", ".join(f"{k} {v:.3e}" for k, v in res["fed"].items())
+                 + f" (tol {TOL_BWD[torch.float32]:g}); "
+                 + "; ".join(f"{k}: p flipped {res[k]['p_flips']:.3%} (max {res[k]['p_steps']} "
+                             f"step), ds flipped {res[k]['ds_flips']:.3%} (worst gap "
+                             f"{res[k]['ds_worst_over_bound']:.3f} of its bound)"
+                             for k in ("flash_dq", "flash_dkv")))
+    log(text)
+    if not (all(same) and det):
+        raise SystemExit(f"the split pair's f32-out route fails check (a) at [{bh}, {t}, {d}]")
+    if rounding and not (out["recorded_bitwise"] and out["ok"]):
+        raise SystemExit(f"the split pair's f32-out route fails check (b) at [{bh}, {t}, {d}]: "
+                         f"recorded bitwise {out['recorded_bitwise']}, {out['failed']}")
+    return out
 
 
 def check_fused_bwd(flash, bh, t, d, dtype, causal, out_dtype=None, determinism=False) -> float:
@@ -4224,23 +4329,28 @@ SP_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "flash_fused_bwd")
 
 def time_hop_routes(flash, card: str) -> dict:
     """Each flash kernel at a ring hop's shape, bf16 in: the float32-out
-    route the hops take (the CUDA-core kernel) beside the bf16-out
-    tensor-core kernel and SDPA at float32, causal (the diagonal hop) and
-    full (the others), timed by ``tools/flash_bench.py``.  Fails unless the
-    libraries route f32 out to the CUDA cores and bf16 to the tensor
-    cores."""
+    route the hops take beside the bf16-out tensor-core kernel and SDPA at
+    float32, causal (the diagonal hop) and full (the others), timed by
+    ``tools/flash_bench.py``, each f32 route labelled as its library
+    reports it.  Fails unless the libraries route f32 out of the split pair
+    (``F32_OUT_TC``) to the tensor cores, f32 out of the forward and the
+    fused backward to the CUDA cores, and bf16 out of all four to the
+    tensor cores."""
     bf16, f32 = torch.bfloat16, torch.float32
     bh, t = LONG_BATCH * 8, LONG_T // 2
     for name in SP_KERNELS:
-        if flash.kernel_route(name, bf16, f32)[0] or not flash.kernel_route(name, bf16, bf16)[0]:
-            raise SystemExit(f"{name}: bf16 -> f32 must take the CUDA-core kernel and bf16 -> "
+        tc_f32 = name in F32_OUT_TC
+        if (flash.kernel_route(name, bf16, f32)[0] != tc_f32
+                or not flash.kernel_route(name, bf16, bf16)[0]):
+            raise SystemExit(f"{name}: bf16 -> f32 must take the "
+                             f"{'tensor-core' if tc_f32 else 'CUDA-core'} kernel and bf16 -> "
                              "bf16 the tensor-core one")
     out = fb.time_hop_routes(flash, bh, t, 128)
     for name, kinds in out.items():
         for kind, r in kinds.items():
-            log(f"  hop route {name} [{bh}, {t}, 128] bf16 {kind}: f32 out (CUDA cores) "
+            log(f"  hop route {name} [{bh}, {t}, 128] bf16 {kind}: f32 out ({r['route']}) "
                 f"{r['f32_ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s), bf16 out (tensor cores) "
-                f"{r['tc_ms']:.4f} ms ({r['f32_ms'] / r['tc_ms']:.1f}x), bound "
+                f"{r['bf16_ms']:.4f} ms ({r['f32_ms'] / r['bf16_ms']:.2f}x), bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), SDPA at f32 {r['library_ms']:.4f} ms "
                 f"[{card}]")
     return out
@@ -4281,7 +4391,8 @@ def sp_attention_gate(exp, cfg) -> dict:
     one-rank ``flash_attention`` over the whole sequence (the tensor-core
     kernels): the output within ``TOL_O[bf16]``, each gradient within
     ``TOL_BWD[bf16]`` of the largest reference entry, phase 2's
-    tolerances.  The kernel ring must launch only CUDA-core kernels."""
+    tolerances.  The kernel ring's split hops (dq, dk/dv) must all take
+    the tensor cores, its forward and fused hops the CUDA cores."""
     from distributed_tensorflow_examples_tpu_torch import ops
     from distributed_tensorflow_examples_tpu_torch.ops import attention
     from distributed_tensorflow_examples_tpu_torch.ops import flash_attention as fa
@@ -4335,11 +4446,12 @@ def sp_attention_gate(exp, cfg) -> dict:
         bwd = {"flash_fused_bwd": hops} if mode == "1" else {"flash_dq": hops, "flash_dkv": hops}
         want = {"flash_fwd": hops, **bwd}
         got = {k2: c for k2, c in ran.items() if c}
-        ok = (got == want and not any(ran_tc.values())
+        got_tc = {k2: c for k2, c in ran_tc.items() if c}
+        ok = (got == want and got_tc == {k2: c for k2, c in want.items() if k2 in F32_OUT_TC}
               and all(math.isfinite(e) for e in errs.values())
               and all(e <= (TOL_O if name.startswith("o_") else TOL_BWD)[torch.bfloat16]
                       for name, e in errs.items()))
-        out[f"fused={mode}"] = {"errors": errs, "launches": got, "ok": ok}
+        out[f"fused={mode}"] = {"errors": errs, "launches": got, "tc_launches": got_tc, "ok": ok}
     return out
 
 
@@ -4386,9 +4498,10 @@ def sp_rank(out_dir: str, runs: tuple) -> None:
 def _sp_expected(run: str, seq_index: int, layers: int) -> tuple[dict, dict]:
     """(launches, tensor-core launches) one step of ``run`` must make on
     a rank at ``seq_index``: the causal ring visits the diagonal block and
-    every earlier rank's (``seq_index + 1`` hops, CUDA-core, f32 out);
-    Ulysses runs one full-sequence flash call a layer on the tensor
-    cores."""
+    every earlier rank's (``seq_index + 1`` hops, f32 out: the split
+    pair's on the tensor cores, the forward's and the fused backward's on
+    the CUDA cores); Ulysses runs one full-sequence flash call a layer on
+    the tensor cores."""
     hops = seq_index + 1
     if run == "ring_fused":
         want = {"flash_fwd": hops, "flash_fused_bwd": hops}
@@ -4397,7 +4510,8 @@ def _sp_expected(run: str, seq_index: int, layers: int) -> tuple[dict, dict]:
     else:
         want = {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
     want = {k: n * layers for k, n in want.items()}
-    return want, (want if run == "ulysses_tp" else {})
+    return want, (want if run == "ulysses_tp" else
+                  {k: n for k, n in want.items() if k in F32_OUT_TC})
 
 
 def _sp_report(card: str, run: str, ranks: list, phase6_losses: list, layers: int) -> dict:
@@ -4477,7 +4591,8 @@ def seq_axis_end_to_end(card: str, phase6_losses: list | None = None,
                 f"vs plain ring and vs one-rank flash_attention at T {LONG_T}: "
                 + ", ".join(f"{k} {e:.3e}" for k, e in g["errors"].items())
                 + f" (tol o {TOL_O[torch.bfloat16]:g} abs, gradients "
-                f"{TOL_BWD[torch.bfloat16]:g} of the largest entry); launches {g['launches']}")
+                f"{TOL_BWD[torch.bfloat16]:g} of the largest entry); launches {g['launches']}, "
+                f"on the tensor cores {g['tc_launches']}")
             if not g["ok"]:
                 raise SystemExit(f"phase 14: the ring's attention gate failed on rank "
                                  f"{r['rank']} ({mode}): {g}")
@@ -4490,8 +4605,9 @@ def seq_axis_end_to_end(card: str, phase6_losses: list | None = None,
     hop = hop_routes
     log(f"  hop kernels (CUDA events, [{LONG_BATCH * 8}, {LONG_T // 2}, 128] bf16 in, f32 out vs "
         "bf16 out): " + "; ".join(
-            f"{k} causal {v['causal']['f32_ms']:.3f} vs {v['causal']['tc_ms']:.3f} ms, full "
-            f"{v['full']['f32_ms']:.3f} vs {v['full']['tc_ms']:.3f} ms" for k, v in hop.items())
+            f"{k} ({v['causal']['route']}) causal {v['causal']['f32_ms']:.3f} vs "
+            f"{v['causal']['bf16_ms']:.3f} ms, full {v['full']['f32_ms']:.3f} vs "
+            f"{v['full']['bf16_ms']:.3f} ms" for k, v in hop.items())
         + f" [{card}]")
     log(f"  phase 14: the 2-rank run {t2:.1f} s, the 4-rank runs "
         f"{time.perf_counter() - t0 - t2:.1f} s")
@@ -5435,6 +5551,16 @@ def main() -> int:
         check_flash_bwd(flash, 8, 1000, 64, torch.float32, True, out_dtype=torch.float32),
         check_flash_bwd(flash, 8, 1000, 32, torch.float32, False, out_dtype=torch.float32),
     ]
+    # The flash ring's hops (bf16 in, f32 out, on the tensor cores): checks
+    # (a) and (b), ending at the hop shape [LONG_BATCH * 8, LONG_T / 2, 128].
+    split_f32 = [check_split_f32(flash, 8, t, d, c, rounding=t <= 1000)
+                 for t, d in ((2048, 128), (1000, 64), (200, 32)) for c in (True, False)]
+    split_f32.append(check_split_f32(flash, LONG_BATCH * 8, LONG_T // 2, 128, True,
+                                     rounding=False))
+    flips = {k: {w: max(r[k][f"{w}_flips"] for r in split_f32 if k in r) for w in ("p", "ds")}
+             for k in ("flash_dq", "flash_dkv")}
+    log(f"  split pair, bf16 -> f32: the largest shares of flipped p and ds over the (b) "
+        f"shapes {json.dumps(flips)} [{card}]")
     # Timed by tools/flash_bench.py, at the shapes of its rows.
     bf16 = torch.bfloat16
     main_shape, train_fwd, long_fwd, _full = (
@@ -5661,6 +5787,7 @@ def main() -> int:
             + sp[name]["tc"] + moe_l[name]["total"] + sum(pp_l[name]),
             "cuda_core_launches": sp[name]["cuda_core"],
             "f32_route_at_hop_shape": hop_routes[name],
+            "f32_out_flip_shares": flips[name],
             "max_abs_err": max(e[name] for e in bwd_errs), **bwd[name],
             "tensor_core_instructions": tensor_cores[name],
         } for name, line in (("flash_dq", 211), ("flash_dkv", 244))),

@@ -114,11 +114,13 @@ def ring_attention(q, k, v, *, axis_name: str = "seq", causal: bool = False):
 # (the causal kernel); later hops are never diagonal (the non-causal
 # kernel), and under causal masking a later block is either wholly
 # visible (src < my) or wholly masked, in which case no kernel runs at
-# all.  Every partial leaves the kernel in float32 (``out_dtype``): the
-# CUDA-core route of each kernel on the card, the plain version on a CPU
-# tensor.  The backward runs the fused kernel or the split dq/dkv pair per
-# hop, with the dk/dv accumulators rotating in lockstep with their k/v
-# blocks, so every gradient arrives home after one final rotation.
+# all.  Every partial leaves the kernel in float32 (``out_dtype``); on the
+# card the split dq/dkv hops run on the tensor cores (their f32-out
+# instances), the forward and the fused backward on the CUDA cores; on a
+# CPU tensor the plain versions run.  The backward runs the fused kernel or
+# the split dq/dkv pair per hop, with the dk/dv accumulators rotating in
+# lockstep with their k/v blocks, so every gradient arrives home after one
+# final rotation.
 
 
 def _merge(o1, lse1, o2, lse2):

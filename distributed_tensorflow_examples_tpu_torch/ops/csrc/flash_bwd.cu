@@ -22,11 +22,16 @@
 // 3.35 TB/s): compute-bound, so the products have to run on the tensor
 // cores (the CUDA cores' f32 peak, 67 TFLOP/s, puts the pair at 3.6 ms).
 //
-// bf16 in and out (the training path): flash_dq_tc_kernel and
+// bf16 in, bf16 out (the training path) or f32 out (every hop of the
+// flash ring, ops/attention.py): flash_dq_tc_kernel and
 // flash_dkv_tc_kernel, the products on the tensor cores by
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate), with the helpers of
-// tc_sm90.cuh.  Rows of every shared tile are padded by 16 bytes, so
-// ldmatrix reads hit 32 distinct banks.
+// tc_sm90.cuh.  The output type is a template parameter that touches the
+// epilogue alone: the bf16 instance rounds each f32 accumulator to bf16
+// (round to nearest even), the f32 instance stores it as it is, so the f32
+// result rounded to bf16 is the bf16 result bit for bit.  Rows of every
+// shared tile are padded by 16 bytes, so ldmatrix reads hit 32 distinct
+// banks.
 // - dq, the shape of flash_fwd_tc_kernel: one block of 256 threads
 //   (8 warps) per (bh, 128-row q block); warp w owns q rows 16w..16w+15
 //   and keeps their dq (16 x D f32) in registers.  The folded q block
@@ -63,14 +68,23 @@
 //   fragments' documented register layout keeps the masks, the exp2 and
 //   the bf16 rounding of p and ds plain per-thread code.
 //
-// f32 in, or f32 out: flash_dq_kernel and flash_dkv_kernel, products on
-// the CUDA cores in f32 (64-row tiles, 4x4 register tiles a thread, f32
+// How the f32-out instances are checked.  Their sums run in another order
+// than the plain version's, which moves s and dp by ~1e-7 relative; now and
+// then a p or a ds then rounds to the other neighbouring bf16 value, which
+// moves one product term by 2^-8 of itself, more than the f32 tolerance
+// (2e-5) allows.  So the check-only instances (kRecord, D = 32 and 64;
+// dtx_flash_dq_record, dtx_flash_dkv_record) write the bf16 p and ds they
+// used, and the plain version fed those reproduces their f32 result within
+// the f32 tolerance; each recorded p and ds is held within one bf16 step
+// (plus the f32 summation bound for ds) of the plain version's own
+// (tools/flash_rounding.py).
+//
+// f32 in (any out): flash_dq_kernel and flash_dkv_kernel, products on the
+// CUDA cores in f32 (64-row tiles, 4x4 register tiles a thread, f32
 // operand tiles in shared memory: 148,736 and 165,888 bytes at D = 128).
-// No training path asks for either (ring partials and tests do), and both
-// are held to the f32 tolerance (2e-5), which only scores equal to the
-// plain version's bit for bit can meet (flash_fwd.cu says why bf16
-// tensor-core sums miss it).  Their loops: dq over k tiles up to the
-// diagonal, dk/dv over q tiles from it.
+// Only tests ask for f32 operands (the tensor cores would need TF32), and
+// both are held to the f32 tolerance.  Their loops: dq over k tiles up to
+// the diagonal, dk/dv over q tiles from it.
 //
 // Both routes: no atomics (each output row is written by exactly one
 // block, in a fixed k or q order), so the same inputs give the same bits
@@ -436,12 +450,18 @@ constexpr size_t dkv_tc_smem_bytes() {
          + 4 * size_t(kDkvBlockQ) * sizeof(float);
 }
 
-template <int D>
+// Tout: bf16 or float, the type dq is stored in (the f32 instance stores
+// the same accumulator unrounded).  kRecord: the check-only instance, which
+// also writes every (q row, key) pair's p and ds, rounded to bf16, to
+// p_rec and ds_rec [BH, T, T] (zeroed by the caller; pairs a warp skips stay
+// 0); no training or serving path launches it.
+template <int D, typename Tout, bool kRecord>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
-                   bf16* __restrict__ dq, int t, int causal, float qscale, float scale) {
+                   Tout* __restrict__ dq, bf16* __restrict__ p_rec, bf16* __restrict__ ds_rec,
+                   int t, int causal, float qscale, float scale) {
   static_assert(D % 32 == 0, "head dim must be 32, 64 or 128");
   constexpr int S = tc_stride<D>();
   constexpr int kChunks = D / 8;             // 16-byte chunks a row
@@ -569,6 +589,13 @@ flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           float p = exp2f(x - lse2[e / 2]);
           if (masked && !(x > 0.5f * kNegInf)) p = 0.f;
           s[n][e] = p * (dp[n][e] - dlt[e / 2]);
+          if constexpr (kRecord) {
+            if (row < t && kpos < t) {
+              const size_t at = (row_base + row) * static_cast<size_t>(t) + kpos;
+              p_rec[at] = __float2bfloat16_rn(p);
+              ds_rec[at] = __float2bfloat16_rn(s[n][e]);
+            }
+          }
         }
       // dq += ds.k: ds rounded to bf16 (k's precision) in registers, k
       // through ldmatrix.trans.
@@ -597,21 +624,23 @@ flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = row_a + 8 * r;
     if (row >= t) continue;
-    bf16* out = dq + base + static_cast<size_t>(row) * D;
+    Tout* out = dq + base + static_cast<size_t>(row) * D;
 #pragma unroll
     for (int n = 0; n < kQTiles; ++n)
-      *reinterpret_cast<uint32_t*>(out + n * 8 + 2 * c) =
-          dtx::pack_bf16(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+      dtx::store2(out + n * 8 + 2 * c, acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
   }
 }
 
-template <int D>
+// Tout and kRecord as for flash_dq_tc_kernel: dk and dv stored in Tout;
+// the check-only instance records the p and ds it rounded, at [bh, q row,
+// key] of p_rec and ds_rec.
+template <int D, typename Tout, bool kRecord>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int causal,
-                    float qscale) {
+                    Tout* __restrict__ dk, Tout* __restrict__ dv, bf16* __restrict__ p_rec,
+                    bf16* __restrict__ ds_rec, int t, int causal, float qscale) {
   static_assert(D % 32 == 0, "head dim must be 32, 64 or 128");
   constexpr int S = tc_stride<D>();
   // q columns of s^T and dp^T held at once: 16 at D = 128, where dk and dv
@@ -753,6 +782,13 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             if (masked && !(x > 0.5f * kNegInf)) p = 0.f;
             st[n][e] = p;
             dpt[n][e] = p * (dpt[n][e] - delta_t[qq]);
+            if constexpr (kRecord) {
+              if (qpos < t && key < t) {
+                const size_t at = (row_base + qpos) * static_cast<size_t>(t) + key;
+                p_rec[at] = __float2bfloat16_rn(p);
+                ds_rec[at] = __float2bfloat16_rn(dpt[n][e]);
+              }
+            }
           }
         // dv += p^T.do and dk += ds^T.q, p (do's precision) and ds (q's)
         // rounded to bf16 in registers.
@@ -795,10 +831,9 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const size_t off = base + static_cast<size_t>(key) * D + 2 * c;
 #pragma unroll
     for (int n = 0; n < kDTiles; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + off + n * 8) =
-          dtx::pack_bf16(dk_acc[n][2 * r] * inv_log2e, dk_acc[n][2 * r + 1] * inv_log2e);
-      *reinterpret_cast<uint32_t*>(dv + off + n * 8) =
-          dtx::pack_bf16(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+      dtx::store2(dk + off + n * 8, dk_acc[n][2 * r] * inv_log2e,
+                  dk_acc[n][2 * r + 1] * inv_log2e);
+      dtx::store2(dv + off + n * 8, dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
     }
   }
 }
@@ -821,6 +856,8 @@ struct Args {
   void *out0, *out1;
   int bh, t, causal;
   cudaStream_t stream;
+  void* p_rec = nullptr;   // the check-only instances' [BH, T, T] bf16 records
+  void* ds_rec = nullptr;
 };
 
 template <typename Tin, typename Tout, int D>
@@ -855,10 +892,10 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename Tout, bool kRecord>
 cudaError_t launch_dq_tc(const Args& a) {
   const size_t smem = dq_tc_smem_bytes<D>();
-  auto kernel = flash_dq_tc_kernel<D>;
+  auto kernel = flash_dq_tc_kernel<D, Tout, kRecord>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -867,15 +904,15 @@ cudaError_t launch_dq_tc(const Args& a) {
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(a.out0), a.t, a.causal, dtx::fold_scale<D>(),
-      static_cast<float>(dtx::rsqrt_d<D>()));
+      static_cast<Tout*>(a.out0), static_cast<bf16*>(a.p_rec), static_cast<bf16*>(a.ds_rec),
+      a.t, a.causal, dtx::fold_scale<D>(), static_cast<float>(dtx::rsqrt_d<D>()));
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename Tout, bool kRecord>
 cudaError_t launch_dkv_tc(const Args& a) {
   const size_t smem = dkv_tc_smem_bytes<D>();
-  auto kernel = flash_dkv_tc_kernel<D>;
+  auto kernel = flash_dkv_tc_kernel<D, Tout, kRecord>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -884,18 +921,29 @@ cudaError_t launch_dkv_tc(const Args& a) {
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.t, a.causal,
-      dtx::fold_scale<D>());
+      static_cast<Tout*>(a.out0), static_cast<Tout*>(a.out1), static_cast<bf16*>(a.p_rec),
+      static_cast<bf16*>(a.ds_rec), a.t, a.causal, dtx::fold_scale<D>());
   return cudaGetLastError();
 }
 
-// The tensor-core kernel at head dim d.
-template <bool kDq>
+// The tensor-core kernel at head dim d, storing Tout.
+template <bool kDq, typename Tout>
 cudaError_t launch_tc_d(const Args& a, int d) {
   switch (d) {
-    case 32: return kDq ? launch_dq_tc<32>(a) : launch_dkv_tc<32>(a);
-    case 64: return kDq ? launch_dq_tc<64>(a) : launch_dkv_tc<64>(a);
-    case 128: return kDq ? launch_dq_tc<128>(a) : launch_dkv_tc<128>(a);
+    case 32: return kDq ? launch_dq_tc<32, Tout, false>(a) : launch_dkv_tc<32, Tout, false>(a);
+    case 64: return kDq ? launch_dq_tc<64, Tout, false>(a) : launch_dkv_tc<64, Tout, false>(a);
+    case 128: return kDq ? launch_dq_tc<128, Tout, false>(a) : launch_dkv_tc<128, Tout, false>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The check-only recording instance (f32 out) at head dim d: 32 and 64,
+// the shapes its check runs at (the records are T^2 a head).
+template <bool kDq>
+cudaError_t launch_record_d(const Args& a, int d) {
+  switch (d) {
+    case 32: return kDq ? launch_dq_tc<32, float, true>(a) : launch_dkv_tc<32, float, true>(a);
+    case 64: return kDq ? launch_dq_tc<64, float, true>(a) : launch_dkv_tc<64, float, true>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -911,12 +959,14 @@ cudaError_t launch_d(const Args& a, int d) {
   }
 }
 
+// bf16 in: the tensor-core kernel, storing bf16 or f32; f32 in: the
+// CUDA-core kernel, storing f32 or bf16.
 template <bool kDq>
 int dispatch(const Args& a, int d, int in_dtype, int out_dtype) {
   if (a.bh < 1 || a.t < 1) return cudaErrorInvalidValue;
-  if (dtx::tc_route(in_dtype, out_dtype)) return launch_tc_d<kDq>(a, d);
+  if (dtx::tc_route_any_out(in_dtype, out_dtype))
+    return out_dtype == 1 ? launch_tc_d<kDq, bf16>(a, d) : launch_tc_d<kDq, float>(a, d);
   if (in_dtype == 0 && out_dtype == 0) return launch_d<kDq, float, float>(a, d);
-  if (in_dtype == 1 && out_dtype == 0) return launch_d<kDq, __nv_bfloat16, float>(a, d);
   if (in_dtype == 0 && out_dtype == 1) return launch_d<kDq, float, __nv_bfloat16>(a, d);
   return cudaErrorInvalidValue;
 }
@@ -924,21 +974,21 @@ int dispatch(const Args& a, int d, int in_dtype, int out_dtype) {
 }  // namespace
 
 // The kernel a launch with these dtype codes (0 = float32, 1 = bfloat16)
-// takes: 1, the tensor-core kernel (bf16 in and out), or 0, the CUDA-core
-// one.  tiles gets that kernel's {q rows, k rows} tile: for dq the q rows a
-// block owns and the k rows a streamed tile, for dk/dv the q rows a
-// streamed tile and the k rows a block owns.  The wrappers count
-// tensor-core launches by it; the checks hold the plain versions' tiles to
-// it.
+// takes: 1, the tensor-core kernel (bf16 in, bf16 or f32 out), or 0, the
+// CUDA-core one (f32 in).  tiles gets that kernel's {q rows, k rows} tile:
+// for dq the q rows a block owns and the k rows a streamed tile, for dk/dv
+// the q rows a streamed tile and the k rows a block owns.  The wrappers
+// count tensor-core launches by it; the checks hold the plain versions'
+// tiles to it.
 extern "C" int dtx_flash_dq_route(int in_dtype, int out_dtype, int* tiles) {
-  const int tc = dtx::tc_route(in_dtype, out_dtype);
+  const int tc = dtx::tc_route_any_out(in_dtype, out_dtype);
   tiles[0] = tc ? kDqBlockQ : kBlock;
   tiles[1] = tc ? kDqBlockK : kBlock;
   return tc;
 }
 
 extern "C" int dtx_flash_dkv_route(int in_dtype, int out_dtype, int* tiles) {
-  const int tc = dtx::tc_route(in_dtype, out_dtype);
+  const int tc = dtx::tc_route_any_out(in_dtype, out_dtype);
   tiles[0] = tc ? kDkvBlockQ : kBlock;
   tiles[1] = tc ? kDkvGroupK : kBlock;
   return tc;
@@ -964,4 +1014,32 @@ extern "C" int dtx_flash_dkv(const void* q, const void* k, const void* v,
   const Args a{q, k, v, dout, lse, delta, dk, dv, bh, t, causal,
                static_cast<cudaStream_t>(stream)};
   return dispatch<false>(a, d, in_dtype, out_dtype);
+}
+
+// The check-only instances: bf16 in, f32 out, head dim 32 or 64, the same
+// arithmetic as the f32-out tensor-core kernels, and besides every visited
+// (q row, key) pair's bf16-rounded p and ds written to p_rec and ds_rec
+// [BH, T, T] (zeroed by the caller).
+extern "C" int dtx_flash_dq_record(const void* q, const void* k, const void* v,
+                                   const void* dout, const void* lse, const void* delta,
+                                   void* dq, void* p_rec, void* ds_rec, int bh, int t, int d,
+                                   int causal, void* stream) {
+  if (bh < 1 || t < 1 || !p_rec || !ds_rec) return cudaErrorInvalidValue;
+  Args a{q, k, v, dout, lse, delta, dq, nullptr, bh, t, causal,
+         static_cast<cudaStream_t>(stream)};
+  a.p_rec = p_rec;
+  a.ds_rec = ds_rec;
+  return launch_record_d<true>(a, d);
+}
+
+extern "C" int dtx_flash_dkv_record(const void* q, const void* k, const void* v,
+                                    const void* dout, const void* lse, const void* delta,
+                                    void* dk, void* dv, void* p_rec, void* ds_rec, int bh,
+                                    int t, int d, int causal, void* stream) {
+  if (bh < 1 || t < 1 || !p_rec || !ds_rec) return cudaErrorInvalidValue;
+  Args a{q, k, v, dout, lse, delta, dk, dv, bh, t, causal,
+         static_cast<cudaStream_t>(stream)};
+  a.p_rec = p_rec;
+  a.ds_rec = ds_rec;
+  return launch_record_d<false>(a, d);
 }

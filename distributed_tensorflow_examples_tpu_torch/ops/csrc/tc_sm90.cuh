@@ -34,9 +34,16 @@ template <int D>
 __host__ __device__ constexpr int tc_stride() { return D + 8; }
 
 // Which kernel a launch takes for its dtype codes (0 = float32,
-// 1 = bfloat16): 1, the tensor-core kernel, for bf16 in and out; 0, the
-// CUDA-core kernel, for any f32 side.
+// 1 = bfloat16): 1, the tensor-core kernel, 0, the CUDA-core one.  The
+// tensor cores take bf16 operands, so f32 in always takes the CUDA cores.
+// tc_route: bf16 in and out only, for the kernels whose tensor-core
+// instance stores bf16 alone (flash_fwd.cu, flash_fused_bwd.cu).
+// tc_route_any_out: bf16 in with either output, for the split pair
+// (flash_bwd.cu), whose tensor-core instances also store f32.
 inline int tc_route(int in_dtype, int out_dtype) { return in_dtype == 1 && out_dtype == 1; }
+inline int tc_route_any_out(int in_dtype, int out_dtype) {
+  return in_dtype == 1 && (out_dtype == 0 || out_dtype == 1);
+}
 
 // 1/sqrt(D), and the q fold log2(e)/sqrt(D), in double, as the JAX
 // wrapper computes them (each rounded to f32 once by its caller).
@@ -91,6 +98,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two neighbouring outputs (an accumulator's c0, c1 or c2, c3) stored at
+// p: rounded to bf16 as pack_bf16 rounds them, or as they are in f32.
+// p must be 4-byte (bf16) or 8-byte (f32) aligned.
+__device__ __forceinline__ void store2(bf16* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
+}
+__device__ __forceinline__ void store2(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
 }
 
 // 16 bytes global -> shared, or 16 zero bytes when !valid (src must still

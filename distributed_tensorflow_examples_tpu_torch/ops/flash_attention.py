@@ -47,10 +47,14 @@ say: the forward 128-row q blocks and 64-row k tiles (``FWD_BLOCK_Q``,
 ``DQ_BLOCK_K``), dk/dv 128-row k groups and 64-row q tiles
 (``DKV_GROUP_K``, ``DKV_BLOCK_Q``), the fused backward 128-row k groups
 and 64-row q tiles (``FUSED_GROUP_K``, ``FUSED_BLOCK_Q``); each plain
-version walks its kernel's tiles in its kernel's order.  bf16 in and out
-runs every flash kernel on the tensor cores; f32 in or out runs CUDA-core
-kernels with 64-row tiles (``BLOCK``), which sum in another order (f32
-rounding apart, the same result).
+version walks its kernel's tiles in its kernel's order.  bf16 in runs the
+split pair on the tensor cores with bf16 or f32 out (f32: the flash ring's
+hops), and the forward and the fused backward with bf16 out; f32 in, and
+f32 out of the forward and the fused backward, run CUDA-core kernels with
+64-row tiles (``BLOCK``), which sum in another order (f32 rounding apart,
+the same result).  The split pair's check-only instances
+(:func:`dq_record`, :func:`dkv_record`) also return the bf16 p and ds
+they used, which the plain walks can be fed (``tools/flash_rounding.py``).
 Where the reference segments q past its VMEM cap
 (``fused_bwd_segmented``), the port runs one fused call: its dq lives in
 device memory and has no cap, and the results agree (the tests hold them).
@@ -72,8 +76,9 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
-#: Rows of one q tile and of one k/v tile of the CUDA-core kernels (any f32
-#: side), which sum in another order than the plain versions' tiles.
+#: Rows of one q tile and of one k/v tile of the CUDA-core kernels (f32 in;
+#: f32 out of the forward and the fused backward), which sum in another
+#: order than the plain versions' tiles.
 BLOCK = 64
 #: The forward's q block (8 warps of 16 rows) and k/v tile, in the kernel
 #: and the plain version: the online softmax rescales at every k tile.
@@ -84,9 +89,10 @@ FWD_BLOCK_K = 64
 #: streamed q tile, in the kernel and the plain version.
 FUSED_GROUP_K = 128
 FUSED_BLOCK_Q = 64
-#: The split backward on the tensor cores (bf16 in and out), in the kernels
-#: and the plain versions: dq's q block (8 warps of 16 rows) and streamed
-#: k/v tile; dk/dv's k group (8 warps of 16 keys) and streamed q tile.
+#: The split backward on the tensor cores (bf16 in; bf16 or f32 out), in the
+#: kernels and the plain versions: dq's q block (8 warps of 16 rows) and
+#: streamed k/v tile; dk/dv's k group (8 warps of 16 keys) and streamed q
+#: tile.
 DQ_BLOCK_Q, DQ_BLOCK_K = 128, 64
 DKV_GROUP_K, DKV_BLOCK_Q = 128, 64
 #: Head dims the kernel is instantiated for.
@@ -323,6 +329,52 @@ def dkv_call(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
     return dk, dv
 
 
+#: Head dims of the split pair's check-only recording instances: those of
+#: the shapes their check runs at (the records are T^2 a head).
+RECORD_HEAD_DIMS = (32, 64)
+
+
+def dq_record(q, k, v, do, lse, delta, *, causal: bool):
+    """``(dq, (p, ds))`` for bf16 inputs with f32 out: on a CUDA tensor the
+    dq kernel's check-only instance (the f32-out tensor-core kernel's
+    arithmetic, head dims ``RECORD_HEAD_DIMS``), which also returns the p
+    and ds [BH, T, T] ([bh, q row, key]) it rounded to bf16, 0 where no
+    warp went; on a CPU tensor the plain walk's own.  No training or
+    serving path calls it: ``tools/flash_rounding.py`` checks with it."""
+    _check_bwd(q, k, v, do, lse, delta, torch.float32)
+    if _device_of("flash_dq", q) == "cpu":
+        return _dq_walk(q, k, v, do, lse, delta, causal, DQ_BLOCK_Q, DQ_BLOCK_K, keep=True)
+    return _record_cuda("flash_dq", (q, k, v, do, lse, delta), 1, causal)
+
+
+def dkv_record(q, k, v, do, lse, delta, *, causal: bool):
+    """``(dk, dv, (p, ds))``: :func:`dq_record` for the dk/dv kernel."""
+    _check_bwd(q, k, v, do, lse, delta, torch.float32)
+    if _device_of("flash_dkv", q) == "cpu":
+        return _dkv_walk(q, k, v, do, lse, delta, causal, DKV_BLOCK_Q, DKV_GROUP_K, keep=True)
+    return _record_cuda("flash_dkv", (q, k, v, do, lse, delta), 2, causal)
+
+
+def _record_cuda(name: str, args, n_out: int, causal: bool):
+    q = args[0]
+    bh, t, d = q.shape
+    _cuda_checks(name, d, *args)
+    if q.dtype != torch.bfloat16 or d not in RECORD_HEAD_DIMS:
+        raise ValueError(f"{name} records bfloat16 inputs at head dims {RECORD_HEAD_DIMS}; "
+                         f"got {q.dtype} at {d}")
+    outs = [torch.empty(q.shape, dtype=torch.float32, device=q.device) for _ in range(n_out)]
+    rec = [torch.zeros((bh, t, t), dtype=torch.bfloat16, device=q.device) for _ in range(2)]
+    fn = getattr(_build.load("flash_bwd"), f"dtx_{name}_record")
+    fn.argtypes = [ctypes.c_void_p] * (8 + n_out) + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        err = fn(*(x.data_ptr() for x in (*args, *outs, *rec)), bh, t, d, int(bool(causal)),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(name, err, q, torch.float32)
+    _count_launch(name, q.dtype, torch.float32)
+    return (*outs, tuple(rec))
+
+
 def _bwd_operands(q, k, v, do, lse):
     """The f32 views both plain versions work on: q scaled by
     ``log2(e)/sqrt(D)`` in its own dtype (the fold), k, v, do widened, and
@@ -356,14 +408,32 @@ def dq_plain(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
     return dq.to(out_dtype or q.dtype)
 
 
-def _dq_walk(q, k, v, do, lse, delta, causal, block_q, block_k):
+def _rounded(q, given, keep):
+    """The [BH, T, T] (p, ds) buffers a walk keeps (zero where no tile
+    reaches), or None; ``given`` and ``keep`` exclude each other."""
+    if given is not None and keep:
+        raise ValueError("a walk is either fed (p, ds) or keeps its own, not both")
+    if not keep:
+        return None
+    bh, t, _d = q.shape
+    return tuple(torch.zeros((bh, t, t), dtype=q.dtype, device=q.device) for _ in range(2))
+
+
+def _dq_walk(q, k, v, do, lse, delta, causal, block_q, block_k, *, given=None, keep=False):
     """dq in f32: for each ``block_q``-row q block, a loop over
     ``block_k``-row k tiles that stops at the block's last row when
     causal.  (The tensor-core kernel's warps also skip the k tiles above
-    their own 16 rows; there p = 0, so ds = 0.)"""
+    their own 16 rows; there p = 0, so ds = 0.)
+
+    ``given``: (p, ds) [BH, T, T], [bh, q row, key], as a kernel rounded
+    them (:func:`dq_record`), used in place of the walk's own ds (dq reads
+    no p): fed a kernel's, the walk differs from it by the f32 sums' order
+    alone.  ``keep``: also return the walk's own (p, ds), each rounded to
+    the input dtype as the products take it, as ``(dq, (p, ds))``."""
     bh, t, d = q.shape
     f32 = torch.float32
     qs, kf, vf, dof, lse2 = _bwd_operands(q, k, v, do, lse)
+    kept = _rounded(q, given, keep)
     dq = torch.empty(q.shape, dtype=f32, device=q.device)
     for q0 in range(0, t, block_q):
         q1 = min(q0 + block_q, t)
@@ -371,12 +441,18 @@ def _dq_walk(q, k, v, do, lse, delta, causal, block_q, block_k):
         k_stop = q1 if causal else t  # causal: no tile above the diagonal
         for k0 in range(0, k_stop, block_k):
             k1 = min(k0 + block_k, t)
-            p = _probs(qs, kf, lse2, q0, q1, k0, k1, causal)
-            dp = dof[:, q0:q1] @ vf[:, k0:k1].transpose(1, 2)
-            ds = p * (dp - delta[:, q0:q1])
+            if given is None:
+                p = _probs(qs, kf, lse2, q0, q1, k0, k1, causal)
+                dp = dof[:, q0:q1] @ vf[:, k0:k1].transpose(1, 2)
+                ds = p * (dp - delta[:, q0:q1])
+            else:
+                ds = given[1][:, q0:q1, k0:k1].to(f32)
+            if kept:
+                kept[0][:, q0:q1, k0:k1] = p
+                kept[1][:, q0:q1, k0:k1] = ds
             acc = acc + ds.to(k.dtype).to(f32) @ kf[:, k0:k1]
         dq[:, q0:q1] = acc * (1.0 / math.sqrt(d))
-    return dq
+    return (dq, kept) if keep else dq
 
 
 def dkv_plain(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
@@ -388,13 +464,15 @@ def dkv_plain(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
     return dk.to(out_dtype or k.dtype), dv.to(out_dtype or v.dtype)
 
 
-def _dkv_walk(q, k, v, do, lse, delta, causal, block_q, group_k):
+def _dkv_walk(q, k, v, do, lse, delta, causal, block_q, group_k, *, given=None, keep=False):
     """dk and dv in f32: for each ``group_k``-row k group, a loop over
     ``block_q``-row q tiles that starts at the group's diagonal when
-    causal."""
+    causal.  ``given`` and ``keep`` as for :func:`_dq_walk` (here p feeds
+    dv and ds dk; kept: ``(dk, dv, (p, ds))``)."""
     bh, t, d = q.shape
     f32 = torch.float32
     qs, kf, vf, dof, lse2 = _bwd_operands(q, k, v, do, lse)
+    kept = _rounded(q, given, keep)
     dk = torch.empty(k.shape, dtype=f32, device=q.device)
     dv = torch.empty(v.shape, dtype=f32, device=q.device)
     for k0 in range(0, t, group_k):
@@ -404,14 +482,20 @@ def _dkv_walk(q, k, v, do, lse, delta, causal, block_q, group_k):
         q_start = k0 if causal else 0  # causal: no tile above the diagonal
         for q0 in range(q_start, t, block_q):
             q1 = min(q0 + block_q, t)
-            p = _probs(qs, kf, lse2, q0, q1, k0, k1, causal)
+            if given is None:
+                p = _probs(qs, kf, lse2, q0, q1, k0, k1, causal)
+                dp = dof[:, q0:q1] @ vf[:, k0:k1].transpose(1, 2)
+                ds = p * (dp - delta[:, q0:q1])
+            else:
+                p, ds = (x[:, q0:q1, k0:k1].to(f32) for x in given)
+            if kept:
+                kept[0][:, q0:q1, k0:k1] = p
+                kept[1][:, q0:q1, k0:k1] = ds
             dv_acc = dv_acc + p.to(do.dtype).to(f32).transpose(1, 2) @ dof[:, q0:q1]
-            dp = dof[:, q0:q1] @ vf[:, k0:k1].transpose(1, 2)
-            ds = p * (dp - delta[:, q0:q1])
             dk_acc = dk_acc + ds.to(q.dtype).to(f32).transpose(1, 2) @ qs[:, q0:q1]
         dk[:, k0:k1] = dk_acc * (1.0 / LOG2E)
         dv[:, k0:k1] = dv_acc
-    return dk, dv
+    return (dk, dv, kept) if keep else (dk, dv)
 
 
 # ----------------------------------------------------------------------------

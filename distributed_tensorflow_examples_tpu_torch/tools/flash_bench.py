@@ -9,10 +9,13 @@ timers ``chip_smoke.py``'s phase 2 runs::
 Rows (:func:`rows`): the forward (B1) at the serving, training and T 8192
 shapes and non-causal, the split backward pair (B2, B3) at the training
 shape, the fused backward (B4) at the T 8192 shape, the four float32-out
-CUDA-core routes the flash ring runs every hop through at the hop shape
+routes the flash ring runs every hop through at the hop shape
 [16, 4096, 128] bf16 in, causal (the diagonal hop) and full (the
-others), and the statistics kernels (B6, B7) at ResNet-50's stem and
-summed over its 53 BatchNorm shapes at batch 256, 224^2.  Columns: the
+others: the split pair's on the tensor cores, the forward's and the
+fused backward's on the CUDA cores), and the statistics kernels (B6, B7)
+at ResNet-50's stem and summed over its 53 BatchNorm shapes at batch
+256, 224^2.  Each flash row's route is what the built library reports it
+launches (``kernel_route``; "plain" without a card).  Columns: the
 kernel's ms (CUDA events over many launches, warm), the bound (the
 larger of the bytes each input read and each output written once over
 the memory rate and the operations over the peak rate for their type:
@@ -107,6 +110,16 @@ def flash_bound_ms(
 
 def _device() -> str:
     return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def route_of(flash, name: str, in_dtype, out_dtype) -> str:
+    """The kernel the built library of ``name`` takes for these dtypes,
+    as it reports it: "tensor cores" or "CUDA cores"; "plain" without a
+    card, where no library is built and the wrappers run the plain
+    versions."""
+    if not torch.cuda.is_available():
+        return "plain"
+    return "tensor cores" if flash.kernel_route(name, in_dtype, out_dtype)[0] else "CUDA cores"
 
 
 def _card_ms(fn, iters: int, warmup: int = 2):
@@ -208,9 +221,11 @@ def time_fused_bwd(flash, bh, t, d, dtype, causal, *, plain: bool = True) -> dic
 def time_hop_routes(flash, bh: int = 16, t: int = 4096, d: int = 128, *,
                     plain: bool = False) -> dict:
     """Each flash kernel at a ring hop's shape, bf16 in: the float32-out
-    route the hops take (its CUDA-core kernel) beside the bf16-out
-    tensor-core kernel, causal (the diagonal hop) and full (the others),
-    with SDPA (and its backward) at float32 inputs as the float32 rows'
+    route the hops take (``f32_ms``; ``route`` as :func:`route_of` reads
+    it: the split pair's tensor-core kernels, the forward's and the fused
+    backward's CUDA-core ones) beside the bf16-out tensor-core kernel
+    (``bf16_ms``), causal (the diagonal hop) and full (the others), with
+    SDPA (and its backward) at float32 inputs as the float32 rows'
     library; ``{kernel: {"causal"|"full": row}}``."""
     import torch.nn.functional as F
 
@@ -238,11 +253,14 @@ def time_hop_routes(flash, bh: int = 16, t: int = 4096, d: int = 128, *,
         sdpa_bwd_f32 = _sdpa_bwd_ms(args, bh, t, d, causal, iters=3, dtype=f32)
         for name, (call, plain_fn) in calls.items():
             work = BWD_WORK.get(name, {})
-            f32_ms = _card_ms(lambda: call(f32), iters=3, warmup=1)
-            tc_ms = _card_ms(lambda: call(bf16), iters=5, warmup=1)
+            # One count for both, so the host's share of the events' span
+            # weighs on them alike (the split pair's f32 route is as short as its bf16 one).
+            f32_ms = _card_ms(lambda: call(f32), iters=10, warmup=2)
+            bf16_ms = _card_ms(lambda: call(bf16), iters=10, warmup=2)
             bound_ms, bound_by = flash_bound_ms(bh, t, d, bf16, causal, out_dtype=f32, **work)
             out[name][kind] = dict(
-                f32_ms=f32_ms, tc_ms=tc_ms, bound_ms=bound_ms, bound_by=bound_by,
+                f32_ms=f32_ms, bf16_ms=bf16_ms, route=route_of(flash, name, bf16, f32),
+                bound_ms=bound_ms, bound_by=bound_by,
                 tflops=_tflops(flash_flops(bh, t, d, causal, work.get("products", 2)), f32_ms),
                 library_ms=sdpa_f32 if name == "flash_fwd" else sdpa_bwd_f32,
                 plain_ms=(time_ms(lambda: plain_fn(f32), iters=1, warmup=1)
@@ -394,18 +412,18 @@ def rows(flash, bn, *, plain: bool, shrink: int = 1) -> list:
         bh, t = b(bh), s(t)
         r = time_flash(flash, bh, t, 128, bf16, causal, plain=plain)
         out.append(("flash_fwd", f"[{bh}, {t}, 128] bf16 {'causal' if causal else 'full'}",
-                    "tensor cores", r, path))
+                    route_of(flash, "flash_fwd", bf16, bf16), r, path))
     bwd = time_flash_bwd(flash, b(64), s(2048), 128, bf16, True, plain=plain)
     for name in ("flash_dq", "flash_dkv"):
-        out.append((name, f"[{b(64)}, {s(2048)}, 128] bf16 causal", "tensor cores",
-                    bwd[name], 12))
+        out.append((name, f"[{b(64)}, {s(2048)}, 128] bf16 causal",
+                    route_of(flash, name, bf16, bf16), bwd[name], 12))
     fused = time_fused_bwd(flash, b(16), s(8192), 128, bf16, True, plain=plain)
-    out.append(("flash_fused_bwd", f"[{b(16)}, {s(8192)}, 128] bf16 causal", "tensor cores",
-                fused, 12))
+    out.append(("flash_fused_bwd", f"[{b(16)}, {s(8192)}, 128] bf16 causal",
+                route_of(flash, "flash_fused_bwd", bf16, bf16), fused, 12))
     hops = time_hop_routes(flash, b(16), s(4096), 128, plain=plain)
     for name in HOP_KERNELS:
         for kind, h in hops[name].items():
-            out.append((name, f"[{b(16)}, {s(4096)}, 128] bf16->f32 {kind}", "CUDA cores",
+            out.append((name, f"[{b(16)}, {s(4096)}, 128] bf16->f32 {kind}", h["route"],
                         dict(h, ms=h["f32_ms"]), None))
     bns = time_bn(bn, max(2, 256 // shrink), max(32, 224 // shrink), plain=plain)
     for name, r in bns.items():

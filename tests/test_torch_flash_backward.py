@@ -208,3 +208,123 @@ def test_bad_backward_inputs_raise():
     with pytest.raises(ValueError, match="cuda or cpu"):
         torch_flash.dkv_call(meta, meta, meta, meta, lse.to("meta"), lse.to("meta"),
                              causal=False)
+
+
+# ----------------------------------------------------------------------------
+# The split pair's f32-out route on the tensor cores: the plain walks fed
+# rounded p and ds, and the check that accounts for bf16 rounding flips
+# (tools/flash_rounding.py), on the plain versions a CPU tensor takes.
+# ----------------------------------------------------------------------------
+
+
+def _bf16_state(t, d, causal, seed):
+    q, k, v, do = _torch(_arrays((2, t, d), seed=seed), "bfloat16")
+    o, lse = torch_flash.fwd_plain(q, k, v, causal=causal)
+    return q, k, v, do, lse, torch_flash.compute_delta(do, o)
+
+
+def _steps(x, n):
+    """bf16 ``x`` moved by ``n`` bf16 steps (its bit pattern plus n)."""
+    return (x.view(torch.int16) + n).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("causal", [False, True])
+def test_walks_fed_their_own_rounded_p_and_ds_reproduce_themselves(d, causal):
+    """Fed the (p, ds) they kept, rounded to bf16 as their products take
+    them, the dq and dk/dv walks give back their own output: the operands
+    are the same values, so nothing but the feed changes."""
+    args = _bf16_state(200, d, causal, seed=300 + d + causal)
+    tq = (torch_flash.DQ_BLOCK_Q, torch_flash.DQ_BLOCK_K)
+    tkv = (torch_flash.DKV_BLOCK_Q, torch_flash.DKV_GROUP_K)
+    dq, kept_q = torch_flash._dq_walk(*args, causal, *tq, keep=True)
+    dk, dv, kept_kv = torch_flash._dkv_walk(*args, causal, *tkv, keep=True)
+    for x in (*kept_q, *kept_kv):
+        assert x.dtype == torch.bfloat16 and tuple(x.shape) == (2, 200, 200)
+    if causal:  # no pair above the diagonal holds a p
+        assert not torch.triu(kept_kv[0].float(), diagonal=1).any()
+    _close(torch_flash._dq_walk(*args, causal, *tq, given=kept_q), dq, 1e-6)
+    fed_k, fed_v = torch_flash._dkv_walk(*args, causal, *tkv, given=kept_kv)
+    _close(fed_k, dk, 1e-6)
+    _close(fed_v, dv, 1e-6)
+    with pytest.raises(ValueError, match="not both"):
+        torch_flash._dq_walk(*args, causal, *tq, given=kept_q, keep=True)
+
+
+def test_record_calls_on_the_cpu_are_the_plain_walks():
+    """``dq_record``/``dkv_record`` on CPU tensors: the plain f32-out result
+    and the walk's own rounded (p, ds), which pass the rounding check with
+    no flip."""
+    from distributed_tensorflow_examples_tpu_torch.tools import flash_rounding
+
+    args = _bf16_state(200, 32, True, seed=311)
+    dq, rec_q = torch_flash.dq_record(*args, causal=True)
+    dk, dv, rec_kv = torch_flash.dkv_record(*args, causal=True)
+    f32 = torch.float32
+    assert torch.equal(dq, torch_flash.dq_plain(*args, causal=True, out_dtype=f32))
+    for got, want in zip((dk, dv), torch_flash.dkv_plain(*args, causal=True, out_dtype=f32)):
+        assert torch.equal(got, want)
+    res = flash_rounding.check(torch_flash, args, True, (dq, dk, dv), rec_q, rec_kv)
+    assert res["ok"] and res["failed"] == []
+    assert res["fed"] == {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for name in ("flash_dq", "flash_dkv"):
+        assert res[name]["p_flips"] == res[name]["ds_flips"] == 0.0
+        assert res[name]["p_steps"] == 0 and res[name]["ds_excess"] <= 0
+
+
+def _kernel_like(args, causal, fault, d):
+    """A stand-in kernel's (dq, dk, dv) and records, with ``fault``: its
+    outputs are what the plain walks give fed its (faulty) records, so only
+    the part of the check aimed at that fault can catch it."""
+    dq, rec_q = torch_flash.dq_record(*args, causal=causal)
+    dk, dv, rec_kv = torch_flash.dkv_record(*args, causal=causal)
+    p_kv, ds_kv = (x.clone() for x in rec_kv)
+    p_q, ds_q = (x.clone() for x in rec_q)
+    live = p_kv.float().argmax()  # the largest p: a pair no mask touches
+    big = ds_q.float().abs().argmax()
+    if fault == "p_two_steps":
+        p_kv.view(-1)[live] = _steps(p_kv.view(-1)[live], 2)
+    elif fault == "ds_sign":
+        ds_q.view(-1)[big] = -ds_q.view(-1)[big]
+    elif fault == "one_step_flips":
+        p_kv.view(-1)[live] = _steps(p_kv.view(-1)[live], 1)
+        ds_kv.view(-1)[big] = _steps(ds_kv.view(-1)[big], -1)
+        ds_q.view(-1)[big] = _steps(ds_q.view(-1)[big], 1)
+    tq = (torch_flash.DQ_BLOCK_Q, torch_flash.DQ_BLOCK_K)
+    tkv = (torch_flash.DKV_BLOCK_Q, torch_flash.DKV_GROUP_K)
+    dq = torch_flash._dq_walk(*args, causal, *tq, given=(p_q, ds_q))
+    dk, dv = torch_flash._dkv_walk(*args, causal, *tkv, given=(p_kv, ds_kv))
+    if fault == "dq_scale":  # dq without its 1/sqrt(D)
+        dq = dq * d ** 0.5
+    return (dq, dk, dv), (p_q, ds_q), (p_kv, ds_kv)
+
+
+@pytest.mark.parametrize("fault,claim", [("p_two_steps", "claim 2 flash_dkv: a p"),
+                                         ("ds_sign", "claim 2 flash_dq: a ds"),
+                                         ("dq_scale", "claim 1 dq")])
+def test_rounding_check_catches_injected_faults(fault, claim):
+    """A p two bf16 steps off, one ds of the wrong sign, dq without its
+    1/sqrt(D): each fails the check, at the claim aimed at it."""
+    from distributed_tensorflow_examples_tpu_torch.tools import flash_rounding
+
+    args = _bf16_state(200, 64, True, seed=320)
+    got, rec_q, rec_kv = _kernel_like(args, True, fault, 64)
+    res = flash_rounding.check(torch_flash, args, True, got, rec_q, rec_kv)
+    assert not res["ok"]
+    assert any(f.startswith(claim) for f in res["failed"]), res["failed"]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_rounding_check_allows_one_step_flips(causal):
+    """A p and a ds one bf16 step from the plain walk's, with the outputs
+    a kernel that used them would give: what tensor-core sums do now and
+    then, so the check passes and counts the flips."""
+    from distributed_tensorflow_examples_tpu_torch.tools import flash_rounding
+
+    args = _bf16_state(200, 32, causal, seed=330 + causal)
+    got, rec_q, rec_kv = _kernel_like(args, causal, "one_step_flips", 32)
+    res = flash_rounding.check(torch_flash, args, causal, got, rec_q, rec_kv)
+    assert res["ok"], res["failed"]
+    assert res["flash_dkv"]["p_steps"] == 1 and res["flash_dkv"]["p_flips"] > 0
+    assert res["flash_dq"]["ds_flips"] > 0 and res["flash_dkv"]["ds_flips"] > 0
+    assert res["flash_dq"]["ds_worst_over_bound"] <= 1
