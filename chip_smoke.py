@@ -13,32 +13,35 @@ it fails:
    and spills (``-Xptxas -v``) and the tensor-core instructions (``HMMA``,
    ``HGMMA``) that ``cuobjdump -sass`` finds in the SASS of the four
    tensor-core kernels (``flash_fwd_tc_kernel``, ``flash_dq_tc_kernel``,
-   ``flash_dkv_tc_kernel``, ``flash_fused_bwd_tc_kernel``, one instance
-   per head dim, and for the split pair also its f32-out instances and
-   its check-only recording ones at D 32 and 64); the run fails if one of
-   those spills, has no ptxas report or none, or if ``cuobjdump`` is
-   missing.  Each flash library must also report
-   (``dtx_<kernel>_route``) the tensor-core kernel for bf16 in and out,
-   and for the split pair (``flash_dq``, ``flash_dkv``) for bf16 in and
-   f32 out too, with the tiles the plain version walks, and the CUDA-core
-   one for f32 in and for f32 out of the forward and the fused backward.
+   ``flash_dkv_tc_kernel``, ``flash_fused_bwd_tc_kernel``: each one's
+   bf16-out and f32-out instances per head dim and its check-only
+   recording ones at D 32 and 64); the run fails if one of those spills,
+   has no ptxas report or none, or if ``cuobjdump`` is missing.  Each
+   flash library must also report (``dtx_<kernel>_route``) the
+   tensor-core kernel for bf16 in with bf16 or f32 out, with the tiles the
+   plain version walks, and the CUDA-core one for f32 in.
 2. Kernels against their plain PyTorch versions on the card, at the shapes
    the main paths give them and at the edges the kernels must also take
    (ragged T, head dims 32/64, float32 in and out, non-causal), with the
    tolerances stated below; the backward kernels must also give the same
-   bits on a second run.  The split pair at bf16 in and f32 out (the flash
-   ring's hops, on the tensor cores) is held not by a tolerance but by two
-   checks (``check_split_f32``), causal and full at [8, 2048, 128],
-   [8, 1000, 64] and [8, 200, 32], and causal at the hop shape
-   [16, 4096, 128]: (a) its f32 result rounded to bf16 (round to nearest
-   even, as the bf16 instance rounds) equals the bf16-out kernel's bit for
-   bit, and a second launch is bitwise the first; (b) at T 1000 and 200
-   (the records are T^2 a head), the check-only recording instances give
-   the f32 result bit for bit and the bf16 p and ds they used; fed those,
-   the plain walks reproduce the result within ``TOL_BWD[float32]``, and
-   each recorded p lies within one bf16 step and each ds within the bound
-   that ``tools/flash_rounding.py`` states of the plain walk's own; the
-   shares of p and ds that flipped are printed.  Then each kernel, its
+   bits on a second run.  Every flash kernel at bf16 in and f32 out (the
+   flash ring's hops, on the tensor cores) is held not by a tolerance but
+   by two checks (``check_split_f32``, ``check_fwd_f32``,
+   ``check_fused_f32``), causal and full at [8, 2048, 128], [8, 1000, 64]
+   and [8, 200, 32] (the forward also full at [3, 136, 32]), causal at
+   [2, 2048, 64] (the forward and the fused backward) and causal at the
+   hop shape [16, 4096, 128]: (a) its f32 result rounded to bf16 (round to
+   nearest even, as the bf16 instance rounds) equals the bf16-out kernel's
+   bit for bit (the forward's lse too), and a second launch is bitwise the
+   first; (b) at T 2048 (D 64, BH 2), 1000 and 200 and below (the records
+   are T^2 a head), the check-only recording instances give the f32
+   result bit for bit and the bf16 p and ds (the forward: p and each
+   row's running max after every k tile) they used; fed those, the plain
+   walks reproduce the result within ``TOL_BWD[float32]`` (the forward: o
+   within ``TOL_O[float32]``, lse within ``TOL_LSE``), and each recorded p
+   lies within one bf16 step, each ds and each running max within the
+   bound that ``tools/flash_rounding.py`` states, of the plain walk's own;
+   the shares of p and ds that flipped are printed.  Then each kernel, its
    plain version and the
    PyTorch call computing the same function (``scaled_dot_product_attention``
    and its backward, timed as a yardstick only; the port never calls
@@ -357,8 +360,7 @@ it fails:
    the all-to-all, then the tensor-core flash kernels over the whole
    sequence.  (b) and (c) share one set of processes.  First, each flash
    kernel at a hop's shape [16, 4096, 128], bf16 in, timed with float32
-   out (the route every hop takes: the tensor cores for the split pair,
-   the CUDA cores for the forward and the fused backward, as the libraries
+   out (the route every hop takes: the tensor cores, as the libraries
    report) beside bf16 out (the tensor cores) and SDPA at float32, causal
    and full (``time_hop_routes``, by ``tools/flash_bench.py``).  Gates: every rank's
    steps 1-``SP_STEPS`` within ``TOL_SP_LOSS`` of phase 6's one-process
@@ -366,14 +368,13 @@ it fails:
    carry the mesh's gradients: the ring's backward, the seq mean, the
    Megatron sums), and its loss falling;
    every step's launches on each rank exactly the causal ring's (seq
-   index + 1 hops a layer; the split pair's on the tensor cores, the
-   forward's and the fused backward's on the CUDA cores) or Ulysses' (one
+   index + 1 hops a layer, every one on the tensor cores) or Ulysses' (one
    tensor-core call a layer); and, on the (a) ranks, the attention gate:
    ``ring_flash_attention`` over layer 0's q/k/v (the rank's slice) with
    fused and then split hops against the same ring with the plain
    versions and against one-rank ``flash_attention`` over the whole
-   sequence, phase 2's bf16 tolerances, the split hops' dq and dk/dv all
-   on the tensor cores (``sp_attention_gate``).  Printed
+   sequence, phase 2's bf16 tolerances, every hop on the tensor cores
+   (``sp_attention_gate``).  Printed
    per run: step ms and tokens/s, the ``seq_ring``/``seq_a2a``/model
    collectives a step (calls, MB, host ms), each rank's profiled device
    busy ms and idle share, launches a step by rank.
@@ -699,7 +700,7 @@ def _kernel_instance(mangled: str) -> str:
     kernel = re.search(r"(flash_(?:fwd|dq|dkv|fused_bwd)(?:_tc)?_kernel)I", mangled)
     d = re.search(r"Li(\d+)E", mangled)
     record = ""
-    if "_tc_kernelI" in mangled:  # bf16 in; <D> or, for the split pair, <D, Tout, kRecord>
+    if "_tc_kernelI" in mangled:  # bf16 in; <D, Tout, kRecord>
         types = "bf16->f32" if re.search(r"_tc_kernelILi\d+Ef", mangled) else "bf16->bf16"
         record = ", record" if "Lb1E" in mangled else ""
     else:
@@ -768,24 +769,18 @@ TENSOR_CORE_LIBRARIES = {
     "flash_fused_bwd": ("flash_fused_bwd",),
 }
 TENSOR_CORE_KERNELS = tuple(k for ks in TENSOR_CORE_LIBRARIES.values() for k in ks)
-#: The kernels whose f32-out route (bf16 in) runs on the tensor cores: the
-#: split pair; the forward and the fused backward store f32 from their
-#: CUDA-core kernels.
-F32_OUT_TC = ("flash_dq", "flash_dkv")
+#: The tensor-core instances each kernel holds: (types, head dims, record).
+TC_FORMS = (("bf16->bf16", (32, 64, 128), ""), ("bf16->f32", (32, 64, 128), ""),
+            ("bf16->f32", (32, 64), ", record"))
 
 
 def tc_instances(library: str) -> list[str]:
     """The tensor-core kernel instances (:func:`_kernel_instance` names)
-    library ``library`` must hold: each kernel's bf16 -> bf16 at D 32, 64
-    and 128; for the split pair also bf16 -> f32 there and the check-only
-    recording instances at D 32 and 64."""
-    out = []
-    for kernel in TENSOR_CORE_LIBRARIES[library]:
-        forms = [("bf16->bf16", (32, 64, 128), "")]
-        if kernel in F32_OUT_TC:
-            forms += [("bf16->f32", (32, 64, 128), ""), ("bf16->f32", (32, 64), ", record")]
-        out += [f"{kernel}_tc_kernel<{ty}, D={d}{rec}>" for ty, ds, rec in forms for d in ds]
-    return out
+    library ``library`` must hold: each kernel's bf16 -> bf16 and
+    bf16 -> f32 at D 32, 64 and 128, and its check-only recording
+    instances (f32 out) at D 32 and 64."""
+    return [f"{kernel}_tc_kernel<{ty}, D={d}{rec}>" for kernel in TENSOR_CORE_LIBRARIES[library]
+            for ty, ds, rec in TC_FORMS for d in ds]
 
 
 def check_build(_build, sources) -> dict:
@@ -827,13 +822,11 @@ def check_build(_build, sources) -> dict:
 
 
 def check_routes(flash) -> None:
-    """The built libraries take the tensor-core kernel for bf16 in and
-    out, and for bf16 in and f32 out where the kernel is in ``F32_OUT_TC``
-    (the split pair), with the (q rows, k rows) tiles the plain versions
+    """The built libraries take the tensor-core kernel for bf16 in with
+    bf16 or f32 out, with the (q rows, k rows) tiles the plain versions
     walk (``FWD_BLOCK_Q``/``_K``, ``DQ_BLOCK_Q``/``_K``, ``DKV_BLOCK_Q``/
-    ``DKV_GROUP_K``, ``FUSED_BLOCK_Q``/``FUSED_GROUP_K``); the CUDA-core
-    kernel with 64-row tiles (``BLOCK``) for f32 in, and for f32 out of the
-    forward and the fused backward."""
+    ``DKV_GROUP_K``, ``FUSED_BLOCK_Q``/``FUSED_GROUP_K``), and the
+    CUDA-core kernel with 64-row tiles (``BLOCK``) for f32 in."""
     bf16, f32 = torch.bfloat16, torch.float32
     tc_tiles = {
         "flash_fwd": (flash.FWD_BLOCK_Q, flash.FWD_BLOCK_K),
@@ -841,28 +834,25 @@ def check_routes(flash) -> None:
         "flash_dkv": (flash.DKV_BLOCK_Q, flash.DKV_GROUP_K),
         "flash_fused_bwd": (flash.FUSED_BLOCK_Q, flash.FUSED_GROUP_K),
     }
-    cuda_cores = (False, (flash.BLOCK, flash.BLOCK))
-    want = {(name, bf16, bf16): (True, tiles) for name, tiles in tc_tiles.items()}
-    for name in TENSOR_CORE_KERNELS:
-        want[(name, bf16, f32)] = (True, tc_tiles[name]) if name in F32_OUT_TC else cuda_cores
-        for pair in ((f32, f32), (f32, bf16)):
-            want[(name, *pair)] = cuda_cores
+    want = {}
+    for name, tiles in tc_tiles.items():
+        for out in (bf16, f32):
+            want[(name, bf16, out)] = (True, tiles)
+            want[(name, f32, out)] = (False, (flash.BLOCK, flash.BLOCK))
     for key, route in want.items():
         got = flash.kernel_route(*key)
         if got != route:
             raise SystemExit(f"{key[0]} {key[1]} -> {key[2]}: the library reports "
                              f"(tensor cores, tiles) {got}, the plain version walks {route}")
-    log("  routes: bf16 in and out -> tensor-core kernels (tiles "
+    log("  routes: bf16 in, bf16 or f32 out -> tensor-core kernels (tiles "
         + ", ".join(f"{k} {v}" for k, v in tc_tiles.items())
-        + f"); bf16 in, f32 out -> tensor-core kernels for {', '.join(F32_OUT_TC)}, CUDA-core "
-        "kernels for the others; f32 in -> CUDA-core kernels; as the plain versions walk them")
+        + "); f32 in -> CUDA-core kernels; as the plain versions walk them")
 
 
 def require_tensor_cores(path: str, launches: dict, tc_launches: dict) -> None:
     """Fails unless every launch of a kernel with a tensor-core instance
-    took that instance on ``path``: f32 in, or f32 out of the forward or
-    the fused backward, slipping onto a bf16 path would run a CUDA-core
-    kernel, ~10x slower, at the same launch count."""
+    took that instance on ``path``: f32 in slipping onto a bf16 path would
+    run a CUDA-core kernel, ~10x slower, at the same launch count."""
     for name in TENSOR_CORE_KERNELS:
         n, tc = launches.get(name, 0), tc_launches.get(name, 0)
         if tc != n:
@@ -990,6 +980,106 @@ def check_split_f32(flash, bh, t, d, causal, *, rounding: bool) -> dict:
         raise SystemExit(f"the split pair's f32-out route fails check (b) at [{bh}, {t}, {d}]: "
                          f"recorded bitwise {out['recorded_bitwise']}, {out['failed']}")
     return out
+
+
+def check_fwd_f32(flash, bh, t, d, causal, *, rounding: bool) -> dict:
+    """B1 at bf16 in and f32 out (the flash ring's forward hops, on the
+    tensor cores) on one input, held as :func:`check_split_f32` holds the
+    split pair: (a) the f32 o rounded to bf16 equals the bf16-out kernel's
+    bit for bit, its lse equals theirs bit for bit, and a second f32 launch
+    is bitwise the first; (b), where ``rounding``, the check-only
+    recording instance gives the same o and lse bit for bit, and with the
+    p and running maxima it recorded passes ``tools/flash_rounding.py``'s
+    ``check_fwd``: fed them, the plain walk reproduces o within
+    ``TOL_O[float32]`` and lse within ``TOL_LSE``; each p lies within one
+    bf16 step and each running max within its stated bound of the plain
+    walk's own.  Returns the gaps and the share of p that flipped."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device="cuda").manual_seed(bh * 7919 + t * 31 + d + 2)
+    q, k, v = (torch.randn(bh, t, d, device="cuda", dtype=f32, generator=g).to(bf16)
+               for _ in range(3))
+    got, as_bf16, again = (flash.fwd_call(q, k, v, causal=causal, out_dtype=o)
+                           for o in (f32, bf16, f32))
+    torch.cuda.synchronize()
+    if got[0].dtype != f32 or got[0].shape != q.shape:
+        raise SystemExit(f"flash_fwd f32 out: {got[0].dtype} {tuple(got[0].shape)}")
+    same = [torch.equal(got[0].to(bf16), as_bf16[0]), torch.equal(got[1], as_bf16[1])]
+    det = all(torch.equal(a, b) for a, b in zip(got, again))
+    out = {"bitwise_bf16": all(same), "deterministic": det}
+    text = (f"  flash_fwd [{bh}, {t}, {d}] bf16->f32 causal={causal} (tensor cores): (a) rounded "
+            f"to bf16 == bf16 out bitwise: o {same[0]}, lse {same[1]}; second run bitwise equal: "
+            f"{det}")
+    if rounding:
+        o_r, lse_r, rec = flash.fwd_record(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        rec_same = torch.equal(o_r, got[0]) and torch.equal(lse_r, got[1])
+        res = flash_rounding.check_fwd(flash, (q, k, v), causal, got, rec,
+                                       tol_o=TOL_O[f32], tol_lse=TOL_LSE)
+        out.update(recorded_bitwise=rec_same, **res)
+        r = res["flash_fwd"]
+        text += (f"; (b) recording instance bitwise: {rec_same}; fed its p and running maxima, "
+                 f"plain vs kernel o {res['fed']['o']:.3e} (tol {TOL_O[f32]:g}), lse "
+                 f"{res['fed']['lse']:.3e} (tol {TOL_LSE:g}); p flipped {r['p_flips']:.4%} (max "
+                 f"{r['p_steps']} step, worst gap {r['p_worst_over_bound']:.3f} of its bound), "
+                 f"running max worst gap {r['m_worst_over_bound']:.3f} of its bound")
+    log(text)
+    if not (all(same) and det):
+        raise SystemExit(f"the forward's f32-out route fails check (a) at [{bh}, {t}, {d}]")
+    if rounding and not (out["recorded_bitwise"] and out["ok"]):
+        raise SystemExit(f"the forward's f32-out route fails check (b) at [{bh}, {t}, {d}]: "
+                         f"recorded bitwise {out['recorded_bitwise']}, {out['failed']}")
+    return out
+
+
+def check_fused_f32(flash, bh, t, d, causal, *, rounding: bool) -> dict:
+    """B4 at bf16 in and f32 out (the fused flash ring's backward hops, on
+    the tensor cores) on one input, held as :func:`check_split_f32` holds
+    the split pair: (a) bitwise against the bf16-out kernel once rounded,
+    and run to run; (b), where ``rounding``, the check-only recording
+    instance bitwise the f32 kernel, and its recorded p and ds through
+    ``tools/flash_rounding.py``'s ``check_fused`` (fed: dq, dk, dv within
+    ``TOL_BWD[float32]`` of the largest entry; each p within one bf16
+    step, each ds within its stated bound of the plain walk's own)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    args = fb.bwd_inputs(flash, bh, t, d, bf16, causal, seed=bh * 131 + t * 7 + d + 3)
+    got, as_bf16, again = (flash.fused_bwd_call(*args, causal=causal, out_dtype=o)
+                           for o in (f32, bf16, f32))
+    torch.cuda.synchronize()
+    if any(x.dtype != f32 or x.shape != args[0].shape for x in got):
+        raise SystemExit(f"fused backward f32 out: {[(x.dtype, tuple(x.shape)) for x in got]}")
+    same = [torch.equal(a.to(bf16), b) for a, b in zip(got, as_bf16)]
+    det = all(torch.equal(a, b) for a, b in zip(got, again))
+    out = {"bitwise_bf16": all(same), "deterministic": det}
+    text = (f"  flash_fused_bwd [{bh}, {t}, {d}] bf16->f32 causal={causal} (tensor cores, S = "
+            f"{flash.fused_slices(bh, t)} slices): (a) rounded to bf16 == bf16 out bitwise: dq "
+            f"{same[0]}, dk {same[1]}, dv {same[2]}; second run bitwise equal: {det}")
+    if rounding:
+        *rec_got, rec = flash.fused_bwd_record(*args, causal=causal)
+        torch.cuda.synchronize()
+        rec_same = all(torch.equal(a, b) for a, b in zip(rec_got, got))
+        res = flash_rounding.check_fused(flash, args, causal, got, rec, tol=TOL_BWD[f32])
+        out.update(recorded_bitwise=rec_same, **res)
+        r = res["flash_fused_bwd"]
+        text += (f"; (b) recording instance bitwise: {rec_same}; fed its p and ds, plain vs "
+                 "kernel " + ", ".join(f"{k} {v:.3e}" for k, v in res["fed"].items())
+                 + f" (tol {TOL_BWD[f32]:g}); p flipped {r['p_flips']:.4%} (max {r['p_steps']} "
+                 f"step), ds flipped {r['ds_flips']:.4%} (worst gap "
+                 f"{r['ds_worst_over_bound']:.3f} of its bound)")
+    log(text)
+    if not (all(same) and det):
+        raise SystemExit(f"the fused backward's f32-out route fails check (a) at [{bh}, {t}, {d}]")
+    if rounding and not (out["recorded_bitwise"] and out["ok"]):
+        raise SystemExit(f"the fused backward's f32-out route fails check (b) at [{bh}, {t}, "
+                         f"{d}]: recorded bitwise {out['recorded_bitwise']}, {out['failed']}")
+    return out
+
+
+#: Where phase 2 holds the f32-out routes (bh, t, d, causal): the training
+#: shape's width and two ragged T at the recording instances' head dims,
+#: causal and full, T 2048 at D 64 (does the flip share grow with T?), and
+#: the ring's hop shape.  Check (b) runs where D has a recording instance.
+F32_CHECKS = ([(8, t, d, c) for t, d in ((2048, 128), (1000, 64), (200, 32))
+               for c in (True, False)] + [(2, 2048, 64, True)])
 
 
 def check_fused_bwd(flash, bh, t, d, dtype, causal, out_dtype=None, determinism=False) -> float:
@@ -4332,19 +4422,14 @@ def time_hop_routes(flash, card: str) -> dict:
     route the hops take beside the bf16-out tensor-core kernel and SDPA at
     float32, causal (the diagonal hop) and full (the others), timed by
     ``tools/flash_bench.py``, each f32 route labelled as its library
-    reports it.  Fails unless the libraries route f32 out of the split pair
-    (``F32_OUT_TC``) to the tensor cores, f32 out of the forward and the
-    fused backward to the CUDA cores, and bf16 out of all four to the
-    tensor cores."""
+    reports it.  Fails unless the libraries route bf16 in with f32 and with
+    bf16 out of all four to the tensor cores."""
     bf16, f32 = torch.bfloat16, torch.float32
     bh, t = LONG_BATCH * 8, LONG_T // 2
     for name in SP_KERNELS:
-        tc_f32 = name in F32_OUT_TC
-        if (flash.kernel_route(name, bf16, f32)[0] != tc_f32
-                or not flash.kernel_route(name, bf16, bf16)[0]):
-            raise SystemExit(f"{name}: bf16 -> f32 must take the "
-                             f"{'tensor-core' if tc_f32 else 'CUDA-core'} kernel and bf16 -> "
-                             "bf16 the tensor-core one")
+        if not (flash.kernel_route(name, bf16, f32)[0] and flash.kernel_route(name, bf16, bf16)[0]):
+            raise SystemExit(f"{name}: bf16 -> f32 and bf16 -> bf16 must take the tensor-core "
+                             "kernel")
     out = fb.time_hop_routes(flash, bh, t, 128)
     for name, kinds in out.items():
         for kind, r in kinds.items():
@@ -4391,8 +4476,8 @@ def sp_attention_gate(exp, cfg) -> dict:
     one-rank ``flash_attention`` over the whole sequence (the tensor-core
     kernels): the output within ``TOL_O[bf16]``, each gradient within
     ``TOL_BWD[bf16]`` of the largest reference entry, phase 2's
-    tolerances.  The kernel ring's split hops (dq, dk/dv) must all take
-    the tensor cores, its forward and fused hops the CUDA cores."""
+    tolerances.  Every hop of the kernel ring must take the tensor
+    cores."""
     from distributed_tensorflow_examples_tpu_torch import ops
     from distributed_tensorflow_examples_tpu_torch.ops import attention
     from distributed_tensorflow_examples_tpu_torch.ops import flash_attention as fa
@@ -4447,7 +4532,7 @@ def sp_attention_gate(exp, cfg) -> dict:
         want = {"flash_fwd": hops, **bwd}
         got = {k2: c for k2, c in ran.items() if c}
         got_tc = {k2: c for k2, c in ran_tc.items() if c}
-        ok = (got == want and got_tc == {k2: c for k2, c in want.items() if k2 in F32_OUT_TC}
+        ok = (got == want and got_tc == want
               and all(math.isfinite(e) for e in errs.values())
               and all(e <= (TOL_O if name.startswith("o_") else TOL_BWD)[torch.bfloat16]
                       for name, e in errs.items()))
@@ -4495,13 +4580,12 @@ def sp_rank(out_dir: str, runs: tuple) -> None:
     _rank_result(out_dir, result)
 
 
-def _sp_expected(run: str, seq_index: int, layers: int) -> tuple[dict, dict]:
-    """(launches, tensor-core launches) one step of ``run`` must make on
-    a rank at ``seq_index``: the causal ring visits the diagonal block and
-    every earlier rank's (``seq_index + 1`` hops, f32 out: the split
-    pair's on the tensor cores, the forward's and the fused backward's on
-    the CUDA cores); Ulysses runs one full-sequence flash call a layer on
-    the tensor cores."""
+def _sp_expected(run: str, seq_index: int, layers: int) -> dict:
+    """The launches one step of ``run`` must make on a rank at
+    ``seq_index``: the causal ring visits the diagonal block and
+    every earlier rank's (``seq_index + 1`` hops, f32 out); Ulysses runs
+    one full-sequence flash call a layer.  Every launch takes the tensor
+    cores."""
     hops = seq_index + 1
     if run == "ring_fused":
         want = {"flash_fwd": hops, "flash_fused_bwd": hops}
@@ -4509,9 +4593,7 @@ def _sp_expected(run: str, seq_index: int, layers: int) -> tuple[dict, dict]:
         want = {"flash_fwd": hops, "flash_dq": hops, "flash_dkv": hops}
     else:
         want = {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
-    want = {k: n * layers for k, n in want.items()}
-    return want, (want if run == "ulysses_tp" else
-                  {k: n for k, n in want.items() if k in F32_OUT_TC})
+    return {k: n * layers for k, n in want.items()}
 
 
 def _sp_report(card: str, run: str, ranks: list, phase6_losses: list, layers: int) -> dict:
@@ -4529,16 +4611,16 @@ def _sp_report(card: str, run: str, ranks: list, phase6_losses: list, layers: in
         raise SystemExit(f"phase 14 {run}: the losses do not fall, or disagree with phase "
                          f"6's one-process steps ({losses} vs {phase6_losses})")
     for r in rs:
-        want, want_tc = _sp_expected(run, r["seq"], layers)
+        want = _sp_expected(run, r["seq"], layers)
         for st in r["steps"]:
             got = {k: c for k, c in st["launches"].items() if c}
             if got != want:
                 raise SystemExit(f"phase 14 {run}: rank at seq {r['seq']} step {st['step']} "
                                  f"launched {got}, want {want} a step")
         tc = {k: c for k, c in r["tc_launches"].items() if c}
-        if tc != {k: n * SP_STEPS for k, n in want_tc.items()}:
+        if tc != {k: n * SP_STEPS for k, n in want.items()}:
             raise SystemExit(f"phase 14 {run}: tensor-core launches {tc}, want "
-                             f"{want_tc} a step")
+                             f"{want} a step")
     step_ms = float(np.median([st["ms"] for st in rs[0]["steps"][1:]]))
     tokens = LONG_BATCH * LONG_T
     log(f"  {run}: step {step_ms:.1f} ms (rank 0, median of steps 2-{SP_STEPS}, host clock to "
@@ -5536,9 +5618,7 @@ def main() -> int:
         check_flash(flash, 8, 2048, 64, torch.bfloat16, True),
         check_flash(flash, 8, 2048, 32, torch.bfloat16, True),
         check_flash(flash, 8, 1000, 64, torch.float32, True, out_dtype=torch.float32),
-        check_flash(flash, 8, 2048, 128, torch.bfloat16, True, out_dtype=torch.float32),
         check_flash(flash, LONG_BATCH * 8, LONG_T, 128, torch.bfloat16, True),
-        check_flash(flash, 3, 136, 32, torch.bfloat16, False, out_dtype=torch.float32),
     ]
     # The training path's shape: batch 8 x 8 heads = BH 64.
     train_bh = TRAIN_BATCH * 8
@@ -5553,14 +5633,20 @@ def main() -> int:
     ]
     # The flash ring's hops (bf16 in, f32 out, on the tensor cores): checks
     # (a) and (b), ending at the hop shape [LONG_BATCH * 8, LONG_T / 2, 128].
-    split_f32 = [check_split_f32(flash, 8, t, d, c, rounding=t <= 1000)
-                 for t, d in ((2048, 128), (1000, 64), (200, 32)) for c in (True, False)]
-    split_f32.append(check_split_f32(flash, LONG_BATCH * 8, LONG_T // 2, 128, True,
-                                     rounding=False))
-    flips = {k: {w: max(r[k][f"{w}_flips"] for r in split_f32 if k in r) for w in ("p", "ds")}
-             for k in ("flash_dq", "flash_dkv")}
-    log(f"  split pair, bf16 -> f32: the largest shares of flipped p and ds over the (b) "
-        f"shapes {json.dumps(flips)} [{card}]")
+    hop = (LONG_BATCH * 8, LONG_T // 2, 128, True)
+    f32_out = {
+        "flash_dq/flash_dkv": [check_split_f32(flash, *sh, rounding=sh[2] in flash.RECORD_HEAD_DIMS)
+                               for sh in (*F32_CHECKS, hop)],
+        "flash_fwd": [check_fwd_f32(flash, *sh, rounding=sh[2] in flash.RECORD_HEAD_DIMS)
+                      for sh in (*F32_CHECKS, (3, 136, 32, False), hop)],
+        "flash_fused_bwd": [check_fused_f32(flash, *sh, rounding=sh[2] in flash.RECORD_HEAD_DIMS)
+                            for sh in (*F32_CHECKS, hop)],
+    }
+    flips = {name: {w: max(r[name][f"{w}_flips"] for r in f32_out[group] if name in r)
+                    for w in (("p",) if name == "flash_fwd" else ("p", "ds"))}
+             for group in f32_out for name in group.split("/")}
+    log(f"  bf16 -> f32 of every flash kernel: the largest shares of flipped p and ds over the "
+        f"(b) shapes {json.dumps(flips)} [{card}]")
     # Timed by tools/flash_bench.py, at the shapes of its rows.
     bf16 = torch.bfloat16
     main_shape, train_fwd, long_fwd, _full = (
@@ -5579,7 +5665,6 @@ def main() -> int:
         check_fused_bwd(flash, 8, 1000, 64, torch.bfloat16, True),
         check_fused_bwd(flash, 8, 1000, 32, torch.bfloat16, False),
         check_fused_bwd(flash, 8, 1000, 64, torch.float32, True, out_dtype=torch.float32),
-        check_fused_bwd(flash, 8, 2048, 128, torch.bfloat16, True, out_dtype=torch.float32),
         check_fused_bwd(flash, 3, 320, 128, torch.bfloat16, True),
         check_fused_bwd(flash, 3, 192, 32, torch.bfloat16, False),
     ]
@@ -5769,6 +5854,7 @@ def main() -> int:
             + sp["flash_fwd"]["tc"] + moe_l["flash_fwd"]["total"] + sum(pp_l["flash_fwd"]),
             "cuda_core_launches": sp["flash_fwd"]["cuda_core"],
             "f32_route_at_hop_shape": hop_routes["flash_fwd"],
+            "f32_out_flip_shares": flips["flash_fwd"],
             "max_abs_err": max(errs), **main_shape,
             "tensor_core_instructions": tensor_cores["flash_fwd"],
             "at_shapes": {"[16, 2048, 128]": main_shape, "[64, 2048, 128]": train_fwd,
@@ -5802,6 +5888,7 @@ def main() -> int:
             + sp["flash_fused_bwd"]["tc"],
             "cuda_core_launches": sp["flash_fused_bwd"]["cuda_core"],
             "f32_route_at_hop_shape": hop_routes["flash_fused_bwd"],
+            "f32_out_flip_shares": flips["flash_fused_bwd"],
             "max_abs_err": max(fused_errs), **fused,
             "tensor_core_instructions": tensor_cores["flash_fused_bwd"],
         },

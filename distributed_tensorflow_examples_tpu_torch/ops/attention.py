@@ -115,9 +115,9 @@ def ring_attention(q, k, v, *, axis_name: str = "seq", causal: bool = False):
 # kernel), and under causal masking a later block is either wholly
 # visible (src < my) or wholly masked, in which case no kernel runs at
 # all.  Every partial leaves the kernel in float32 (``out_dtype``); on the
-# card the split dq/dkv hops run on the tensor cores (their f32-out
-# instances), the forward and the fused backward on the CUDA cores; on a
-# CPU tensor the plain versions run.  The backward runs the fused kernel or
+# card every hop runs on the tensor cores (each kernel's f32-out instance,
+# checked by ``tools/flash_rounding.py``); on a CPU tensor the plain
+# versions run.  The backward runs the fused kernel or
 # the split dq/dkv pair per hop, with the dk/dv accumulators rotating in
 # lockstep with their k/v blocks, so every gradient arrives home after one
 # final rotation.

@@ -68,15 +68,17 @@
 //   fragments' documented register layout keeps the masks, the exp2 and
 //   the bf16 rounding of p and ds plain per-thread code.
 //
-// How the f32-out instances are checked.  Their sums run in another order
-// than the plain version's, which moves s and dp by ~1e-7 relative; now and
-// then a p or a ds then rounds to the other neighbouring bf16 value, which
-// moves one product term by 2^-8 of itself, more than the f32 tolerance
-// (2e-5) allows.  So the check-only instances (kRecord, D = 32 and 64;
-// dtx_flash_dq_record, dtx_flash_dkv_record) write the bf16 p and ds they
-// used, and the plain version fed those reproduces their f32 result within
-// the f32 tolerance; each recorded p and ds is held within one bf16 step
-// (plus the f32 summation bound for ds) of the plain version's own
+// How the f32-out instances are checked (as every flash kernel's f32 out
+// is: f32 out takes the tensor cores in all four, f32 in alone the CUDA
+// cores).  Their sums run in another order than the plain version's, which
+// moves s and dp by ~1e-7 relative; now and then a p or a ds then rounds to
+// the other neighbouring bf16 value, which moves one product term by 2^-8
+// of itself, more than the f32 tolerance (2e-5) allows.  So the check-only
+// instances (kRecord, D = 32 and 64; dtx_flash_dq_record,
+// dtx_flash_dkv_record) write the bf16 p and ds they used, and the plain
+// version fed those reproduces their f32 result within the f32 tolerance;
+// each recorded p and ds is held within one bf16 step (plus the f32
+// summation bound for ds) of the plain version's own
 // (tools/flash_rounding.py).
 //
 // f32 in (any out): flash_dq_kernel and flash_dkv_kernel, products on the
@@ -964,7 +966,7 @@ cudaError_t launch_d(const Args& a, int d) {
 template <bool kDq>
 int dispatch(const Args& a, int d, int in_dtype, int out_dtype) {
   if (a.bh < 1 || a.t < 1) return cudaErrorInvalidValue;
-  if (dtx::tc_route_any_out(in_dtype, out_dtype))
+  if (dtx::tc_route(in_dtype, out_dtype))
     return out_dtype == 1 ? launch_tc_d<kDq, bf16>(a, d) : launch_tc_d<kDq, float>(a, d);
   if (in_dtype == 0 && out_dtype == 0) return launch_d<kDq, float, float>(a, d);
   if (in_dtype == 0 && out_dtype == 1) return launch_d<kDq, float, __nv_bfloat16>(a, d);
@@ -981,14 +983,14 @@ int dispatch(const Args& a, int d, int in_dtype, int out_dtype) {
 // count tensor-core launches by it; the checks hold the plain versions'
 // tiles to it.
 extern "C" int dtx_flash_dq_route(int in_dtype, int out_dtype, int* tiles) {
-  const int tc = dtx::tc_route_any_out(in_dtype, out_dtype);
+  const int tc = dtx::tc_route(in_dtype, out_dtype);
   tiles[0] = tc ? kDqBlockQ : kBlock;
   tiles[1] = tc ? kDqBlockK : kBlock;
   return tc;
 }
 
 extern "C" int dtx_flash_dkv_route(int in_dtype, int out_dtype, int* tiles) {
-  const int tc = dtx::tc_route_any_out(in_dtype, out_dtype);
+  const int tc = dtx::tc_route(in_dtype, out_dtype);
   tiles[0] = tc ? kDkvBlockQ : kBlock;
   tiles[1] = tc ? kDkvGroupK : kBlock;
   return tc;

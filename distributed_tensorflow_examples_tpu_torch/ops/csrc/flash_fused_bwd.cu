@@ -37,8 +37,13 @@
 // first k group visits every q tile its slice will ever hold, so it STORES
 // and later groups add: the workspace needs no memset.
 //
-// bf16 in and out (the training path): flash_fused_bwd_tc_kernel, the
-// products on the tensor cores.
+// bf16 in, bf16 out (the T 8192 training path) or f32 out (every hop of
+// the fused flash ring, ops/attention.py): flash_fused_bwd_tc_kernel, the
+// products on the tensor cores.  The output type is a template parameter
+// that touches the dk/dv epilogue and the reduction's store alone (the dq
+// workspace is f32 in both): the bf16 instance rounds each f32 value to
+// bf16 (round to nearest even), the f32 instance stores it as it is, so the
+// f32 result rounded to bf16 is the bf16 result bit for bit.
 // - One block of 256 threads (8 warps) per (bh, s), s in 0..S-1.  Block s
 //   owns the 128-row k GROUPS r*S + s (even rounds r) and r*S + S-1-s (odd
 //   rounds): a snake, so under a causal mask, where group j meets nq - 2j
@@ -89,15 +94,24 @@
 //   needs the elementwise work of one warpgroup to overlap the other's
 //   products, TMA and warp specialisation (ROADMAP B4).
 //
-// f32 in, or f32 out: flash_fused_bwd_kernel, products on the CUDA cores
-// in f32 with 64-row k tiles in the same snake over the same S slices.  No
-// training path asks for either (ring partials and tests do), and both are
-// held to the f32 tolerance (2e-5), which only scores equal to the plain
-// version's bit for bit can meet: bf16 tensor-core sums move s and dp by
-// ~1e-7 relative, which flips a p or a ds across a bf16 rounding boundary
-// now and then (seen: 1.7e-4 at [8, 2048, 128]; flash_fwd.cu says more).
-// The dq contribution is computed and written in chunks of 4 x 4 values a
-// thread from the ds^T and k tiles in shared memory.
+// How the f32-out instance is checked.  Its sums run in another order than
+// the plain version's, which moves s and dp by ~1e-7 relative; now and then
+// a p or a ds then rounds to the other neighbouring bf16 value, which moves
+// one product term by 2^-8 of itself (seen on the CUDA-core route's
+// predecessor: 1.7e-4 at [8, 2048, 128]), more than the f32 tolerance
+// (2e-5) allows.  So the check-only instance (kRecord, D = 32 and 64;
+// dtx_flash_fused_bwd_record) writes the bf16 p (which feeds dv) and ds
+// (which feeds dk and dq) it used, and the plain version fed those
+// reproduces its f32 dq, dk and dv within the f32 tolerance; each recorded
+// p is held within one bf16 step and each ds within its stated bound of the
+// plain version's own (tools/flash_rounding.py).
+//
+// f32 in (any out): flash_fused_bwd_kernel, products on the CUDA cores in
+// f32 with 64-row k tiles in the same snake over the same S slices.  Only
+// tests ask for f32 operands (the tensor cores would need TF32), held to
+// the f32 tolerance (2e-5).  The dq contribution is computed and written in
+// chunks of 4 x 4 values a thread from the ds^T and k tiles in shared
+// memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -356,14 +370,20 @@ constexpr size_t tc_smem_bytes() {
          + 4 * size_t(kQTile) * sizeof(float);
 }
 
-template <int D>
+// Tout: bf16 or float, the type dk and dv are stored in (the f32 instance
+// stores the same accumulators unrounded).  kRecord: the check-only
+// instance, which also writes every (q row, key) pair's p and ds, rounded
+// to bf16 as they entered the products, to p_rec and ds_rec [BH, T, T] at
+// [bh, q row, key] (zeroed by the caller; pairs a warp skips stay 0); no
+// training or serving path launches it.
+template <int D, typename Tout, bool kRecord>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fused_bwd_tc_kernel(const dtx::bf16* __restrict__ q, const dtx::bf16* __restrict__ k,
                           const dtx::bf16* __restrict__ v, const dtx::bf16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          float* __restrict__ ws, dtx::bf16* __restrict__ dk,
-                          dtx::bf16* __restrict__ dv, int t, int causal, float qscale,
-                          float scale) {
+                          float* __restrict__ ws, Tout* __restrict__ dk, Tout* __restrict__ dv,
+                          dtx::bf16* __restrict__ p_rec, dtx::bf16* __restrict__ ds_rec, int t,
+                          int causal, float qscale, float scale) {
   static_assert(D % 32 == 0, "head dim must be 32, 64 or 128");
   using dtx::bf16;
   constexpr int S = tc_stride<D>();
@@ -526,6 +546,13 @@ flash_fused_bwd_tc_kernel(const dtx::bf16* __restrict__ q, const dtx::bf16* __re
               if (masked && !(x > 0.5f * kNegInf)) p = 0.f;
               st[n][e] = p;
               dpt[n][e] = p * (dpt[n][e] - delta_t[qq]);
+              if constexpr (kRecord) {  // p^T and ds^T, written at [bh, q row, key]
+                if (qpos < t && key < t) {
+                  const size_t at = (row_base + qpos) * static_cast<size_t>(t) + key;
+                  p_rec[at] = __float2bfloat16_rn(p);
+                  ds_rec[at] = __float2bfloat16_rn(dpt[n][e]);
+                }
+              }
             }
           // dv += p^T.do and dk += ds^T.q, p and ds rounded to bf16 in
           // registers; ds^T also to shared memory for the dq product.
@@ -623,10 +650,9 @@ flash_fused_bwd_tc_kernel(const dtx::bf16* __restrict__ q, const dtx::bf16* __re
       const size_t off = base + static_cast<size_t>(key) * D + 2 * c;
 #pragma unroll
       for (int n = 0; n < kDTiles; ++n) {
-        *reinterpret_cast<uint32_t*>(dk + off + n * 8) =
-            dtx::pack_bf16(dk_acc[n][2 * r2] * inv_log2e, dk_acc[n][2 * r2 + 1] * inv_log2e);
-        *reinterpret_cast<uint32_t*>(dv + off + n * 8) =
-            dtx::pack_bf16(dv_acc[n][2 * r2], dv_acc[n][2 * r2 + 1]);
+        dtx::store2(dk + off + n * 8, dk_acc[n][2 * r2] * inv_log2e,
+                    dk_acc[n][2 * r2 + 1] * inv_log2e);
+        dtx::store2(dv + off + n * 8, dv_acc[n][2 * r2], dv_acc[n][2 * r2 + 1]);
       }
     }
   }
@@ -634,9 +660,9 @@ flash_fused_bwd_tc_kernel(const dtx::bf16* __restrict__ q, const dtx::bf16* __re
 
 // dq = sum over the slices that hold each row, in the order 0..S-1, cast
 // to Tout.  A slice holds the rows from its first k tile or group on
-// (own_rows rows each: 64 for the f32 kernel, kGroup for the bf16 one) when
-// causal, all rows otherwise.  Four consecutive elements (one row,
-// D % 4 == 0) a thread.
+// (own_rows rows each: 64 for the CUDA-core kernel, kGroup for the
+// tensor-core one) when causal, all rows otherwise.  Four consecutive
+// elements (one row, D % 4 == 0) a thread.
 template <typename Tout>
 __global__ void __launch_bounds__(256)
 fused_dq_reduce_kernel(const float* __restrict__ ws, Tout* __restrict__ dq,
@@ -667,6 +693,8 @@ struct Args {
   void *dq, *dk, *dv, *ws;
   int bh, t, slices, causal;
   cudaStream_t stream;
+  void* p_rec = nullptr;   // the check-only instance's [BH, T, T] bf16 records
+  void* ds_rec = nullptr;
 };
 
 template <typename Tout, int D>
@@ -703,10 +731,10 @@ cudaError_t launch(const Args& a) {
   return launch_reduce<Tout, D>(a, kBlock);
 }
 
-template <int D>
+template <int D, typename Tout, bool kRecord>
 cudaError_t launch_tc(const Args& a) {
   const size_t smem = tc_smem_bytes<D>();
-  auto kernel = flash_fused_bwd_tc_kernel<D>;
+  auto kernel = flash_fused_bwd_tc_kernel<D, Tout, kRecord>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -715,20 +743,21 @@ cudaError_t launch_tc(const Args& a) {
       static_cast<const dtx::bf16*>(a.q), static_cast<const dtx::bf16*>(a.k),
       static_cast<const dtx::bf16*>(a.v), static_cast<const dtx::bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<float*>(a.ws), static_cast<dtx::bf16*>(a.dk),
-      static_cast<dtx::bf16*>(a.dv), a.t, a.causal,
+      static_cast<float*>(a.ws), static_cast<Tout*>(a.dk), static_cast<Tout*>(a.dv),
+      static_cast<dtx::bf16*>(a.p_rec), static_cast<dtx::bf16*>(a.ds_rec), a.t, a.causal,
       dtx::fold_scale<D>(), static_cast<float>(dtx::rsqrt_d<D>()));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_reduce<__nv_bfloat16, D>(a, kGroup);
+  return launch_reduce<Tout, D>(a, kGroup);
 }
 
-// The tensor-core kernel at head dim d.
+// The tensor-core kernel at head dim d, storing Tout.
+template <typename Tout>
 cudaError_t launch_tc_d(const Args& a, int d) {
   switch (d) {
-    case 32: return launch_tc<32>(a);
-    case 64: return launch_tc<64>(a);
-    case 128: return launch_tc<128>(a);
+    case 32: return launch_tc<32, Tout, false>(a);
+    case 64: return launch_tc<64, Tout, false>(a);
+    case 128: return launch_tc<128, Tout, false>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -744,14 +773,21 @@ cudaError_t launch_d(const Args& a, int d) {
   }
 }
 
+// Whether slices fits the kernel these dtypes take: at least 1, at most
+// the number of its k groups (bf16 in: 128 rows; f32 in: 64-row tiles).
+bool slices_fit(int t, int slices, bool tc) {
+  const int own_rows = tc ? kGroup : kBlock;
+  return slices >= 1 && slices <= (t + own_rows - 1) / own_rows;
+}
+
 }  // namespace
 
 // The kernel a launch with these dtype codes (0 = float32, 1 = bfloat16)
-// takes: 1, the tensor-core kernel (bf16 in and out), or 0, the CUDA-core
-// one.  tiles gets that kernel's {q rows a visit, k rows a block owns at
-// once}: the k rows are also what a workspace slice's first group covers.
-// The wrapper counts tensor-core launches by it; the checks hold the
-// plain version's tiles to it.
+// takes: 1, the tensor-core kernel (bf16 in, bf16 or f32 out), or 0, the
+// CUDA-core one (f32 in).  tiles gets that kernel's {q rows a visit, k rows
+// a block owns at once}: the k rows are also what a workspace slice's first
+// group covers.  The wrapper counts tensor-core launches by it; the checks
+// hold the plain version's tiles to it.
 extern "C" int dtx_flash_fused_bwd_route(int in_dtype, int out_dtype, int* tiles) {
   const int tc = dtx::tc_route(in_dtype, out_dtype);
   tiles[0] = tc ? kQTile : kBlock;
@@ -762,24 +798,43 @@ extern "C" int dtx_flash_fused_bwd_route(int in_dtype, int out_dtype, int* tiles
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and do share in_dtype;
 // dq, dk and dv share out_dtype).  ws is an f32 [slices, bh, t, d]
 // workspace the caller allocates; it needs no initial value.  slices is at
-// most the number of k groups (bf16 in and out: 128 rows; otherwise
-// 64-row tiles).  bf16 operands must be 16-byte aligned (the wrapper
-// checks).  Returns the launches' cudaError_t (0 = success); the caller
-// raises on anything else.
+// most the number of k groups (bf16 in: 128 rows; f32 in: 64-row tiles).
+// bf16 operands must be 16-byte aligned (the wrapper checks).  Returns the
+// launches' cudaError_t (0 = success); the caller raises on anything else.
 extern "C" int dtx_flash_fused_bwd(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
                                    void* dq, void* dk, void* dv, void* ws, int bh, int t,
                                    int d, int slices, int in_dtype, int out_dtype,
                                    int causal, void* stream) {
   const bool tc = dtx::tc_route(in_dtype, out_dtype);
-  const int own_rows = tc ? kGroup : kBlock;
-  if (bh < 1 || t < 1 || slices < 1 || slices > (t + own_rows - 1) / own_rows)
-    return cudaErrorInvalidValue;
+  if (bh < 1 || t < 1 || !slices_fit(t, slices, tc)) return cudaErrorInvalidValue;
   const Args a{q, k, v, dout, lse, delta, dq, dk, dv, ws, bh, t, slices, causal,
                static_cast<cudaStream_t>(stream)};
-  if (tc) return launch_tc_d(a, d);
+  if (tc) return out_dtype == 1 ? launch_tc_d<dtx::bf16>(a, d) : launch_tc_d<float>(a, d);
   if (in_dtype == 0 && out_dtype == 0) return launch_d<float, float>(a, d);
-  if (in_dtype == 1 && out_dtype == 0) return launch_d<__nv_bfloat16, float>(a, d);
   if (in_dtype == 0 && out_dtype == 1) return launch_d<float, __nv_bfloat16>(a, d);
   return cudaErrorInvalidValue;
+}
+
+// The check-only instance: bf16 in, f32 out, head dim 32 or 64 (the shapes
+// its check runs at: the records are T^2 a head), the f32-out tensor-core
+// kernel's arithmetic (the same slices and reduction), and besides every
+// visited (q row, key) pair's bf16-rounded p and ds written to p_rec and
+// ds_rec [BH, T, T] (zeroed by the caller).
+extern "C" int dtx_flash_fused_bwd_record(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* lse, const void* delta,
+                                          void* dq, void* dk, void* dv, void* ws, void* p_rec,
+                                          void* ds_rec, int bh, int t, int d, int slices,
+                                          int causal, void* stream) {
+  if (bh < 1 || t < 1 || !slices_fit(t, slices, true) || !p_rec || !ds_rec)
+    return cudaErrorInvalidValue;
+  Args a{q, k, v, dout, lse, delta, dq, dk, dv, ws, bh, t, slices, causal,
+         static_cast<cudaStream_t>(stream)};
+  a.p_rec = p_rec;
+  a.ds_rec = ds_rec;
+  switch (d) {
+    case 32: return launch_tc<32, float, true>(a);
+    case 64: return launch_tc<64, float, true>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -17,8 +17,13 @@
 // compute-bound, and only the tensor cores reach that rate (the CUDA
 // cores' f32 peak, 67 TFLOP/s, puts the same work at 0.26 ms).
 //
-// bf16 in and out (every serving and training path): flash_fwd_tc_kernel,
-// the products on the tensor cores.
+// bf16 in (every serving and training path with bf16 out; every hop of the
+// flash ring, ops/attention.py, with f32 out): flash_fwd_tc_kernel, the
+// products on the tensor cores.  The output type is a template parameter
+// that touches the epilogue alone: the bf16 instance rounds o = acc / l to
+// bf16 (round to nearest even), the f32 instance stores it as it is, so the
+// f32 result rounded to bf16 is the bf16 result bit for bit; lse is the
+// same expression in both.
 // - A block of 256 threads (8 warps) per (bh, 128-row q block); warp w owns
 //   q rows 16w..16w+15.  The q block is loaded once, folded (x the scale,
 //   rounded to bf16, exactly as the f32 kernel and the JAX fold round it)
@@ -51,16 +56,22 @@
 //   tile's products, swizzled TMA tiles and warp specialisation (ROADMAP
 //   B1).
 //
-// f32 in, or f32 out: flash_fwd_kernel, products on the CUDA cores in f32
-// (4x4 register tiles from f32 shared memory), 64x64 tiles.  No training
-// or serving path asks for either (ring partials and tests do), and both
-// are held to the f32 tolerance (1e-4 on o), which only scores equal to
-// the plain version's bit for bit can meet: TF32 products would miss it
-// outright, and bf16 tensor-core sums, whose order differs from a
-// sequential f32 one, move s by ~1e-7 relative, enough to flip a p across
-// a bf16 rounding boundary now and then, and each flip moves o by 2^-8 of
-// that term (up to ~5e-4 at [8, 2048, 128]).  The CUDA-core kernel's
-// sequential f32 sums give the plain version's s.
+// How the f32-out instance is checked.  Its sums run in another order than
+// the plain version's (bf16 tensor-core products, f32 accumulate), which
+// moves s by ~1e-7 relative; now and then a p then rounds to the other
+// neighbouring bf16 value before p.v, which moves o by 2^-8 of that term
+// (up to ~5e-4 at [8, 2048, 128]), more than the f32 tolerance (1e-4)
+// allows.  So the check-only instance (kRecord, D = 32 and 64;
+// dtx_flash_fwd_record) writes the bf16 p that entered p.v and the running
+// max m after every k tile, and the plain version fed those reproduces its
+// o and lse within the f32 tolerances; each recorded p is held within one
+// bf16 step, and each recorded m within the scores' summation bound, of the
+// plain version's own (tools/flash_rounding.py).
+//
+// f32 in (any out): flash_fwd_kernel, products on the CUDA cores in f32
+// (4x4 register tiles from f32 shared memory), 64x64 tiles.  Only tests ask
+// for f32 operands (the tensor cores would need TF32, which misses the f32
+// tolerance outright); its sequential f32 sums give the plain version's s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -278,11 +289,19 @@ constexpr size_t tc_smem_bytes() {
   return (size_t(kTcBlockQ) + 4 * size_t(kTcBlockK)) * tc_stride<D>() * sizeof(dtx::bf16);
 }
 
-template <int D>
+// Tout: bf16 or float, the type o is stored in (the f32 instance stores
+// the same acc / l unrounded).  kRecord: the check-only instance, which also
+// writes every (q row, key) pair's p as it entered p.v (rounded to bf16) to
+// p_rec [BH, T, T], and each row's running max after every k tile to m_rec
+// [BH, T, ceil(T / kTcBlockK)] (both zeroed by the caller; pairs a warp
+// skips stay 0, and a tile a warp skips records its unchanged max); no
+// training or serving path launches it.
+template <int D, typename Tout, bool kRecord>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_tc_kernel(const dtx::bf16* __restrict__ q, const dtx::bf16* __restrict__ k,
-                    const dtx::bf16* __restrict__ v, dtx::bf16* __restrict__ o,
-                    float* __restrict__ lse, int t, int causal, float qscale) {
+                    const dtx::bf16* __restrict__ v, Tout* __restrict__ o,
+                    float* __restrict__ lse, dtx::bf16* __restrict__ p_rec,
+                    float* __restrict__ m_rec, int t, int causal, float qscale) {
   static_assert(D % 32 == 0, "head dim must be 32, 64 or 128");
   using dtx::bf16;
   constexpr int S = tc_stride<D>();
@@ -418,6 +437,11 @@ flash_fwd_tc_kernel(const dtx::bf16* __restrict__ q, const dtx::bf16* __restrict
           if (masked && !(x > 0.5f * kNegInf)) p = 0.f;  // fully masked rows add 0
           sum[e / 2] += p;
           s[n][e] = p;
+          if constexpr (kRecord) {
+            const int row = row_a + 8 * (e / 2), kpos = k0 + n * 8 + 2 * c + (e & 1);
+            if (row < t && kpos < t)
+              p_rec[(static_cast<size_t>(bh) * t + row) * t + kpos] = __float2bfloat16_rn(p);
+          }
         }
 #pragma unroll
       for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + sum[r];
@@ -447,6 +471,14 @@ flash_fwd_tc_kernel(const dtx::bf16* __restrict__ q, const dtx::bf16* __restrict
         }
       }
     }
+    if constexpr (kRecord) {
+      // Each row's max after tile j, also where this warp skipped it.
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_a + 8 * r;
+        if (c == 0 && row < t) m_rec[(static_cast<size_t>(bh) * t + row) * nk + j] = m_r[r];
+      }
+    }
     __syncthreads();  // every warp is done with stage j & 1 before it refills
   }
 
@@ -460,34 +492,43 @@ flash_fwd_tc_kernel(const dtx::bf16* __restrict__ q, const dtx::bf16* __restrict
     const int row = row_a + 8 * r;
     if (row >= t) continue;
     const float l = fmaxf(l_r[r], 1e-30f);
-    bf16* orow = o + base + static_cast<size_t>(row) * D;
+    Tout* orow = o + base + static_cast<size_t>(row) * D;
 #pragma unroll
     for (int n = 0; n < kOTiles; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * c) =
-          dtx::pack_bf16(acc[n][2 * r] / l, acc[n][2 * r + 1] / l);
+      dtx::store2(orow + n * 8 + 2 * c, acc[n][2 * r] / l, acc[n][2 * r + 1] / l);
     if (c == 0) lse[static_cast<size_t>(bh) * t + row] = m_r[r] * kLn2 + logf(l);
   }
 }
 
-template <int D>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                      int t, int causal, cudaStream_t stream) {
+// The operands of one launch; p_rec and m_rec only for the check-only
+// instance.
+struct Args {
+  const void *q, *k, *v;
+  void *o, *lse;
+  int bh, t, causal;
+  cudaStream_t stream;
+  void* p_rec = nullptr;
+  void* m_rec = nullptr;
+};
+
+template <int D, typename Tout, bool kRecord>
+cudaError_t launch_tc(const Args& a) {
   const size_t smem = tc_smem_bytes<D>();
-  auto kernel = flash_fwd_tc_kernel<D>;
+  auto kernel = flash_fwd_tc_kernel<D, Tout, kRecord>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (t + kTcBlockQ - 1) / kTcBlockQ);
-  kernel<<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const dtx::bf16*>(q), static_cast<const dtx::bf16*>(k),
-      static_cast<const dtx::bf16*>(v), static_cast<dtx::bf16*>(o), static_cast<float*>(lse), t,
-      causal, dtx::fold_scale<D>());
+  const dim3 grid(a.bh, (a.t + kTcBlockQ - 1) / kTcBlockQ);
+  kernel<<<grid, kTcThreads, smem, a.stream>>>(
+      static_cast<const dtx::bf16*>(a.q), static_cast<const dtx::bf16*>(a.k),
+      static_cast<const dtx::bf16*>(a.v), static_cast<Tout*>(a.o), static_cast<float*>(a.lse),
+      static_cast<dtx::bf16*>(a.p_rec), static_cast<float*>(a.m_rec), a.t, a.causal,
+      dtx::fold_scale<D>());
   return cudaGetLastError();
 }
 
 template <typename Tin, typename Tout, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
-                   int bh, int t, int causal, cudaStream_t stream) {
+cudaError_t launch(const Args& a) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   auto kernel = flash_fwd_kernel<Tin, Tout, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -496,32 +537,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (t + kBlockQ - 1) / kBlockQ);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const Tin*>(q), static_cast<const Tin*>(k), static_cast<const Tin*>(v),
-      static_cast<Tout*>(o), static_cast<float*>(lse), t, causal, dtx::fold_scale<D>());
+  const dim3 grid(a.bh, (a.t + kBlockQ - 1) / kBlockQ);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const Tin*>(a.q), static_cast<const Tin*>(a.k), static_cast<const Tin*>(a.v),
+      static_cast<Tout*>(a.o), static_cast<float*>(a.lse), a.t, a.causal,
+      dtx::fold_scale<D>());
   return cudaGetLastError();
 }
 
-// The tensor-core kernel at head dim d.
-cudaError_t launch_tc_d(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                        int t, int d, int causal, cudaStream_t stream) {
+// The tensor-core kernel at head dim d, storing Tout.
+template <typename Tout>
+cudaError_t launch_tc_d(const Args& a, int d) {
   switch (d) {
-    case 32: return launch_tc<32>(q, k, v, o, lse, bh, t, causal, stream);
-    case 64: return launch_tc<64>(q, k, v, o, lse, bh, t, causal, stream);
-    case 128: return launch_tc<128>(q, k, v, o, lse, bh, t, causal, stream);
+    case 32: return launch_tc<32, Tout, false>(a);
+    case 64: return launch_tc<64, Tout, false>(a);
+    case 128: return launch_tc<128, Tout, false>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // The CUDA-core kernel at head dim d.
 template <typename Tin, typename Tout>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
-                     int bh, int t, int d, int causal, cudaStream_t stream) {
+cudaError_t launch_d(const Args& a, int d) {
   switch (d) {
-    case 32: return launch<Tin, Tout, 32>(q, k, v, o, lse, bh, t, causal, stream);
-    case 64: return launch<Tin, Tout, 64>(q, k, v, o, lse, bh, t, causal, stream);
-    case 128: return launch<Tin, Tout, 128>(q, k, v, o, lse, bh, t, causal, stream);
+    case 32: return launch<Tin, Tout, 32>(a);
+    case 64: return launch<Tin, Tout, 64>(a);
+    case 128: return launch<Tin, Tout, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -529,10 +570,10 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, void*
 }  // namespace
 
 // The kernel a launch with these dtype codes (0 = float32, 1 = bfloat16)
-// takes: 1, the tensor-core kernel (bf16 in and out), or 0, the CUDA-core
-// one.  tiles gets that kernel's {q rows a block, k rows a tile}.  The
-// wrapper counts tensor-core launches by it; the checks hold the plain
-// version's tiles to it.
+// takes: 1, the tensor-core kernel (bf16 in, bf16 or f32 out), or 0, the
+// CUDA-core one (f32 in).  tiles gets that kernel's {q rows a block, k rows
+// a tile}.  The wrapper counts tensor-core launches by it; the checks hold
+// the plain version's tiles to it.
 extern "C" int dtx_flash_fwd_route(int in_dtype, int out_dtype, int* tiles) {
   const int tc = dtx::tc_route(in_dtype, out_dtype);
   tiles[0] = tc ? kTcBlockQ : kBlockQ;
@@ -547,14 +588,30 @@ extern "C" int dtx_flash_fwd(const void* q, const void* k, const void* v, void* 
                              void* lse, int bh, int t, int d, int in_dtype,
                              int out_dtype, int causal, void* stream) {
   if (bh < 1 || t < 1) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{q, k, v, o, lse, bh, t, causal, static_cast<cudaStream_t>(stream)};
   if (dtx::tc_route(in_dtype, out_dtype))
-    return launch_tc_d(q, k, v, o, lse, bh, t, d, causal, s);
-  if (in_dtype == 0 && out_dtype == 0)
-    return launch_d<float, float>(q, k, v, o, lse, bh, t, d, causal, s);
-  if (in_dtype == 1 && out_dtype == 0)
-    return launch_d<__nv_bfloat16, float>(q, k, v, o, lse, bh, t, d, causal, s);
-  if (in_dtype == 0 && out_dtype == 1)
-    return launch_d<float, __nv_bfloat16>(q, k, v, o, lse, bh, t, d, causal, s);
+    return out_dtype == 1 ? launch_tc_d<dtx::bf16>(a, d) : launch_tc_d<float>(a, d);
+  if (in_dtype == 0 && out_dtype == 0) return launch_d<float, float>(a, d);
+  if (in_dtype == 0 && out_dtype == 1) return launch_d<float, __nv_bfloat16>(a, d);
   return cudaErrorInvalidValue;
+}
+
+// The check-only instance: bf16 in, f32 out, head dim 32 or 64 (the shapes
+// its check runs at: the records are T^2 a head), the f32-out tensor-core
+// kernel's arithmetic, and besides every visited (q row, key) pair's p as it
+// entered p.v, rounded to bf16, written to p_rec [BH, T, T], and each row's
+// running max after every k tile to m_rec [BH, T, ceil(T / 64)] f32 (both
+// zeroed by the caller).
+extern "C" int dtx_flash_fwd_record(const void* q, const void* k, const void* v, void* o,
+                                    void* lse, void* p_rec, void* m_rec, int bh, int t, int d,
+                                    int causal, void* stream) {
+  if (bh < 1 || t < 1 || !p_rec || !m_rec) return cudaErrorInvalidValue;
+  Args a{q, k, v, o, lse, bh, t, causal, static_cast<cudaStream_t>(stream)};
+  a.p_rec = p_rec;
+  a.m_rec = m_rec;
+  switch (d) {
+    case 32: return launch_tc<32, float, true>(a);
+    case 64: return launch_tc<64, float, true>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -1,5 +1,5 @@
 // Tensor-core and asynchronous-copy building blocks shared by the bf16
-// flash kernels (flash_fwd.cu, flash_fused_bwd.cu): warp-level
+// flash kernels (flash_fwd.cu, flash_bwd.cu, flash_fused_bwd.cu): warp-level
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate), ldmatrix / ldmatrix.trans
 // from shared memory, and 16- and 4-byte cp.async with zero fill.
 //
@@ -34,14 +34,11 @@ template <int D>
 __host__ __device__ constexpr int tc_stride() { return D + 8; }
 
 // Which kernel a launch takes for its dtype codes (0 = float32,
-// 1 = bfloat16): 1, the tensor-core kernel, 0, the CUDA-core one.  The
-// tensor cores take bf16 operands, so f32 in always takes the CUDA cores.
-// tc_route: bf16 in and out only, for the kernels whose tensor-core
-// instance stores bf16 alone (flash_fwd.cu, flash_fused_bwd.cu).
-// tc_route_any_out: bf16 in with either output, for the split pair
-// (flash_bwd.cu), whose tensor-core instances also store f32.
-inline int tc_route(int in_dtype, int out_dtype) { return in_dtype == 1 && out_dtype == 1; }
-inline int tc_route_any_out(int in_dtype, int out_dtype) {
+// 1 = bfloat16): 1, the tensor-core kernel, for bf16 in with either output
+// (every flash kernel's tensor-core instances store bf16 or f32; the f32
+// ones are checked by tools/flash_rounding.py); 0, the CUDA-core kernel, for
+// f32 in (the tensor cores take bf16 operands).
+inline int tc_route(int in_dtype, int out_dtype) {
   return in_dtype == 1 && (out_dtype == 0 || out_dtype == 1);
 }
 

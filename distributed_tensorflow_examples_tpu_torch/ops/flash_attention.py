@@ -47,14 +47,15 @@ say: the forward 128-row q blocks and 64-row k tiles (``FWD_BLOCK_Q``,
 ``DQ_BLOCK_K``), dk/dv 128-row k groups and 64-row q tiles
 (``DKV_GROUP_K``, ``DKV_BLOCK_Q``), the fused backward 128-row k groups
 and 64-row q tiles (``FUSED_GROUP_K``, ``FUSED_BLOCK_Q``); each plain
-version walks its kernel's tiles in its kernel's order.  bf16 in runs the
-split pair on the tensor cores with bf16 or f32 out (f32: the flash ring's
-hops), and the forward and the fused backward with bf16 out; f32 in, and
-f32 out of the forward and the fused backward, run CUDA-core kernels with
-64-row tiles (``BLOCK``), which sum in another order (f32 rounding apart,
-the same result).  The split pair's check-only instances
-(:func:`dq_record`, :func:`dkv_record`) also return the bf16 p and ds
-they used, which the plain walks can be fed (``tools/flash_rounding.py``).
+version walks its kernel's tiles in its kernel's order.  bf16 in runs
+every flash kernel on the tensor cores, with bf16 out or f32 out (f32: the
+flash ring's hops); f32 in alone runs CUDA-core kernels with 64-row tiles
+(``BLOCK``), which sum in another order (f32 rounding apart, the same
+result).  The f32 out of bf16 inputs is checked by
+``tools/flash_rounding.py``, not by a tolerance: each kernel's check-only
+instance (:func:`fwd_record`, :func:`dq_record`, :func:`dkv_record`,
+:func:`fused_bwd_record`) also returns the bf16 p (and ds, or the
+forward's running max) it used, which the plain walks can be fed.
 Where the reference segments q past its VMEM cap
 (``fused_bwd_segmented``), the port runs one fused call: its dq lives in
 device memory and has no cap, and the results agree (the tests hold them).
@@ -76,9 +77,8 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
-#: Rows of one q tile and of one k/v tile of the CUDA-core kernels (f32 in;
-#: f32 out of the forward and the fused backward), which sum in another
-#: order than the plain versions' tiles.
+#: Rows of one q tile and of one k/v tile of the CUDA-core kernels (f32 in),
+#: which sum in another order than the plain versions' tiles.
 BLOCK = 64
 #: The forward's q block (8 warps of 16 rows) and k/v tile, in the kernel
 #: and the plain version: the online softmax rescales at every k tile.
@@ -209,15 +209,44 @@ def fwd_plain(q, k, v, *, causal: bool, out_dtype=None):
     (``FWD_BLOCK_Q``-row q blocks, ``FWD_BLOCK_K``-row k tiles up to the
     block's last row when causal, base 2, the same lse contract) — the
     reference the CPU tests hold against JAX and the card holds the kernel
-    against.  (The kernel's warps also skip the k tiles above their own
-    16 rows; for those rows such a tile is fully masked, which leaves m, l
-    and the accumulator exactly as they were.)"""
+    against (:func:`_fwd_walk`).  (The kernel's warps also skip the k tiles
+    above their own 16 rows; for those rows such a tile is fully masked,
+    which leaves m, l and the accumulator exactly as they were.)"""
     _check(q, k, v, out_dtype)
+    return _fwd_walk(q, k, v, causal, out_dtype or q.dtype)
+
+
+def _fold(q):
+    """q scaled once by ``log2(e)/sqrt(D)`` in its own dtype (the JAX
+    fold), widened to f32."""
+    return (q * torch.tensor((1.0 / math.sqrt(q.shape[-1])) * LOG2E, dtype=q.dtype)).to(
+        torch.float32)
+
+
+def _fwd_walk(q, k, v, causal, out_dtype, *, given=None, keep=False):
+    """``(o, lse)``, o in ``out_dtype``: the online softmax over
+    ``FWD_BLOCK_Q``-row q blocks and ``FWD_BLOCK_K``-row k tiles.
+
+    ``given``: (p, m) as the kernel's check-only instance recorded them
+    (:func:`fwd_record`): p [BH, T, T] ([bh, q row, key]) as it entered
+    p.v, and m [BH, T, ceil(T / FWD_BLOCK_K)], each row's running max after
+    each k tile.  Fed, the walk takes the kernel's p for p.v and the
+    kernel's m for the rescaling (p is relative to the running max, so the
+    kernel's own alpha goes with it); its l stays the f32 sum of
+    exp2(s - m) over its own scores.  It then differs from the kernel by the
+    f32 sums' order alone.  ``keep``: also return the walk's own (p, m), p
+    rounded to v's dtype as p.v takes it, as ``(o, lse, (p, m))``; both are
+    0 where no tile reaches."""
+    if given is not None and keep:
+        raise ValueError("a walk is either fed (p, m) or keeps its own, not both")
     bh, t, d = q.shape
-    out_dtype = out_dtype or q.dtype
     f32 = torch.float32
-    qs = (q * torch.tensor((1.0 / math.sqrt(d)) * LOG2E, dtype=q.dtype)).to(f32)
-    kf, vf = k.to(f32), v.to(f32)
+    qs, kf, vf = _fold(q), k.to(f32), v.to(f32)
+    kept = None
+    if keep:
+        nk = -(-t // FWD_BLOCK_K)
+        kept = (torch.zeros((bh, t, t), dtype=v.dtype, device=q.device),
+                torch.zeros((bh, t, nk), dtype=f32, device=q.device))
     o = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     lse = torch.empty((bh, t, 1), dtype=f32, device=q.device)
     for q0 in range(0, t, FWD_BLOCK_Q):
@@ -226,7 +255,7 @@ def fwd_plain(q, k, v, *, causal: bool, out_dtype=None):
         l = torch.zeros((bh, q1 - q0, 1), dtype=f32, device=q.device)
         acc = torch.zeros((bh, q1 - q0, d), dtype=f32, device=q.device)
         k_stop = q1 if causal else t  # causal: no tile above the diagonal
-        for k0 in range(0, k_stop, FWD_BLOCK_K):
+        for j, k0 in enumerate(range(0, k_stop, FWD_BLOCK_K)):
             k1 = min(k0 + FWD_BLOCK_K, t)
             s = qs[:, q0:q1] @ kf[:, k0:k1].transpose(1, 2)
             masked = causal and k1 - 1 > q0
@@ -234,18 +263,52 @@ def fwd_plain(q, k, v, *, causal: bool, out_dtype=None):
                 qpos = torch.arange(q0, q1, device=q.device)[:, None]
                 kpos = torch.arange(k0, k1, device=q.device)[None, :]
                 s = s.masked_fill(kpos > qpos, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            if given is None:
+                m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            else:
+                m_new = given[1][:, q0:q1, j:j + 1]
             p = torch.exp2(s - m_new)
             if masked:
                 p = p * (s > NEG_INF / 2)
             alpha = torch.exp2(m - m_new)
-            acc = acc * alpha + p.to(v.dtype).to(f32) @ vf[:, k0:k1]
+            pv = p.to(v.dtype) if given is None else given[0][:, q0:q1, k0:k1]
+            acc = acc * alpha + pv.to(f32) @ vf[:, k0:k1]
             l = l * alpha + p.sum(dim=-1, keepdim=True)
+            if kept:
+                kept[0][:, q0:q1, k0:k1] = p
+                kept[1][:, q0:q1, j:j + 1] = m_new
             m = m_new
         l_safe = torch.clamp(l, min=1e-30)
         o[:, q0:q1] = (acc / l_safe).to(out_dtype)
         lse[:, q0:q1] = m * LN2 + torch.log(l_safe)
-    return o, lse
+    return (o, lse, kept) if keep else (o, lse)
+
+
+#: Head dims of the check-only recording instances: those of the shapes
+#: their checks run at (the records are T^2 a head).
+RECORD_HEAD_DIMS = (32, 64)
+
+
+def fwd_record(q, k, v, *, causal: bool):
+    """``(o, lse, (p, m))`` for bf16 q, k, v with f32 out: on a CUDA tensor
+    the forward kernel's check-only instance (the f32-out tensor-core
+    kernel's arithmetic, head dims ``RECORD_HEAD_DIMS``), which also
+    returns the p [BH, T, T] ([bh, q row, key]) it rounded to bf16 for p.v
+    and each row's running max m [BH, T, ceil(T / FWD_BLOCK_K)] after each
+    k tile, 0 where no tile reaches; on a CPU tensor the plain walk's own
+    (:func:`_fwd_walk`).  No training or serving path calls it:
+    ``tools/flash_rounding.py`` checks with it."""
+    _check(q, k, v, torch.float32)
+    if _device_of("flash_fwd", q) == "cpu":
+        return _fwd_walk(q, k, v, causal, torch.float32, keep=True)
+    bh, t, _d = q.shape
+    _record_operands("flash_fwd", q, k, v)
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((bh, t, 1), dtype=torch.float32, device=q.device)
+    rec = (torch.zeros((bh, t, t), dtype=torch.bfloat16, device=q.device),
+           torch.zeros((bh, t, -(-t // FWD_BLOCK_K)), dtype=torch.float32, device=q.device))
+    _launch_record("flash_fwd", (q, k, v, o, lse, *rec), (), causal)
+    return o, lse, rec
 
 
 # ----------------------------------------------------------------------------
@@ -329,11 +392,6 @@ def dkv_call(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
     return dk, dv
 
 
-#: Head dims of the split pair's check-only recording instances: those of
-#: the shapes their check runs at (the records are T^2 a head).
-RECORD_HEAD_DIMS = (32, 64)
-
-
 def dq_record(q, k, v, do, lse, delta, *, causal: bool):
     """``(dq, (p, ds))`` for bf16 inputs with f32 out: on a CUDA tensor the
     dq kernel's check-only instance (the f32-out tensor-core kernel's
@@ -344,7 +402,7 @@ def dq_record(q, k, v, do, lse, delta, *, causal: bool):
     _check_bwd(q, k, v, do, lse, delta, torch.float32)
     if _device_of("flash_dq", q) == "cpu":
         return _dq_walk(q, k, v, do, lse, delta, causal, DQ_BLOCK_Q, DQ_BLOCK_K, keep=True)
-    return _record_cuda("flash_dq", (q, k, v, do, lse, delta), 1, causal)
+    return _record_bwd_cuda("flash_dq", (q, k, v, do, lse, delta), 1, causal)
 
 
 def dkv_record(q, k, v, do, lse, delta, *, causal: bool):
@@ -352,27 +410,43 @@ def dkv_record(q, k, v, do, lse, delta, *, causal: bool):
     _check_bwd(q, k, v, do, lse, delta, torch.float32)
     if _device_of("flash_dkv", q) == "cpu":
         return _dkv_walk(q, k, v, do, lse, delta, causal, DKV_BLOCK_Q, DKV_GROUP_K, keep=True)
-    return _record_cuda("flash_dkv", (q, k, v, do, lse, delta), 2, causal)
+    return _record_bwd_cuda("flash_dkv", (q, k, v, do, lse, delta), 2, causal)
 
 
-def _record_cuda(name: str, args, n_out: int, causal: bool):
-    q = args[0]
-    bh, t, d = q.shape
-    _cuda_checks(name, d, *args)
-    if q.dtype != torch.bfloat16 or d not in RECORD_HEAD_DIMS:
+def _record_operands(name: str, *tensors) -> None:
+    """What a check-only instance refuses beyond :func:`_cuda_checks`: any
+    input but bf16, and head dims outside ``RECORD_HEAD_DIMS``."""
+    q = tensors[0]
+    _cuda_checks(name, q.shape[-1], *tensors)
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in RECORD_HEAD_DIMS:
         raise ValueError(f"{name} records bfloat16 inputs at head dims {RECORD_HEAD_DIMS}; "
-                         f"got {q.dtype} at {d}")
-    outs = [torch.empty(q.shape, dtype=torch.float32, device=q.device) for _ in range(n_out)]
-    rec = [torch.zeros((bh, t, t), dtype=torch.bfloat16, device=q.device) for _ in range(2)]
-    fn = getattr(_build.load("flash_bwd"), f"dtx_{name}_record")
-    fn.argtypes = [ctypes.c_void_p] * (8 + n_out) + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                         f"got {q.dtype} at {q.shape[-1]}")
+
+
+def _launch_record(name: str, tensors, ints, causal: bool) -> None:
+    """Launch ``dtx_<name>_record(*tensors, bh, t, d, *ints, causal,
+    stream)`` on q's (``tensors[0]``) stream; counts the launch."""
+    q = tensors[0]
+    bh, t, d = q.shape
+    fn = getattr(_build.load(_LIBRARY.get(name, name)), f"dtx_{name}_record")
+    fn.argtypes = ([ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * (4 + len(ints))
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
-        err = fn(*(x.data_ptr() for x in (*args, *outs, *rec)), bh, t, d, int(bool(causal)),
+        err = fn(*(x.data_ptr() for x in tensors), bh, t, d, *ints, int(bool(causal)),
                  torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(name, err, q, torch.float32)
     _count_launch(name, q.dtype, torch.float32)
-    return (*outs, tuple(rec))
+
+
+def _record_bwd_cuda(name: str, args, n_out: int, causal: bool):
+    q = args[0]
+    _record_operands(name, *args)
+    bh, t, _d = q.shape
+    outs = [torch.empty(q.shape, dtype=torch.float32, device=q.device) for _ in range(n_out)]
+    rec = tuple(torch.zeros((bh, t, t), dtype=torch.bfloat16, device=q.device) for _ in range(2))
+    _launch_record(name, (*args, *outs, *rec), (), causal)
+    return (*outs, rec)
 
 
 def _bwd_operands(q, k, v, do, lse):
@@ -380,8 +454,7 @@ def _bwd_operands(q, k, v, do, lse):
     ``log2(e)/sqrt(D)`` in its own dtype (the fold), k, v, do widened, and
     the base-2 lse."""
     f32 = torch.float32
-    qs = q * torch.tensor((1.0 / math.sqrt(q.shape[-1])) * LOG2E, dtype=q.dtype)
-    return qs.to(f32), k.to(f32), v.to(f32), do.to(f32), lse * LOG2E
+    return _fold(q), k.to(f32), v.to(f32), do.to(f32), lse * LOG2E
 
 
 def _probs(qs, kf, lse2, q0, q1, k0, k1, causal):
@@ -584,17 +657,26 @@ def fused_bwd_call(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
 
 
 def fused_bwd_plain(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
-    """The fused kernel's algorithm in plain PyTorch, in its order: block s
-    of :func:`fused_slices` walks its :func:`owned_k_groups`
+    """The fused kernel's algorithm in plain PyTorch, in its order
+    (:func:`_fused_walk`)."""
+    _check_bwd(q, k, v, do, lse, delta, out_dtype)
+    return _fused_walk(q, k, v, do, lse, delta, causal, out_dtype)
+
+
+def _fused_walk(q, k, v, do, lse, delta, causal, out_dtype, *, given=None, keep=False):
+    """``(dq, dk, dv)`` in ``out_dtype`` (None: the inputs'): block s of
+    :func:`fused_slices` walks its :func:`owned_k_groups`
     (``FUSED_GROUP_K`` keys each), each over the ``FUSED_BLOCK_Q``-row q
     tiles from the group's diagonal when causal, keeping dk/dv for the
     group and adding every q tile's scaled ds.k, summed over the whole
     group, into its own f32 slice of an [S, BH, T, D] workspace; the slices
-    are then summed in order 0..S-1."""
-    _check_bwd(q, k, v, do, lse, delta, out_dtype)
+    are then summed in order 0..S-1.  ``given`` and ``keep`` as for
+    :func:`_dq_walk` (here p feeds dv, ds dk and dq; kept:
+    ``(dq, dk, dv, (p, ds))``)."""
     bh, t, d = q.shape
     f32 = torch.float32
     qs, kf, vf, dof, lse2 = _bwd_operands(q, k, v, do, lse)
+    kept = _rounded(q, given, keep)
     scale = 1.0 / math.sqrt(d)
     slices, ng = fused_slices(bh, t), -(-t // FUSED_GROUP_K)
     ws = torch.zeros((slices, bh, t, d), dtype=f32, device=q.device)
@@ -608,11 +690,17 @@ def fused_bwd_plain(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
             # causal: from the diagonal
             for q0 in range(k0 if causal else 0, t, FUSED_BLOCK_Q):
                 q1 = min(q0 + FUSED_BLOCK_Q, t)
-                p = _probs(qs, kf, lse2, q0, q1, k0, k1, causal)
+                if given is None:
+                    p = _probs(qs, kf, lse2, q0, q1, k0, k1, causal)
+                    dp = dof[:, q0:q1] @ vf[:, k0:k1].transpose(1, 2)
+                    # ds enters ds^T.q in q's dtype and ds.k in k's (the same).
+                    ds = (p * (dp - delta[:, q0:q1])).to(q.dtype).to(f32)
+                else:
+                    p, ds = (x[:, q0:q1, k0:k1].to(f32) for x in given)
+                if kept:
+                    kept[0][:, q0:q1, k0:k1] = p
+                    kept[1][:, q0:q1, k0:k1] = ds
                 dv_acc = dv_acc + p.to(do.dtype).to(f32).transpose(1, 2) @ dof[:, q0:q1]
-                dp = dof[:, q0:q1] @ vf[:, k0:k1].transpose(1, 2)
-                # ds enters ds^T.q in q's dtype and ds.k in k's (the same).
-                ds = (p * (dp - delta[:, q0:q1])).to(q.dtype).to(f32)
                 dk_acc = dk_acc + ds.transpose(1, 2) @ qs[:, q0:q1]
                 ws[s, :, q0:q1] += (ds @ kf[:, k0:k1]) * scale
             dk[:, k0:k1] = (dk_acc * (1.0 / LOG2E)).to(dk.dtype)
@@ -620,7 +708,26 @@ def fused_bwd_plain(q, k, v, do, lse, delta, *, causal: bool, out_dtype=None):
     acc = ws[0]
     for s in range(1, slices):
         acc = acc + ws[s]
-    return acc.to(out_dtype or q.dtype), dk, dv
+    dq = acc.to(out_dtype or q.dtype)
+    return (dq, dk, dv, kept) if keep else (dq, dk, dv)
+
+
+def fused_bwd_record(q, k, v, do, lse, delta, *, causal: bool):
+    """``(dq, dk, dv, (p, ds))``: :func:`dq_record` for the fused kernel
+    (p as it fed dv, ds as it fed dk and dq; the same slices and
+    reduction as :func:`fused_bwd_call`)."""
+    _check_bwd(q, k, v, do, lse, delta, torch.float32)
+    if _device_of("flash_fused_bwd", q) == "cpu":
+        return _fused_walk(q, k, v, do, lse, delta, causal, torch.float32, keep=True)
+    args = (q, k, v, do, lse, delta)
+    _record_operands("flash_fused_bwd", *args)
+    bh, t, d = q.shape
+    slices = fused_slices(bh, t)
+    outs = [torch.empty(q.shape, dtype=torch.float32, device=q.device) for _ in range(3)]
+    ws = torch.empty((slices, bh, t, d), dtype=torch.float32, device=q.device)
+    rec = tuple(torch.zeros((bh, t, t), dtype=torch.bfloat16, device=q.device) for _ in range(2))
+    _launch_record("flash_fused_bwd", (*args, *outs, ws, *rec), (slices,), causal)
+    return (*outs, rec)
 
 
 # ----------------------------------------------------------------------------

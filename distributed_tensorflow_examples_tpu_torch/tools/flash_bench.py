@@ -11,8 +11,7 @@ shapes and non-causal, the split backward pair (B2, B3) at the training
 shape, the fused backward (B4) at the T 8192 shape, the four float32-out
 routes the flash ring runs every hop through at the hop shape
 [16, 4096, 128] bf16 in, causal (the diagonal hop) and full (the
-others: the split pair's on the tensor cores, the forward's and the
-fused backward's on the CUDA cores), and the statistics kernels (B6, B7)
+others; all four on the tensor cores), and the statistics kernels (B6, B7)
 at ResNet-50's stem and summed over its 53 BatchNorm shapes at batch
 256, 224^2.  Each flash row's route is what the built library reports it
 launches (``kernel_route``; "plain" without a card).  Columns: the
@@ -222,8 +221,8 @@ def time_hop_routes(flash, bh: int = 16, t: int = 4096, d: int = 128, *,
                     plain: bool = False) -> dict:
     """Each flash kernel at a ring hop's shape, bf16 in: the float32-out
     route the hops take (``f32_ms``; ``route`` as :func:`route_of` reads
-    it: the split pair's tensor-core kernels, the forward's and the fused
-    backward's CUDA-core ones) beside the bf16-out tensor-core kernel
+    it: each kernel's f32-out tensor-core instance) beside the bf16-out
+    tensor-core kernel
     (``bf16_ms``), causal (the diagonal hop) and full (the others), with
     SDPA (and its backward) at float32 inputs as the float32 rows'
     library; ``{kernel: {"causal"|"full": row}}``."""
@@ -254,7 +253,7 @@ def time_hop_routes(flash, bh: int = 16, t: int = 4096, d: int = 128, *,
         for name, (call, plain_fn) in calls.items():
             work = BWD_WORK.get(name, {})
             # One count for both, so the host's share of the events' span
-            # weighs on them alike (the split pair's f32 route is as short as its bf16 one).
+            # weighs on them alike (an f32 route is as short as its bf16 one).
             f32_ms = _card_ms(lambda: call(f32), iters=10, warmup=2)
             bf16_ms = _card_ms(lambda: call(bf16), iters=10, warmup=2)
             bound_ms, bound_by = flash_bound_ms(bh, t, d, bf16, causal, out_dtype=f32, **work)
