@@ -49,11 +49,16 @@ it fails:
    achieved TFLOP/s of the forward and the fused backward; the forward
    also at the training shapes [64, 2048, 128] and [16, 8192, 128].  The
    BatchNorm statistics kernels (``bn_stats``, ``bn_bwd_stats`` with and
-   without the ReLU mask) likewise, at ResNet-50's shapes and a ragged
-   f32 one, bitwise equal run to run, and timed against
+   without the ReLU mask) likewise, at ResNet-50's shapes (the stem, the
+   most frequent [256, 14, 14, 256], the smallest [256, 7, 7, 512], two
+   wider ones), a shape of one block, ragged channel strips over many
+   blocks (C 264 bf16 at 16-byte loads, C 100 bf16 one element a load)
+   and a ragged f32 one, bitwise equal run to run, and timed against
    ``torch.batch_norm_stats`` / ``torch.batch_norm_backward_reduce`` (the
    yardsticks; the port calls neither) at the stem's shape and summed over
-   the 53 BatchNorm shapes of one training step.  The fused backward
+   the 53 BatchNorm shapes of one training step, with each kernel's
+   device time by shape from ``torch.profiler`` beside the events' ms
+   (``tools/flash_bench.py::time_bn``).  The fused backward
    (``flash_fused_bwd``) likewise at the T 8192 path's [16, 8192, 128] bf16
    causal (bitwise equal run to run), [8, 2048, 128] non-causal, ragged
    T 1000 at D 64 and 32, T 320 and 192 (a last 128-row k group half
@@ -121,7 +126,10 @@ it fails:
    the plain-torch BatchNorm (float32, batch 64) must agree in loss and
    per-leaf gradients, and the fused path may be no further than the
    plain one from a float64 step.  Last, one bf16 step under
-   ``torch.profiler``.
+   ``torch.profiler``: it must show 53 launches of ``bn_stats``'s one
+   kernel (``bn_stats_onepass``) and 53 of each of ``bn_bwd_stats``'s two
+   (``bn_bwd_stats_partial``, ``bn_stats_finalize``), so no second B6
+   kernel.
 6. Train the flagship at T 8192 (the reference's ``bench_t8192_fused``:
    vocab 32000, dim 1024, 12 layers, 8 heads, batch 2, bf16) through
    ``run_training`` for ``TRAIN_STEPS`` steps with ``DTX_FUSED_BWD=1`` set
@@ -686,14 +694,17 @@ def _kernel_instance(mangled: str) -> str:
     """A readable name for a mangled kernel instance of the port's sources."""
     import re
 
-    bn = re.search(r"(bn_(?:bwd_)?stats_(?:partial|finalize))", mangled)
+    bn = re.search(r"(bn_(?:bwd_)?stats_(?:partial|finalize|onepass))", mangled)
     if bn:
-        vec = re.search(r"Li(\d+)E", mangled)
+        ints = re.findall(r"Li(\d+)E", mangled)
         relu = re.search(r"Lb(\d)E", mangled)
         if bn.group(1).endswith("finalize"):
             return bn.group(1)
         dtype = "bf16" if "bfloat16" in mangled else "f32"
-        return (f"{bn.group(1)}<{dtype}, VEC={vec.group(1) if vec else '?'}"
+        vec = ints[0] if ints else "?"
+        if bn.group(1).endswith("onepass"):
+            return f"{bn.group(1)}<{dtype}, VEC={vec}>"
+        return (f"{bn.group(1)}<{dtype}, VEC={vec}"
                 + (f", RELU={relu.group(1)}>" if relu else ">"))
     if "fused_dq_reduce_kernel" in mangled:
         return f"fused_dq_reduce_kernel<{'bf16' if 'bfloat16' in mangled else 'f32'}>"
@@ -783,26 +794,35 @@ def tc_instances(library: str) -> list[str]:
             for ty, ds, rec in TC_FORMS for d in ds]
 
 
+#: B6's kernel instances: its 1024-thread blocks leave a thread 64
+#: registers, and the last block's fold keeps eight float4 loads in them.
+BN_STATS_INSTANCES = tuple(f"bn_stats_onepass<{t}, VEC={v}>"
+                           for t, vs in (("bf16", (8, 1)), ("f32", (4, 1))) for v in vs)
+
+
 def check_build(_build, sources) -> dict:
     """Each kernel instance's registers and spills (``-Xptxas -v``), and the
     tensor-core instructions in the SASS of the tensor-core kernels;
-    fails when a tensor-core instance of :func:`tc_instances` has no
-    report, shows a spill, or its SASS has no tensor-core instruction.
+    fails when an instance of :func:`tc_instances` or
+    :data:`BN_STATS_INSTANCES` has no report or shows a spill, or a
+    tensor-core instance's SASS has no tensor-core instruction.
     Returns the tensor-core instruction count of each tensor-core kernel,
     summed over its instances."""
     for name in sources:
         ptxas = Path(str(_build.library_path(name)) + ".log")
         if not ptxas.exists():
-            if name in TENSOR_CORE_LIBRARIES:
+            if name in TENSOR_CORE_LIBRARIES or name == "bn_stats":
                 raise SystemExit(f"no ptxas report beside {_build.library_path(name)}: "
                                  "delete the library to rebuild it")
             continue
         report = ptxas_report(ptxas.read_text())
         for line in report:
             log(f"  ptxas: {line}")
-            if "_tc_kernel" in line and spills(line):
-                raise SystemExit(f"a tensor-core kernel spills registers: {line}")
-        for inst in tc_instances(name) if name in TENSOR_CORE_LIBRARIES else ():
+            if ("_tc_kernel" in line or "bn_stats_onepass" in line) and spills(line):
+                raise SystemExit(f"a kernel that must keep its registers spills: {line}")
+        gated = (tc_instances(name) if name in TENSOR_CORE_LIBRARIES
+                 else BN_STATS_INSTANCES if name == "bn_stats" else ())
+        for inst in gated:
             if not any(ln.startswith(f"{inst}:") for ln in report):
                 raise SystemExit(f"{name}: no ptxas line for {inst}")
     totals = {}
@@ -1115,20 +1135,20 @@ def check_fused_bwd(flash, bh, t, d, dtype, causal, out_dtype=None, determinism=
 
 
 def check_bn(bn, shape, dtype, seed: int) -> dict:
-    """bn_stats and bn_bwd_stats (relu on and off) vs their plain versions
-    on one input, held to ``TOL_BN`` per channel, and bitwise equal on a
-    second run; returns each kernel's max absolute error."""
+    """bn_stats and bn_bwd_stats (relu on and off) vs their plain versions on one input, held to ``TOL_BN`` per
+    channel, and bitwise equal on a second run; returns each kernel's max
+    absolute error."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn(shape, device="cuda", generator=g) * 2 + 0.5).to(dtype)
     do = torch.randn(shape, device="cuda", generator=g).to(dtype)
     c = shape[-1]
     xf = x.float().reshape(-1, c)
-    got = bn.bn_stats(x)
-    torch.cuda.synchronize()
     want = bn.bn_stats_plain(x)
     scales = (xf.abs().sum(0), (xf * xf).sum(0))
-    rel = max((((a - b).abs() / m.clamp_min(1e-30)).max().item()
-               for a, b, m in zip(got, want, scales)))
+    got = bn.bn_stats(x)
+    torch.cuda.synchronize()
+    rel = max(((a - b).abs() / m.clamp_min(1e-30)).max().item()
+              for a, b, m in zip(got, want, scales))
     err = {"bn_stats": max((a - b).abs().max().item() for a, b in zip(got, want))}
     same = all(torch.equal(a, b) for a, b in zip(got, bn.bn_stats(x)))
     mean, inv, scale, bias = fb.bn_inputs(bn, x, do)
@@ -2122,6 +2142,13 @@ def resnet_end_to_end(card: str) -> tuple[dict, dict]:
     if summary["busy_ms"] <= 0:
         raise SystemExit("torch.profiler recorded no device time for the ResNet step")
     log_window("profiled ResNet step", summary, card, top=12)
+    # One kernel a bn_stats call, two a bn_bwd_stats call: no second B6 kernel.
+    rows = {key: sum(n for k, n in summary["launches"].items() if key in k)
+            for key in ("bn_stats_onepass", "bn_bwd_stats_partial", "bn_stats_finalize")}
+    log(f"  BN kernel launches in the profiled step: {json.dumps(rows)} (want {n_bn} each)")
+    if set(rows.values()) != {n_bn}:
+        raise SystemExit(f"the profiled ResNet step did not launch each BN kernel {n_bn} times: "
+                         f"{rows}")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
     return launches, {"first_loss": losses[0], "step_ms": step_ms, "start": start}
 
@@ -5678,11 +5705,18 @@ def main() -> int:
         f"kernel's time), {fused['dq_reduce_bytes']} in the reduction, S = {fused['slices']}")
     log(f"  [{card}]")
     # ResNet-50's BatchNorm shapes at batch 256 (the stem, a stage-0 bn3, a
-    # stage-3 bn3) and a ragged one (C = 24, not a multiple of 8).
+    # stage-3 bn3, the most frequent and the smallest), one block, ragged
+    # channel strips over many blocks (C = 264 at 16-byte loads, C = 100
+    # one element a load) and a ragged f32 one (C = 24, not a multiple of 8).
     bn_errs = [
         check_bn(bn, (RESNET_BATCH, 112, 112, 64), torch.bfloat16, seed=11),
         check_bn(bn, (RESNET_BATCH, 56, 56, 256), torch.bfloat16, seed=12),
         check_bn(bn, (RESNET_BATCH, 7, 7, 2048), torch.bfloat16, seed=13),
+        check_bn(bn, (RESNET_BATCH, 14, 14, 256), torch.bfloat16, seed=15),
+        check_bn(bn, (RESNET_BATCH, 7, 7, 512), torch.bfloat16, seed=16),
+        check_bn(bn, (2, 4, 4, 64), torch.bfloat16, seed=17),
+        check_bn(bn, (64, 28, 28, 264), torch.bfloat16, seed=18),
+        check_bn(bn, (32, 28, 28, 100), torch.bfloat16, seed=19),
         check_bn(bn, (3, 5, 7, 24), torch.float32, seed=14),
     ]
     bn_times = fb.time_bn(bn, RESNET_BATCH, RESNET_IMAGE)
@@ -5691,6 +5725,8 @@ def main() -> int:
         log(f"  {name} over the step's {r['shapes']} shapes: kernel {r['step_ms']:.3f} ms, plain "
             f"{r['step_plain_ms']:.3f} ms, torch {r['step_library_ms']:.3f} ms, bound "
             f"{r['step_bound_ms']:.3f} ms")
+        for line in fb.describe_bn_device(name, r):
+            log(f"  {line}")
     log(f"  [{card}]")
 
     phase("2b", "phase 2b: the fused backward's parity gate (twin of tools/flash_parity.py)")
@@ -5904,6 +5940,7 @@ def main() -> int:
                                  "train_resnet50_zero1_dp2_by_rank": zero_launches[name],
                                  "train_resnet50_dtxr_npz_dsvc": planes["launches"][name],
                                  "train_resnet50_ghost_slice2_by_rank": gb_l[name]},
+            "device_kernels": fb.BN_KERNELS[name],
             "max_abs_err": max(e[name] for e in bn_errs), **bn_times[name],
         } for name, line in (("bn_stats", 166), ("bn_bwd_stats", 239))),
     ]}

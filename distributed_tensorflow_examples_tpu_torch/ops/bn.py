@@ -7,7 +7,10 @@ The port of ``distributed_tensorflow_examples_tpu/ops/bn.py``.  The kernels
 ``_bwd_stats_kernel`` (:func:`bn_bwd_stats`: s1 = sum(dy) and
 s2 = sum(dy*xhat), with the ReLU mask recomputed from xhat inside the
 kernel so the masked gradient never exists in device memory).  The source
-note says what bounds them on the card and how the design answers that.
+note says what bounds them on the card and how the design answers that:
+:func:`bn_stats` is one launch a call (its grid from :func:`stats_plan`),
+:func:`bn_bwd_stats` two (pass 1's grid from :func:`launch_shape`, then a
+fixed-order finalize).
 
 Both take the activation as [M, C] row-major (M = N*H*W): a contiguous
 NHWC tensor, or a channels_last NCHW one seen through ``permute(0, 2, 3,
@@ -42,6 +45,9 @@ sums because its one global loss has no later average; so does
 from __future__ import annotations
 
 import ctypes
+import functools
+import threading
+from typing import NamedTuple
 
 import torch
 
@@ -54,13 +60,21 @@ from . import LAUNCHES, _build
 IMPL = "kernel"
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: Threads of one pass-1 block (``kThreads`` in the source).
+#: Threads of one B7 pass-1 block (``kThreads`` in the source).
 _THREADS = 256
-#: Pass-1 blocks to aim for: 8 blocks of 256 threads on each of the
+#: B7 pass-1 blocks to aim for: 8 blocks of 256 threads on each of the
 #: H100's 132 SMs.
 _TARGET_BLOCKS = 8 * 132
-#: Fewest rows a thread of pass 1 should add before a range is split again.
+#: Fewest rows a thread of B7's pass 1 should add before a range is split
+#: again.
 _MIN_ROWS_PER_THREAD = 16
+#: Threads of a B6 block (``kStatsThreads``): one block on each SM.
+_STATS_THREADS = 1024
+#: Fewest steps (``1024 / gs`` rows each) a B6 block should walk before a
+#: strip's rows are split again.
+_STATS_MIN_STEPS = 4
+#: SMs of the card when no card says otherwise (an H100 SXM's).
+H100_SMS = 132
 
 
 def _device_of(name: str, x) -> str:
@@ -90,8 +104,9 @@ def _check_vecs(name: str, c: int, device, **vecs) -> None:
             )
 
 
+@functools.lru_cache(maxsize=None)
 def launch_shape(m: int, c: int, vec: int) -> tuple[int, int, int, int]:
-    """``(tx_n, strips, splits, rows_per_split)`` of pass 1 for an [m, c]
+    """``(tx_n, strips, splits, rows_per_split)`` of B7's pass 1 for an [m, c]
     activation read ``vec`` channels at a time: ``tx_n`` threads (a power
     of two, at most a warp) along a strip of ``tx_n * vec`` channels,
     ``256 / tx_n`` row lanes, and the rows cut into ``splits`` ranges so
@@ -104,6 +119,46 @@ def launch_shape(m: int, c: int, vec: int) -> tuple[int, int, int, int]:
     splits = max(1, min(_TARGET_BLOCKS // strips, -(-m // (ty_n * _MIN_ROWS_PER_THREAD)), 65535))
     rows = -(-m // splits)
     return tx_n, strips, -(-m // rows), rows  # no empty range at the end
+
+
+class StatsPlan(NamedTuple):
+    """B6's launch for one [m, c] activation: ``strips`` x ``splits``
+    blocks of ``_STATS_THREADS`` threads; strip i takes channel groups
+    [i * gs, (i + 1) * gs) of ``vec`` channels, split j rows
+    [j * rows, (j + 1) * rows); the tickets are one a strip."""
+
+    gs: int
+    strips: int
+    splits: int
+    rows: int
+
+    @property
+    def lanes(self) -> int:
+        """Rows a block reads a step (one 16-byte chunk a thread)."""
+        return _STATS_THREADS // self.gs
+
+    def buffer(self, c: int) -> tuple[int, int]:
+        """The shape of the wrapper's one f32 allocation: rows 0 and 1 the
+        output (sum, sum of squares), then the kernel's [splits, 2, c]
+        workspace, a partial sum and sum of squares of every channel for
+        each row range."""
+        return (2 + 2 * self.splits, c)
+
+
+@functools.lru_cache(maxsize=None)
+def stats_plan(m: int, c: int, vec: int, sms: int = H100_SMS) -> StatsPlan:
+    """B6's :class:`StatsPlan` for an [m, c] activation read ``vec``
+    channels at a time on a card of ``sms`` SMs: a strip of ``gs`` groups
+    (a power of two, at most 32: a 512-byte row slice at 16-byte loads),
+    and the rows cut into ``splits`` ranges so that about one block runs
+    on each SM, each walking at least ``_STATS_MIN_STEPS`` steps."""
+    groups = -(-c // vec)
+    gs = min(32, 1 << (groups - 1).bit_length())
+    strips = -(-groups // gs)
+    lanes = _STATS_THREADS // gs
+    splits = max(1, min(sms // strips, -(-m // (lanes * _STATS_MIN_STEPS)), 65535))
+    rows = -(-m // splits)
+    return StatsPlan(gs, strips, -(-m // rows), rows)  # no empty range at the end
 
 
 def _vec(c: int, *tensors) -> int:
@@ -131,31 +186,86 @@ def _raise_on(name: str, err: int, x) -> None:
         )
 
 
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """``csrc/bn_stats.cu``'s library, built if needed, with both entries'
+    argument types bound once."""
+    lib = _build.load("bn_stats")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.dtx_bn_stats.argtypes = [p, p, p, p, ll, i, i, i, i, i, ll, p]
+    lib.dtx_bn_stats.restype = i
+    lib.dtx_bn_bwd_stats.argtypes = [p] * 9 + [ll, i, i, i, i, i, ll, i, p]
+    lib.dtx_bn_bwd_stats.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+#: B6's tickets by (device index, stream): int32, one a strip, zero
+#: between calls (the last block of a strip resets its own; the source
+#: note says why a buffer a stream is safe).
+_TICKETS: dict = {}
+_TICKETS_LOCK = threading.Lock()
+
+
+def _tickets(device, stream: int, strips: int):
+    key = (device.index, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < strips:
+        with _TICKETS_LOCK:
+            buf = _TICKETS.get(key)
+            if buf is None or buf.numel() < strips:
+                buf = torch.zeros(max(strips, 64), dtype=torch.int32, device=device)
+                _TICKETS[key] = buf
+    return buf
+
+
+def _stream(device) -> int:
+    """The handle of ``device``'s current stream (the raw query the
+    compiled kernels of PyTorch's own code generator use: no Stream
+    object a call)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _launch(fn, device, *args) -> int:
+    """``fn(*args)`` on ``device``, entering it only when it is not the
+    current device."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
+
+
 def bn_stats(x):
     """x [..., C] -> (sum [1, C] f32, sumsq [1, C] f32): the kernel on a
-    CUDA tensor, the plain version on a CPU tensor, an error otherwise."""
+    CUDA tensor (the two the first rows of one allocation that also holds
+    the kernel's workspace), the plain version on a CPU tensor, an error
+    otherwise."""
     m, c = _check_x("bn_stats", x)
-    if _device_of("bn_stats", x) == "cpu":
+    if not x.is_cuda:
+        _device_of("bn_stats", x)  # raises unless x is on the CPU
         return bn_stats_plain(x)
     _cuda_checks("bn_stats", x)
     vec = _vec(c, x)
-    tx_n, _strips, splits, rows = launch_shape(m, c, vec)
-    fn = _build.load("bn_stats").dtx_bn_stats
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
-        ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    ws = torch.empty((2, splits, c), dtype=torch.float32, device=x.device)
-    s = torch.empty((1, c), dtype=torch.float32, device=x.device)
-    ss = torch.empty((1, c), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = fn(
-            x.data_ptr(), ws.data_ptr(), s.data_ptr(), ss.data_ptr(), m, c,
-            _DTYPE_CODES[x.dtype], vec, tx_n, splits, rows,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    dev = x.device
+    plan = stats_plan(m, c, vec, _sm_count(dev.index))
+    # The caller reads the output at once and drops it, and the workspace
+    # with it.  A pointer, not a view, for what the kernel alone reads: a
+    # view costs host time on every call.
+    buf = torch.empty(plan.buffer(c), dtype=torch.float32, device=dev)
+    out = buf.data_ptr()
+    stream = _stream(dev)
+    err = _launch(
+        _library().dtx_bn_stats, dev, x.data_ptr(), out + 8 * c,
+        _tickets(dev, stream, plan.strips).data_ptr(), out, m, c,
+        _DTYPE_CODES[x.dtype], vec, plan.gs, plan.splits, plan.rows, stream,
+    )
     _raise_on("bn_stats", err, x)
     LAUNCHES["bn_stats"] += 1
-    return s, ss
+    return buf[0:1], buf[1:2]
 
 
 def bn_stats_plain(x):
@@ -171,7 +281,8 @@ def bn_bwd_stats(do, x, mean, inv, scale, bias, *, relu: bool):
     xhat = (x - mean) * inv and dy = do * [xhat*scale + bias > 0] computed
     in f32 in the kernel (``relu``) or dy = do.  do and x share shape and
     dtype; mean, inv, scale, bias hold C f32 values.  The kernel on CUDA
-    tensors, the plain version on CPU tensors, an error otherwise."""
+    tensors (s1 and s2 the rows of one [2, C] tensor), the plain version
+    on CPU tensors, an error otherwise."""
     m, c = _check_x("bn_bwd_stats", x)
     if do.shape != x.shape or do.dtype != x.dtype or do.device != x.device:
         raise ValueError(
@@ -179,28 +290,24 @@ def bn_bwd_stats(do, x, mean, inv, scale, bias, *, relu: bool):
             f"{tuple(do.shape)} {do.dtype} on {do.device} for x {tuple(x.shape)} {x.dtype}"
         )
     _check_vecs("bn_bwd_stats", c, x.device, mean=mean, inv=inv, scale=scale, bias=bias)
-    if _device_of("bn_bwd_stats", x) == "cpu":
+    if not x.is_cuda:
+        _device_of("bn_bwd_stats", x)  # raises unless x is on the CPU
         return bn_bwd_stats_plain(do, x, mean, inv, scale, bias, relu=relu)
     _cuda_checks("bn_bwd_stats", do, x, mean, inv, scale, bias)
     vec = _vec(c, do, x)
     tx_n, _strips, splits, rows = launch_shape(m, c, vec)
-    fn = _build.load("bn_stats").dtx_bn_bwd_stats
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    ws = torch.empty((2, splits, c), dtype=torch.float32, device=x.device)
-    s1 = torch.empty((1, c), dtype=torch.float32, device=x.device)
-    s2 = torch.empty((1, c), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = fn(
-            do.data_ptr(), x.data_ptr(), mean.data_ptr(), inv.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), ws.data_ptr(), s1.data_ptr(),
-            s2.data_ptr(), m, c, _DTYPE_CODES[x.dtype], vec, tx_n, splits, rows,
-            int(bool(relu)), torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    dev = x.device
+    ws = torch.empty((2, splits, c), dtype=torch.float32, device=dev)
+    out = torch.empty((2, c), dtype=torch.float32, device=dev)
+    err = _launch(
+        _library().dtx_bn_bwd_stats, dev, do.data_ptr(), x.data_ptr(), mean.data_ptr(),
+        inv.data_ptr(), scale.data_ptr(), bias.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        out.data_ptr() + 4 * c, m, c, _DTYPE_CODES[x.dtype], vec, tx_n, splits, rows,
+        int(bool(relu)), _stream(dev),
+    )
     _raise_on("bn_bwd_stats", err, x)
     LAUNCHES["bn_bwd_stats"] += 1
-    return s1, s2
+    return out[0:1], out[1:2]
 
 
 def bn_bwd_stats_plain(do, x, mean, inv, scale, bias, *, relu: bool):

@@ -4,7 +4,7 @@ same functions: the port's twin of ``tools/flash_bench.py``, and the
 timers ``chip_smoke.py``'s phase 2 runs::
 
     python -m distributed_tensorflow_examples_tpu_torch.tools.flash_bench \\
-        [--plain] [--markdown] [--device=cpu --shrink=16]
+        [--plain] [--markdown] [--kernels=flash,bn] [--device=cpu --shrink=16]
 
 Rows (:func:`rows`): the forward (B1) at the serving, training and T 8192
 shapes and non-causal, the split backward pair (B2, B3) at the training
@@ -21,7 +21,10 @@ the memory rate and the operations over the peak rate for their type:
 the tensor cores' for bf16 products, else float32's) and what binds it,
 the kernel's share of the bound, TFLOP/s, the plain version's ms (with
 ``--plain``), the library's ms and the launches a step or apply on the
-main path where the path fixes them.  The library is SDPA and its
+main path where the path fixes them.  Below the rows, each BN kernel's
+device time a call at each distinct shape from ``torch.profiler`` and its
+sum over the step (:func:`time_bn`: the events' ms of small shapes read
+the wrapper's host time).  The library is SDPA and its
 backward (float32 inputs for the float32-out rows) and
 ``torch.batch_norm_stats`` / ``torch.batch_norm_backward_reduce``:
 yardsticks only, the port calls none of them.  ``--markdown`` prints
@@ -34,6 +37,7 @@ wrappers take the plain path on CPU tensors) at shapes cut by
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import sys
@@ -321,11 +325,53 @@ def bn_inputs(bn, x, do):
     return mean, inv, scale, bias
 
 
+def kernel_us(calls: list, kernels: tuple, iters: int = 10):
+    """Device us of one call of each zero-argument function in ``calls``,
+    from ``torch.profiler``: each runs ``iters`` times, in order, in one
+    window, and its calls' kernel rows (the rows whose names hold one of
+    ``kernels``, in order of start) are summed over ``iters``.  Raises
+    unless every call launched exactly ``len(kernels)`` such rows.  None
+    without a card."""
+    if not torch.cuda.is_available():
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    from .profile_step import load
+
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            for _ in range(iters):
+                fn()
+        torch.cuda.synchronize()
+    rows = sorted((r for r in load(prof).device if any(k in r[0] for k in kernels)),
+                  key=lambda r: r[1])
+    per = iters * len(kernels)
+    if len(rows) != per * len(calls):
+        raise RuntimeError(f"{len(calls)} x {iters} calls of {len(kernels)} kernel(s) {kernels} "
+                           f"each; the trace holds {len(rows)} of their rows")
+    return [sum(e - s for _n, s, e in rows[i * per:(i + 1) * per]) / iters
+            for i in range(len(calls))]
+
+
+#: The kernels one call of each BN wrapper launches (trace names).
+BN_KERNELS = {"bn_stats": ("bn_stats_onepass",),
+              "bn_bwd_stats": ("bn_bwd_stats_partial", "bn_stats_finalize")}
+
+
 def time_bn(bn, batch: int = 256, image: int = 224, *, plain: bool = True) -> dict:
     """Each BN kernel, its plain version and its PyTorch yardstick, timed
     at the stem's shape and summed over the 53 BatchNorm shapes of one
-    ResNet-50 step, with the bound beside each.  The inputs are views of
-    one buffer; a shape that fits the 50 MB L2 is read warm on repeats."""
+    ResNet-50 step, with the bound beside each.  The ms are CUDA events
+    around ten calls back to back, so where a call's device time is below
+    the wrapper's host time they read the host's rate; beside them each
+    kernel's device time (:func:`kernel_us`) at every distinct shape:
+    ``device`` rows [shape, relu (B7; None for B6), calls in a step, us a
+    call, bound us] and their sum ``step_device_ms``.  The inputs are
+    views of one buffer; a shape that fits the 50 MB L2 is read warm on
+    repeats."""
     shapes = resnet50_bn_shapes(batch, image)
     dtype = torch.bfloat16
     dev = _device()
@@ -333,46 +379,57 @@ def time_bn(bn, batch: int = 256, image: int = 224, *, plain: bool = True) -> di
     g = torch.Generator(device=dev).manual_seed(3)
     xbuf = (torch.randn(biggest, device=dev, generator=g) * 2 + 0.5).to(dtype)
     dbuf = torch.randn(biggest, device=dev, generator=g).to(dtype)
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
-    out = {k: dict.fromkeys(keys, 0.0) for k in ("bn_stats", "bn_bwd_stats")}
-    stem = {}
-    for i, (shape, relu) in enumerate(shapes):
+    args = {}  # (shape, relu) -> (do, x, mean, inv, scale, bias)
+    for shape, _relu in shapes:
         n = math.prod(shape)
         x, do = xbuf[:n].view(shape), dbuf[:n].view(shape)
-        mean, inv, scale, bias = bn_inputs(bn, x, do)
+        args[shape] = (do, x, *bn_inputs(bn, x, do))
+
+    def fns(shape, relu):
+        """kernel, plain and yardstick calls of both kernels at one shape."""
+        do, x, mean, inv, scale, bias = args[shape]
         xc, dc = x.permute(0, 3, 1, 2), do.permute(0, 3, 1, 2)  # channels_last NCHW
         lstats = torch.batch_norm_stats(xc, 1e-5) if dev == "cuda" else None
-        row = {
-            "bn_stats": (
-                _card_ms(lambda: bn.bn_stats(x), iters=10),
-                time_ms(lambda: bn.bn_stats_plain(x), iters=3, warmup=1) if plain else None,
-                _card_ms(lambda: torch.batch_norm_stats(xc, 1e-5), iters=10),
-                bn_bound_ms(shape, dtype, backward=False),
-            ),
+        return {
+            "bn_stats": (lambda: bn.bn_stats(x), lambda: bn.bn_stats_plain(x),
+                         lambda: torch.batch_norm_stats(xc, 1e-5)),
             "bn_bwd_stats": (
-                _card_ms(lambda: bn.bn_bwd_stats(do, x, mean, inv, scale, bias, relu=relu),
-                         iters=10),
-                time_ms(lambda: bn.bn_bwd_stats_plain(do, x, mean, inv, scale, bias, relu=relu),
-                        iters=3, warmup=1) if plain else None,
+                lambda: bn.bn_bwd_stats(do, x, mean, inv, scale, bias, relu=relu),
+                lambda: bn.bn_bwd_stats_plain(do, x, mean, inv, scale, bias, relu=relu),
                 # No ReLU mask in the yardstick: it reduces dy as given.
-                _card_ms(lambda: torch.batch_norm_backward_reduce(
-                    dc, xc, *lstats, scale, True, True, True),
-                    iters=10),
-                bn_bound_ms(shape, dtype, backward=True, relu=relu),
-            ),
+                lambda: torch.batch_norm_backward_reduce(dc, xc, *lstats, scale, True, True, True)),
         }
-        for k, (ms, plain_ms, lib_ms, (bound_ms, bound_by)) in row.items():
-            acc = out[k]
-            for key, value in zip(keys, (ms, plain_ms, lib_ms, bound_ms)):
-                acc[key] = None if value is None or acc[key] is None else acc[key] + value
-            if i == 0:
-                stem[k] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=bound_ms, bound_by=bound_by)
-    del xbuf, dbuf
-    return {k: dict(stem[k], shape=list(shapes[0][0]), shapes=len(shapes),
-                    step_ms=out[k]["ms"], step_plain_ms=out[k]["plain_ms"],
-                    step_library_ms=out[k]["library_ms"], step_bound_ms=out[k]["bound_ms"])
-            for k in out}
+
+    def one(name: str) -> dict:
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+        acc, stem = dict.fromkeys(keys, 0.0), None
+        for shape, relu in shapes:
+            call, plain_call, lib_call = fns(shape, relu)[name]
+            bound_ms, bound_by = bn_bound_ms(shape, dtype, backward=name == "bn_bwd_stats",
+                                             relu=relu)
+            row = dict(ms=_card_ms(call, iters=10), bound_ms=bound_ms, bound_by=bound_by,
+                       plain_ms=time_ms(plain_call, iters=3, warmup=1) if plain else None,
+                       library_ms=_card_ms(lib_call, iters=10))
+            for key in keys:
+                acc[key] = None if row[key] is None or acc[key] is None else acc[key] + row[key]
+            stem = stem or row
+        distinct = collections.Counter(
+            (shape, relu if name == "bn_bwd_stats" else None) for shape, relu in shapes)
+        us = kernel_us([fns(shape, bool(relu))[name][0] for shape, relu in distinct],
+                       BN_KERNELS[name])
+        device = [[list(shape), relu, n, None if us is None else us[j],
+                   bn_bound_ms(shape, dtype, backward=name == "bn_bwd_stats",
+                               relu=bool(relu))[0] * 1e3]
+                  for j, ((shape, relu), n) in enumerate(distinct.items())]
+        return dict(stem, shape=list(shapes[0][0]), shapes=len(shapes), step_ms=acc["ms"],
+                    step_plain_ms=acc["plain_ms"], step_library_ms=acc["library_ms"],
+                    step_bound_ms=acc["bound_ms"], device=device,
+                    step_device_ms=None if us is None else sum(
+                        n * u for _s, _r, n, u, _b in device) / 1e3)
+
+    out = {name: one(name) for name in ("bn_stats", "bn_bwd_stats")}
+    del xbuf, dbuf, args
+    return out
 
 
 def _ms(x) -> str:
@@ -394,10 +451,25 @@ def describe(label: str, r: dict, launches=None) -> str:
             + (f", {launches} launches" if launches is not None else ""))
 
 
-def rows(flash, bn, *, plain: bool, shrink: int = 1) -> list:
+def describe_bn_device(name: str, r: dict) -> list[str]:
+    """Printed lines of a :func:`time_bn` row's device times: a call's us
+    at each distinct shape and the step's sum."""
+    def us(x):
+        return "not measured" if x is None else f"{x:.2f}"
+
+    lines = [f"{name} device us a call (torch.profiler) x calls a step, bound us: " + ", ".join(
+        f"{shape}{' relu' if relu else ''} {us(u)} x {n} (bound {b:.2f})"
+        for shape, relu, n, u, b in r["device"])
+        + f"; step {_ms(r['step_device_ms'])} ms of kernel time against "
+        f"{_ms(r['step_ms'])} ms by events, bound {r['step_bound_ms']:.4f} ms"]
+    return lines
+
+
+def rows(flash, bn, *, plain: bool, shrink: int = 1, kernels=("flash", "bn")) -> list:
     """Every row of the module docstring: [(kernel, shape text, route,
     row dict, launches a step or apply on the main path or None)];
-    ``shrink`` cuts T, BH and the ResNet batch and image (a CPU run)."""
+    ``shrink`` cuts T, BH and the ResNet batch and image (a CPU run);
+    ``kernels`` picks the flash rows, the BN rows or both."""
     def s(t):
         return max(16, t // shrink)
 
@@ -406,31 +478,34 @@ def rows(flash, bn, *, plain: bool, shrink: int = 1) -> list:
 
     bf16 = torch.bfloat16
     out = []
-    for bh, t, causal, path in ((16, 2048, True, 12), (64, 2048, True, 12),
-                                (16, 8192, True, 12), (8, 2048, False, None)):
-        bh, t = b(bh), s(t)
-        r = time_flash(flash, bh, t, 128, bf16, causal, plain=plain)
-        out.append(("flash_fwd", f"[{bh}, {t}, 128] bf16 {'causal' if causal else 'full'}",
-                    route_of(flash, "flash_fwd", bf16, bf16), r, path))
-    bwd = time_flash_bwd(flash, b(64), s(2048), 128, bf16, True, plain=plain)
-    for name in ("flash_dq", "flash_dkv"):
-        out.append((name, f"[{b(64)}, {s(2048)}, 128] bf16 causal",
-                    route_of(flash, name, bf16, bf16), bwd[name], 12))
-    fused = time_fused_bwd(flash, b(16), s(8192), 128, bf16, True, plain=plain)
-    out.append(("flash_fused_bwd", f"[{b(16)}, {s(8192)}, 128] bf16 causal",
-                route_of(flash, "flash_fused_bwd", bf16, bf16), fused, 12))
-    hops = time_hop_routes(flash, b(16), s(4096), 128, plain=plain)
-    for name in HOP_KERNELS:
-        for kind, h in hops[name].items():
-            out.append((name, f"[{b(16)}, {s(4096)}, 128] bf16->f32 {kind}", h["route"],
-                        dict(h, ms=h["f32_ms"]), None))
-    bns = time_bn(bn, max(2, 256 // shrink), max(32, 224 // shrink), plain=plain)
-    for name, r in bns.items():
-        out.append((name, f"{r['shape']} bf16 (stem)", "CUDA cores", r, None))
-        out.append((name, f"{r['shapes']} ResNet-50 shapes, summed", "CUDA cores",
-                    dict(ms=r["step_ms"], plain_ms=r["step_plain_ms"],
-                         library_ms=r["step_library_ms"], bound_ms=r["step_bound_ms"],
-                         bound_by=r["bound_by"]), r["shapes"]))
+    if "flash" in kernels:
+        for bh, t, causal, path in ((16, 2048, True, 12), (64, 2048, True, 12),
+                                    (16, 8192, True, 12), (8, 2048, False, None)):
+            bh, t = b(bh), s(t)
+            r = time_flash(flash, bh, t, 128, bf16, causal, plain=plain)
+            out.append(("flash_fwd", f"[{bh}, {t}, 128] bf16 {'causal' if causal else 'full'}",
+                        route_of(flash, "flash_fwd", bf16, bf16), r, path))
+        bwd = time_flash_bwd(flash, b(64), s(2048), 128, bf16, True, plain=plain)
+        for name in ("flash_dq", "flash_dkv"):
+            out.append((name, f"[{b(64)}, {s(2048)}, 128] bf16 causal",
+                        route_of(flash, name, bf16, bf16), bwd[name], 12))
+        fused = time_fused_bwd(flash, b(16), s(8192), 128, bf16, True, plain=plain)
+        out.append(("flash_fused_bwd", f"[{b(16)}, {s(8192)}, 128] bf16 causal",
+                    route_of(flash, "flash_fused_bwd", bf16, bf16), fused, 12))
+        hops = time_hop_routes(flash, b(16), s(4096), 128, plain=plain)
+        for name in HOP_KERNELS:
+            for kind, h in hops[name].items():
+                out.append((name, f"[{b(16)}, {s(4096)}, 128] bf16->f32 {kind}", h["route"],
+                            dict(h, ms=h["f32_ms"]), None))
+    if "bn" in kernels:
+        bns = time_bn(bn, max(2, 256 // shrink), max(32, 224 // shrink), plain=plain)
+        for name, r in bns.items():
+            out.append((name, f"{r['shape']} bf16 (stem)", "CUDA cores", r, None))
+            out.append((name, f"{r['shapes']} ResNet-50 shapes, summed", "CUDA cores",
+                        dict(ms=r["step_ms"], plain_ms=r["step_plain_ms"],
+                             library_ms=r["step_library_ms"], bound_ms=r["step_bound_ms"],
+                             bound_by=r["bound_by"], device_ms=r["step_device_ms"]),
+                        r["shapes"]))
     return out
 
 
@@ -441,6 +516,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--shrink", type=int, default=1,
                     help="divide T, BH and the ResNet batch and image by this")
+    ap.add_argument("--kernels", default="flash,bn",
+                    help="comma-separated: flash (B1-B4 and the hop routes), bn (B6, B7)")
     args = ap.parse_args(argv)
     from ..ops import bn
     from ..ops import flash_attention as flash
@@ -457,7 +534,8 @@ def main(argv=None) -> int:
         card = card_line()
     else:
         card = "cpu (plain versions, host clock)"
-    table = rows(flash, bn, plain=args.plain or args.device == "cpu", shrink=args.shrink)
+    table = rows(flash, bn, plain=args.plain or args.device == "cpu", shrink=args.shrink,
+                 kernels=args.kernels.split(","))
     if args.markdown:
         print(f"| kernel | shape | route | ms | bound ms (by) | share | TFLOP/s | plain ms "
               f"| library ms | launches | card |")
@@ -471,6 +549,9 @@ def main(argv=None) -> int:
                   f"{launches if launches is not None else '-'} | {card} |")
         else:
             print(describe(f"{name} {shape} ({route})", r, launches) + f" [{card}]")
+    for name, _shape, _route, r, _launches in table:
+        for line in describe_bn_device(name, r) if "device" in r else ():
+            print(f"{line} [{card}]")
     print(json.dumps({"card": card, "rows": [
         {"kernel": n, "shape": sh, "route": rt, "launches": la,
          **{k: v for k, v in r.items() if isinstance(v, (int, float, str)) or v is None}}

@@ -58,9 +58,9 @@ LM_FAMILIES = (
 )
 #: Kernel families of a ResNet-50 step.
 RESNET_FAMILIES = (
-    ("bn_stats", ("bn_stats_partial",)),
+    ("bn_stats", ("bn_stats_onepass",)),
     ("bn_bwd_stats", ("bn_bwd_stats_partial",)),
-    ("bn finalize (both)", ("bn_stats_finalize",)),
+    ("bn_bwd_stats finalize", ("bn_stats_finalize",)),
     ("nccl", ("nccl",)),
     ("optimizer", ("sgd", "multi_tensor_apply")),
     ("layout transform", ("nchwtonhwc", "nhwctonchw", "transpose")),

@@ -223,6 +223,49 @@ def test_kernel_launch_shape_covers_every_row_and_channel(m, c, vec):
     assert 1 <= splits <= 65535 and strips * splits <= max(bn._TARGET_BLOCKS, strips)
 
 
+PLAN_CASES = [
+    # (m, c, vec, sms): the B7 cases above, ResNet-50's most frequent,
+    # smallest and widest shapes, ragged strips over many blocks, and cards
+    # with fewer SMs (ragged strips and rows cut over several blocks at
+    # small m).
+    (256 * 112 * 112, 64, 8, 132), (256 * 56 * 56, 256, 8, 132), (256 * 7 * 7, 2048, 8, 132),
+    (105, 24, 4, 132), (18, 10, 1, 132), (1, 1, 1, 132), (3, 2049, 1, 132),
+    (256 * 14 * 14, 256, 8, 132), (256 * 7 * 7, 512, 8, 132), (64 * 28 * 28, 264, 8, 132),
+    (32 * 28 * 28, 100, 1, 132), (50_000, 384, 8, 7),
+    (32 * 8 * 8, 24, 4, 8), (16 * 8 * 8, 264, 8, 8), (64 * 8 * 8, 100, 1, 8),
+]
+
+
+@pytest.mark.parametrize("m,c,vec,sms", PLAN_CASES)
+def test_stats_plan_covers_every_row_and_channel_once(m, c, vec, sms):
+    """B6's one grid tiles [m, c]: strips partition the channel groups,
+    row ranges partition the rows (none empty), at most one block an SM
+    unless the strips alone outnumber the SMs; the workspace is
+    [splits, 2, c] f32 and the tickets one a strip."""
+    plan = bn.stats_plan(m, c, vec, sms)
+    groups = -(-c // vec)
+    assert plan.gs in (1, 2, 4, 8, 16, 32) and plan.gs * plan.lanes == bn._STATS_THREADS
+    assert plan.strips * plan.gs >= groups > (plan.strips - 1) * plan.gs
+    assert plan.splits * plan.rows >= m > (plan.splits - 1) * plan.rows
+    assert 1 <= plan.splits <= 65535
+    assert plan.strips * plan.splits <= max(sms, plan.strips)
+    # Rows are cut only while each block walks its steps.
+    assert plan.splits <= max(1, -(-m // (plan.lanes * bn._STATS_MIN_STEPS)))
+    # Every (row, channel) in exactly one block, counted on a coarse grid of
+    # the blocks' edges.
+    row_edges = sorted({0, m, *(min(m, j * plan.rows) for j in range(plan.splits + 1))})
+    ch_edges = sorted({0, c, *(min(c, i * plan.gs * vec) for i in range(plan.strips + 1))})
+    counts = np.zeros((len(row_edges) - 1, len(ch_edges) - 1), np.int64)
+    for i in range(plan.strips):
+        c0, c1 = i * plan.gs * vec, min(c, (i + 1) * plan.gs * vec)
+        for j in range(plan.splits):
+            r0, r1 = j * plan.rows, min(m, (j + 1) * plan.rows)
+            counts[row_edges.index(r0):row_edges.index(r1), ch_edges.index(c0):ch_edges.index(c1)] += 1
+    assert (counts == 1).all()
+    # One allocation: the [2, c] output, then the [splits, 2, c] workspace.
+    assert plan.buffer(c) == (2 + plan.splits * 2, c)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     x = torch.zeros(2, 3, 4, 8, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
