@@ -367,12 +367,14 @@ class ModelReplicaServer:
                 self.model_version
             ),
         ))
+        # Set before the core starts: a STATS answered during the rest of
+        # the construction reads it.
+        self._heartbeat = None
         self._core.start()
         self.port = self._core.port
         # Membership: announce this replica, WITH its dialable address, in
         # the coordinator's lease registry, so an elastic serve pool
         # discovers it from the registry instead of a static list.
-        self._heartbeat = None
         if membership:
             from ..parallel import membership as membership_lib
 
