@@ -166,8 +166,10 @@ it fails:
    (sync_replicas, 2 gradients an apply), CIFAR-10 CNN
    ``--sync_replicas=false --max_staleness=4`` (async, free running), and
    the same with ``--deterministic`` twice (the fixed interleave, under
-   ``utils.determinism``).  Each must print the JAX PS FINAL line (its
-   ``mode``, ``step=200``, ``stale_dropped``), log only finite losses and
+   ``utils.determinism``, whose process-wide settings are put back when
+   the phase ends: ``torch_settings_restored``).  Each must print the JAX
+   PS FINAL line (its ``mode``, ``step=200``, ``stale_dropped``), log only
+   finite losses and
    launch no hand kernel; every sync take must average 2 gradients; the two
    deterministic runs must end with bitwise-equal parameters; each W1
    worker's first gradient at step 0 and the deterministic run's first 4
@@ -484,6 +486,23 @@ it fails:
    versions answering mid-flip, the served step monotone and advancing,
    the kill fired).  Printed: each part's seconds.
 
+18. ``tools/loadsim.py --scenario=overload`` (``overload_end_to_end``, a
+   process of its own session, stopped past ``OVERLOAD_LIMIT_S``) at the
+   root's defaults: the MNIST MLP's PS, chief, 2 workers and 2 replicas
+   (4096 hidden units, a queue of 8 predicts, a 500 ms queue deadline,
+   batches of 2; the PS and the replicas unsupervised: nothing kills
+   them) as processes of the port's CLI on the card;
+   16 clients paced at 100 qps over a 30 s window, and from 35% to 65% of
+   it 64 unpaced clients in 4 processes sending 64-row predicts.  Gates:
+   every verdict gate of the root's overload (no failed predict before
+   the burst, goodput during it at least 50 qps, no lease expired, every
+   member kept, p99 back under 1.5x the baseline's within 20 s of the
+   burst's end, the served step monotone and advancing, and admission
+   control tripped: batcher refusals or core sheds).  Printed: the
+   baseline p99, the burst's goodput and its clients' and the paced
+   predicts, the refusals, sheds and retry counters, the recovery, the
+   lease expirations and members, the timeline.
+
 Phase 4 still runs the split kernels: at T 2048 the blocks give
 nq = nk = 2, under the fused regime.  No path is cut in depth.
 
@@ -500,6 +519,7 @@ without one, and without the repository beside it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2456,9 +2476,41 @@ def _ps_param_hash(trainer) -> str:
     return hashlib.sha256(flat_params_of(trainer.params).tobytes()).hexdigest()[:16]
 
 
+@contextlib.contextmanager
+def torch_settings_restored():
+    """Put back, on leaving, the process-wide settings that
+    ``utils.determinism.enable`` (``--deterministic``) turns: torch's
+    deterministic algorithms, cuDNN's deterministic and benchmark flags,
+    TF32 in matmuls and cuDNN, and ``CUBLAS_WORKSPACE_CONFIG``."""
+    import os
+
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    workspace = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) = saved[2:]
+        if workspace is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = workspace
+
+
 def ps_emulation_end_to_end(card: str) -> dict:
     """Train W1 and W2 on the in-process PS emulation through their CLIs
-    (the module docstring's phase 8); returns each run's measurements."""
+    (the module docstring's phase 8); returns each run's measurements.
+    The ``--deterministic`` runs' process-wide settings end with the
+    phase."""
+    with torch_settings_restored():
+        return _ps_emulation(card)
+
+
+def _ps_emulation(card: str) -> dict:
     import re
 
     from distributed_tensorflow_examples_tpu_torch.data.pipeline import InMemoryPipeline
@@ -5246,10 +5298,6 @@ def moe_end_to_end(card: str) -> dict:
     part's measurements and launches."""
     registry_dir = ROOT / "build" / "smoke_moe_registry"
     shutil.rmtree(registry_dir, ignore_errors=True)
-    # Phase 8's --deterministic runs leave torch's deterministic algorithms
-    # on in this process; the MoE paths run as the CLI runs them by default.
-    deterministic = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(False)
     t0 = time.perf_counter()
     try:
         a = moe_train(card, registry_dir)
@@ -5260,7 +5308,6 @@ def moe_end_to_end(card: str) -> dict:
         tb = time.perf_counter() - t0 - ta
         c = moe_serve(card, registry_dir, a["version"])
     finally:
-        torch.use_deterministic_algorithms(deterministic)
         shutil.rmtree(registry_dir, ignore_errors=True)
     log(f"  phase 15: (a) {ta:.1f} s, (b) {tb:.1f} s, (c) {time.perf_counter() - t0 - ta - tb:.1f} s")
     return {"train": a, "expert_mesh": b, "serve": c}
@@ -5713,54 +5760,97 @@ def _ulysses_gate(name: str, rec: dict, launches: dict, tc: dict, fused: bool) -
                          f"and as many backwards, {'some' if fused else 'no'} fused")
 
 
-def _canary_start(tmp: Path) -> subprocess.Popen:
-    """``tools/loadsim.py --scenario=canary`` in a session of its own (so a
-    timeout can stop its tasks with it), its output into ``tmp``."""
+def _loadsim_start(tmp: Path, argv: list) -> subprocess.Popen:
+    """``tools/loadsim.py`` with ``argv`` on the card, in a session of its
+    own (so a timeout can stop its tasks with it), its output into
+    ``tmp``."""
     import os
 
     out = open(tmp / "loadsim.out", "wb")
     try:
         return subprocess.Popen(
             [sys.executable, "-m", "distributed_tensorflow_examples_tpu_torch.tools.loadsim",
-             *CANARY_ARGS, "--device=cuda", f"--logdir={tmp}",
-             f"--out={tmp / 'verdict.json'}"],
+             *argv, "--device=cuda", f"--logdir={tmp}", f"--out={tmp / 'verdict.json'}"],
             cwd=str(ROOT), stdout=out, stderr=subprocess.STDOUT, start_new_session=True,
             env={**os.environ, "PYTHONPATH": str(ROOT)})
     finally:
         out.close()
 
 
-def _canary_finish(proc: subprocess.Popen, tmp: Path, t_start: float) -> dict:
-    """Wait for the canary (stopping its session past ``CANARY_LIMIT_S``),
-    gate its verdict and return it."""
+def loadsim_on_card(argv: list, limit_s: float, label: str, ok=lambda verdict: True) -> dict:
+    """One ``tools/loadsim.py`` run on the card, alone, its session stopped
+    past ``limit_s``: its verdict, gated on every gate and on ``ok``; on a
+    failure the tasks' last lines are printed."""
     import os
     import signal
+    import tempfile
 
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_loadsim_"))
+    proc = _loadsim_start(tmp, argv)
     try:
-        rc = proc.wait(timeout=max(1.0, CANARY_LIMIT_S - (time.perf_counter() - t_start)))
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.wait()
-        rc = None
-    text = (tmp / "loadsim.out").read_text(errors="replace")
-    verdict_path = tmp / "verdict.json"
-    verdict = json.loads(verdict_path.read_text()) if verdict_path.exists() else {}
-    if rc != 0 or not verdict.get("slo_pass") or verdict.get("predict_failed") != 0:
-        for log_file in sorted(tmp.glob("*.log")):
-            log(f"  --- {log_file.name} (last lines)\n"
-                + "\n".join(log_file.read_text(errors="replace").splitlines()[-15:]))
-        log("  --- loadsim (last lines)\n" + "\n".join(text.splitlines()[-20:]))
-        raise SystemExit(f"phase 17 canary: rc {rc}, gates {verdict.get('gates')}, failed "
-                         f"predicts {verdict.get('predict_failed')}")
-    return verdict
+        try:
+            rc = proc.wait(timeout=limit_s)
+        except subprocess.TimeoutExpired:
+            rc = None
+        text = (tmp / "loadsim.out").read_text(errors="replace")
+        verdict_path = tmp / "verdict.json"
+        verdict = json.loads(verdict_path.read_text()) if verdict_path.exists() else {}
+        if rc != 0 or not verdict.get("slo_pass") or not ok(verdict):
+            for log_file in sorted(tmp.glob("*.log")):
+                log(f"  --- {log_file.name} (last lines)\n"
+                    + "\n".join(log_file.read_text(errors="replace").splitlines()[-15:]))
+            log("  --- loadsim (last lines)\n" + "\n".join(text.splitlines()[-20:]))
+            raise SystemExit(f"{label}: rc {rc}, gates {verdict.get('gates')}, failed predicts "
+                             f"{verdict.get('predict_failed')}")
+        return verdict
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: ``tools/loadsim.py --scenario=overload`` at the root's defaults: 100 qps
+#: from 16 paced clients over a 30 s window; from 35% to 65% of it, 64
+#: unpaced clients in 4 processes send 64-row predicts; the replicas of the
+#: 4096-wide MLP hold 8 predicts in their queue and shed those that waited
+#: past 500 ms.  Its gates: goodput at least half the paced qps during the
+#: burst, p99 back under 1.5x the baseline's (50 ms at least) within 20 s
+#: of the burst's end.  The tool's own recovery wait ends 20 s past the
+#: burst; the limit covers the boot.
+OVERLOAD_ARGS = ["--scenario=overload"]
+OVERLOAD_LIMIT_S = 240.0
+
+
+def overload_end_to_end(card: str) -> dict:
+    """Phase 18 (the module docstring): the root's overload acceptance over
+    a cluster of the port's CLI on the card; returns its verdict."""
+    t0 = time.perf_counter()
+    v = loadsim_on_card(OVERLOAD_ARGS, OVERLOAD_LIMIT_S, "phase 18 overload")
+    per_proc = v["burst_threads"] // v["burst_procs"]
+    log(f"  loadsim --scenario=overload: gates {json.dumps(v['gates'])} [{card}]")
+    log(f"  baseline {v['baseline_ok']} ok, {v['baseline_failed']} failed, p99 "
+        f"{v['baseline_p99_ms']:.1f} ms; burst ({v['burst_procs']} processes x {per_proc} "
+        f"clients, {v['burst_window_s']} s): goodput {v['burst_goodput_qps']} qps (floor "
+        f"{v['goodput_floor_qps']}), burst clients {v['burst_ok']} ok / {v['burst_failed']} "
+        f"failed, paced {v['burst_paced']['ok']} ok / {v['burst_paced']['failed']} failed "
+        f"(p99 {v['burst_paced']['p99_ms']:.1f} ms)")
+    log(f"  admission: batcher refusals {v['batcher_overloads']}, core sheds {v['shed_total']} "
+        f"(queue deadline {v['queue_deadline_drops']}), retry {json.dumps(v['retry'])}; "
+        f"recovered in {v['recovery_s']} s to p99 <= {v['recovery_target_ms']} ms "
+        f"(windows {json.dumps(v['recovery_windows'])}); lease expirations "
+        f"{v['leases_expired']}; members {v['members_before']} -> {v['members_after']}")
+    log(f"  paced totals {v['predict_ok']} ok, {v['predict_failed']} failed, p50 "
+        f"{v['p50_ms']:.1f} / p99 {v['p99_ms']:.1f} ms; served step {v['step_first']} -> "
+        f"{v['step_last']}; window {v['window_s']} s; the timeline (s from the start) "
+        f"{json.dumps(v['timeline_s'])}; phase 18 {time.perf_counter() - t0:.1f} s")
+    return v
 
 
 def tools_end_to_end(card: str) -> dict:
     """Phase 17: the port's twins of the root measuring tools, their
     card-side parts on the card, one after another: each measures a
     plane of the host the others would load."""
-    import tempfile
-
     from distributed_tensorflow_examples_tpu_torch.tools import (
         data_service_bench, loader_bench, ps_transport_bench, serving_bench, ulysses_ab)
     from distributed_tensorflow_examples_tpu_torch.tools._hostbench import rounded
@@ -5802,18 +5892,8 @@ def tools_end_to_end(card: str) -> dict:
             raise SystemExit(f"phase 17 (c): {name} checks {d['checks']}")
     t_c = time.perf_counter()
     # (d) the canary over a cluster of the port's CLI.
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_canary_"))
-    canary = _canary_start(tmp)
-    try:
-        verdict = _canary_finish(canary, tmp, t_c)
-    finally:
-        if canary.poll() is None:
-            import os
-            import signal
-
-            os.killpg(canary.pid, signal.SIGKILL)
-            canary.wait()
-    shutil.rmtree(tmp, ignore_errors=True)
+    verdict = loadsim_on_card(CANARY_ARGS, CANARY_LIMIT_S, "phase 17 canary",
+                              ok=lambda v: v.get("predict_failed") == 0)
     log(f"  (d) loadsim --scenario=canary: gates {json.dumps(verdict['gates'])}; predicts "
         f"{verdict['predict_ok']} ok, {verdict['predict_failed']} failed, p50 "
         f"{verdict['p50_ms']:.1f} / p99 {verdict['p99_ms']:.1f} ms at {verdict['qps_achieved']} "
@@ -6101,6 +6181,10 @@ def main() -> int:
                 for name in SP_KERNELS}
     ua_total = {name: sum(ua_paths[name].values()) for name in SP_KERNELS}
 
+    phase("18", "phase 18: the overload acceptance (loadsim --scenario=overload at the root's "
+        "defaults) over a cluster of the port's CLI on the card")
+    overload_end_to_end(card)
+
     csrc = "distributed_tensorflow_examples_tpu_torch/ops/csrc"
     tpu = "distributed_tensorflow_examples_tpu/ops/flash_attention.py"
     record = {"kernels": [
@@ -6182,7 +6266,7 @@ def main() -> int:
     ends = [t for _label, t in marks[1:]] + [time.perf_counter()]
     log("phase seconds: " + json.dumps({label: round(e - t, 1)
                                        for (label, t), e in zip(marks, ends)})
-        + f"; phases 1-17 {time.perf_counter() - t_run:.1f} s")
+        + f"; phases 1-18 {time.perf_counter() - t_run:.1f} s")
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

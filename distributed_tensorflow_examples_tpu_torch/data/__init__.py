@@ -13,6 +13,20 @@
 - ``streams``        the ``--data_dir`` resolution over all four.
 """
 
-from .pipeline import InMemoryPipeline, prefetch_to_device  # noqa: F401
-from .filestream import FileStreamPipeline  # noqa: F401
-from . import data_service, datasets, filestream, native_loader, pipeline, streams  # noqa: F401
+
+import importlib
+
+_SUBMODULES = ("data_service", "datasets", "filestream", "native_loader", "pipeline", "streams")
+_NAMES = {"InMemoryPipeline": "pipeline", "prefetch_to_device": "pipeline",
+          "FileStreamPipeline": "filestream"}
+
+
+def __getattr__(name: str):
+    """The submodules and their names load on first use: ``pipeline``
+    imports torch, ``data_service`` and ``filestream`` do not, so the data
+    service's clients and scrapers run without it."""
+    if name in _SUBMODULES:
+        return importlib.import_module(f".{name}", __name__)
+    if name in _NAMES:
+        return getattr(importlib.import_module(f".{_NAMES[name]}", __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

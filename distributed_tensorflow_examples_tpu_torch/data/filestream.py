@@ -48,8 +48,6 @@ from typing import Callable, Iterator
 
 import numpy as np
 
-from ..parallel import collectives
-
 _SHARD_FMT = "shard-{:05d}.npz"
 
 
@@ -132,6 +130,8 @@ class FileStreamPipeline:
         self.files = list_shards(files) if isinstance(files, str) else list(files)
         if not self.files:
             raise ValueError(f"no shard files in {files!r}")
+        from ..parallel import collectives  # torch: only a pipeline needs the rank
+
         self.pidx = collectives.axis_index() if process_index is None else process_index
         self.pcount = collectives.axis_size() if process_count is None else process_count
         if batch_size % self.pcount:

@@ -5,7 +5,9 @@ the frames, HELLO and batch codec are byte-identical, so a client of either
 package talks to a server of the other.  One difference: a ``bfloat16``
 field is encoded from, and decoded to, a CPU ``torch.bfloat16`` tensor over
 its raw 2-byte payload (the JAX package names that dtype through
-``ml_dtypes``, which the port does not need).
+``ml_dtypes``, which the port does not need).  ``torch`` is imported only
+where such a field is met, so the clients of the host planes (the serving
+and PS clients, the scrapers, the load generators) run without it.
 
 All three socket services — the PS state service client
 (``parallel/ps_service.py`` -> ``native/ps_server.cc``), the disaggregated
@@ -51,8 +53,9 @@ from __future__ import annotations
 import json
 import struct
 
+import sys
+
 import numpy as np
-import torch
 
 #: Wire protocol version (must match native/ps_server.cc kWireVersion).
 #: v3 (r12): the HELLO b-word's shard-identity fields moved (count bits
@@ -753,7 +756,10 @@ def encode_batch(batch: dict) -> list:
     fields, bufs = [], []
     for k in sorted(batch):
         src = batch[k]
-        if isinstance(src, torch.Tensor) and src.dtype == torch.bfloat16:
+        # A torch tensor exists only where torch is imported already (and
+        # another thread may be importing it: a partial module has no Tensor).
+        torch = sys.modules.get("torch")
+        if isinstance(src, getattr(torch, "Tensor", ())) and src.dtype == torch.bfloat16:
             # numpy has no bfloat16 of its own: the field travels as its
             # raw 2-byte payload under the "bfloat16" spelling, the same
             # bytes an ml_dtypes array puts on the wire.
@@ -798,6 +804,8 @@ def _as_field(spec: str, a: np.ndarray):
     first when ``a`` is a read-only view into a receive buffer)."""
     if spec != BF16:
         return a
+    import torch
+
     if not a.flags.writeable:
         a = a.copy()
     return torch.from_numpy(a).view(torch.bfloat16)

@@ -22,5 +22,15 @@ from .client import (  # noqa: F401
     ServeUnavailableError,
 )
 from .deploy import RollingDeploy, canary_verdict, make_pinned_factory  # noqa: F401
-from .model_server import ModelReplicaServer, host_serve_task  # noqa: F401
 from .registry import ModelRegistry, RegistryError  # noqa: F401
+
+
+def __getattr__(name: str):
+    """``ModelReplicaServer`` and ``host_serve_task`` load ``model_server``
+    (and torch) on first use, so the clients, the pool and its discovery
+    import without torch."""
+    if name in ("ModelReplicaServer", "host_serve_task"):
+        from . import model_server
+
+        return getattr(model_server, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -28,7 +28,6 @@ import threading
 import time
 
 from ..utils import faults, telemetry
-from . import model_server as msrv_lib
 
 log = logging.getLogger("dtx.autoscale")
 
@@ -219,10 +218,12 @@ def make_replica_factory(param_shapes, predict_fn, ps_addrs, **server_kw):
     through ``server_kw`` and every autoscaled replica pins the SAME
     immutable version, so demand-driven scale-up cannot drift a versioned
     pool (version flips are :class:`serve.deploy.RollingDeploy`'s job)."""
+    from .model_server import ModelReplicaServer
+
     base_role = faults.current_role() or "serve"
 
-    def make(i: int) -> msrv_lib.ModelReplicaServer:
-        return msrv_lib.ModelReplicaServer(
+    def make(i: int) -> ModelReplicaServer:
+        return ModelReplicaServer(
             param_shapes, predict_fn, list(ps_addrs), port=0,
             role=f"{base_role}-es{i}", **server_kw,
         )

@@ -48,10 +48,21 @@ import numpy as np
 from ..parallel import retry, tenancy, wire
 from ..utils import faults, telemetry
 from ..utils.metrics import LatencyRecorder
-from .model_server import (
-    BAD_SESSION, ERR, NO_DECODER, NO_MODEL, OVERLOAD, SRV_DECODE_CLOSE,
-    SRV_DECODE_NEXT, SRV_DECODE_OPEN, SRV_PREDICT, SRV_SHUTDOWN, SRV_STATS,
-)
+
+# The msrv wire's ops and statuses, named from the wire's registry as
+# ``model_server`` names them: the client does not import the replica's
+# module, which imports torch.
+SRV_PREDICT = wire.SRV_OPS["PREDICT"]
+SRV_STATS = wire.SRV_OPS["STATS"]
+SRV_SHUTDOWN = wire.SRV_OPS["SHUTDOWN"]
+SRV_DECODE_OPEN = wire.SRV_OPS["DECODE_OPEN"]
+SRV_DECODE_NEXT = wire.SRV_OPS["DECODE_NEXT"]
+SRV_DECODE_CLOSE = wire.SRV_OPS["DECODE_CLOSE"]
+ERR = wire.SRV_STATUS["ERR"]
+OVERLOAD = wire.SRV_STATUS["OVERLOAD"]
+NO_MODEL = wire.SRV_STATUS["NO_MODEL"]
+BAD_SESSION = wire.SRV_STATUS["BAD_SESSION"]
+NO_DECODER = wire.SRV_STATUS["NO_DECODER"]
 
 
 class ServeError(RuntimeError):
